@@ -17,7 +17,8 @@ setup(
         "TPU-native JAX framework for uncertainty-aware domain-adaptive "
         "remote-sensing segmentation"
     ),
-    packages=find_packages(include=["uemda_tpu", "uemda_tpu.*"]),
+    packages=find_packages(include=["uemda_tpu", "uemda_tpu.*",
+                                    "uemda_tpu_torch", "uemda_tpu_torch.*"]),
     python_requires=">=3.10",
     install_requires=[
         "jax>=0.4.30",

@@ -1,0 +1,68 @@
+"""Synthetic datasets for tests and end-to-end checks.
+
+The port's copy of ``uemda_tpu/datasets/synthetic.py``: blocky class regions
+with class-dependent colors plus noise; a color shift emulates a domain gap.
+:func:`synthetic_split` builds a split in memory (no files, no PIL);
+:func:`make_synthetic_dataset` writes the reference's on-disk layout
+(``img_dir/{train,val}`` + ``ann_dir``).
+"""
+
+import os
+from typing import Tuple
+
+import numpy as np
+
+from uemda_tpu_torch.datasets.base import ArrayDataset
+from uemda_tpu_torch.datasets.meta import DatasetMeta
+
+
+def _blocky_labels(rng, hw: int, num_classes: int, cell: int = 16) -> np.ndarray:
+    g = rng.integers(0, num_classes, size=(hw // cell, hw // cell))
+    return np.kron(g, np.ones((cell, cell), np.int64)).astype(np.int32)
+
+
+def _render(rng, label: np.ndarray, num_classes: int, shift: float = 0.0,
+            noise: float = 12.0):
+    """Class-colored image with noise; ``shift`` emulates a domain gap."""
+    palette = (
+        np.linspace(40, 215, num_classes)[:, None]
+        * np.array([[1.0, 0.8, 0.6]])
+    )  # (C, 3)
+    img = palette[label] + rng.normal(0, noise, size=label.shape + (3,))
+    img = img + shift
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def synthetic_split(meta: DatasetMeta, n: int, hw: int, seed: int = 0,
+                    domain_shift: float = 0.0) -> ArrayDataset:
+    """``n`` images of ``hw`` x ``hw`` with their labels, in memory."""
+    rng = np.random.default_rng(seed)
+    labels, images = [], []
+    for _ in range(n):
+        label = _blocky_labels(rng, hw, meta.num_classes)
+        images.append(_render(rng, label, meta.num_classes, shift=domain_shift))
+        labels.append(label)
+    return ArrayDataset(meta, np.stack(images), np.stack(labels))
+
+
+def make_synthetic_dataset(root: str, meta: DatasetMeta, n_train: int = 8,
+                           n_val: int = 2, hw: int = 64, seed: int = 0,
+                           domain_shift: float = 0.0) -> Tuple[str, str]:
+    """Write train/val splits as PNGs; returns (img_dir_train,
+    ann_dir_train)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("val", n_val)):
+        img_dir = os.path.join(root, "img_dir", split)
+        ann_dir = os.path.join(root, "ann_dir", split)
+        os.makedirs(img_dir, exist_ok=True)
+        os.makedirs(ann_dir, exist_ok=True)
+        for i in range(n):
+            label = _blocky_labels(rng, hw, meta.num_classes)
+            img = _render(rng, label, meta.num_classes, shift=domain_shift)
+            raw = (label - meta.offset).astype(np.uint8)
+            Image.fromarray(img).save(os.path.join(img_dir, f"tile_{i:03d}.png"))
+            Image.fromarray(raw).save(os.path.join(ann_dir, f"tile_{i:03d}.png"))
+    return (os.path.join(root, "img_dir", "train"),
+            os.path.join(root, "ann_dir", "train"))

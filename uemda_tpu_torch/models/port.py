@@ -1,0 +1,108 @@
+"""Weights carried across: flax variables and checkpoints -> the port's
+state dict.
+
+The port's own copy of the mapping in ``uemda_tpu/models/port_torch.py:
+182-276`` (``export_deeplabv2``). Keys are the reference's module names
+(``encoder.resnet.*``, ``layer5.*``/``layer6.*`` or ``cls_pred.*``), which
+are also the port's, so a reference ``.pth`` loads directly. Conventions:
+flax conv kernel (kh, kw, I, O) -> torch weight (O, I, kh, kw); flax BN
+``scale``/``bias`` params and ``mean``/``var`` batch_stats -> ``weight``/
+``bias``/``running_mean``/``running_var``.
+"""
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def _conv_back(w) -> torch.Tensor:
+    return torch.from_numpy(
+        np.ascontiguousarray(np.transpose(np.asarray(w, np.float32), (3, 2, 0, 1))))
+
+
+def _vec(v) -> torch.Tensor:
+    return torch.from_numpy(np.array(v, np.float32))
+
+
+def _bn_back(out: Dict[str, torch.Tensor], prefix: str, p: Dict, s: Dict):
+    out[prefix + ".weight"] = _vec(p["bn"]["scale"])
+    out[prefix + ".bias"] = _vec(p["bn"]["bias"])
+    out[prefix + ".running_mean"] = _vec(s["bn"]["mean"])
+    out[prefix + ".running_var"] = _vec(s["bn"]["var"])
+    out[prefix + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+
+def _backbone(enc_p: Dict, enc_s: Dict, deep_stem: bool) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    if deep_stem:
+        for i, (ci, bi) in enumerate([(0, 1), (3, 4), (6, 7)]):
+            out[f"stem.{ci}.weight"] = _conv_back(enc_p[f"stem_conv{i + 1}"]["kernel"])
+            _bn_back(out, f"stem.{bi}", enc_p[f"stem_bn{i + 1}"],
+                     enc_s[f"stem_bn{i + 1}"])
+    else:
+        out["conv1.weight"] = _conv_back(enc_p["conv1"]["kernel"])
+        _bn_back(out, "bn1", enc_p["bn1"], enc_s["bn1"])
+    for lname, ltree in enc_p.items():
+        if not lname.startswith("layer"):
+            continue
+        for bname, btree in ltree.items():
+            tp = f"{lname}.{bname[len('block'):]}"
+            for sub, stree in btree.items():
+                if sub.startswith("conv"):
+                    out[f"{tp}.{sub}.weight"] = _conv_back(stree["kernel"])
+                elif sub.startswith("bn"):
+                    _bn_back(out, f"{tp}.{sub}", stree, enc_s[lname][bname][sub])
+                elif sub == "ds_conv":
+                    out[f"{tp}.downsample.0.weight"] = _conv_back(stree["kernel"])
+                elif sub == "ds_bn":
+                    _bn_back(out, f"{tp}.downsample.1", stree,
+                             enc_s[lname][bname][sub])
+    return out
+
+
+def state_dict_from_jax(variables: Dict, use_ppm: bool = True,
+                        deep_stem: bool = False, pool_scales=(1, 2, 3, 6),
+                        dilations=(6, 12, 18, 24)) -> Dict[str, torch.Tensor]:
+    """flax ``{'params', 'batch_stats'}`` (nested dicts of numpy arrays) ->
+    the port's state dict (f32 CPU tensors) under the reference's keys."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    out = {"encoder.resnet." + k: v for k, v in _backbone(
+        params["encoder"], stats.get("encoder", {}), deep_stem).items()}
+    for hn in ("layer5", "layer6", "cls_pred"):
+        if hn not in params:
+            continue
+        hp, hs = params[hn], stats.get(hn, {})
+        if use_ppm:
+            for i, scale in enumerate(pool_scales):
+                out[f"{hn}.ppm.{i}.1.weight"] = _conv_back(hp[f"ppm{scale}_conv"]["kernel"])
+                _bn_back(out, f"{hn}.ppm.{i}.2", hp[f"ppm{scale}_bn"],
+                         hs[f"ppm{scale}_bn"])
+            out[f"{hn}.conv_last.0.weight"] = _conv_back(hp["last_conv"]["kernel"])
+            _bn_back(out, f"{hn}.conv_last.1", hp["last_bn"], hs["last_bn"])
+            out[f"{hn}.conv_last.4.weight"] = _conv_back(hp["classifier"]["kernel"])
+            out[f"{hn}.conv_last.4.bias"] = _vec(hp["classifier"]["bias"])
+        else:
+            for i, d in enumerate(dilations):
+                out[f"{hn}.conv2d_list.{i}.weight"] = _conv_back(hp[f"aspp_d{d}"]["kernel"])
+                out[f"{hn}.conv2d_list.{i}.bias"] = _vec(hp[f"aspp_d{d}"]["bias"])
+    return out
+
+
+def save_npz(path: str, state_dict: Dict[str, torch.Tensor]) -> str:
+    """Write a state dict as ``.npz`` (one array per key)."""
+    np.savez(path, **{k: v.detach().cpu().numpy() for k, v in state_dict.items()})
+    return path
+
+
+def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A reference ``.pth``/``.pt`` (optionally under ``state_dict``) or an
+    ``.npz`` written by :func:`save_npz` -> state dict on the CPU."""
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            return {k: torch.from_numpy(z[k]) for k in z.files}
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
