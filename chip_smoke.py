@@ -6,17 +6,26 @@ Run from the root of a checkout on a machine with one NVIDIA H100::
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``uemda_tpu_torch/kernels/csrc``,
-holds each against its plain PyTorch version at the serving shapes, drives
-the serving path (flagship ResNet-50 OS16 dual-PPM model, random weights
-from a seed) through the standard eval forward, the fused-stem fast path and
-slide + 8-view TTA evaluation, times kernels and forwards with CUDA events,
-and prints one line per phase. Any failed phase exits nonzero. The
-second-to-last line is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``. It imports nothing of JAX.
+holds each against its plain PyTorch version at the shapes of the two main
+paths, and drives both (flagship ResNet-50 OS16 dual-PPM model, random
+weights from a seed):
+
+* serving: the standard eval forward, the fused-stem fast path and slide +
+  8-view TTA evaluation;
+* stage-1 training (``[train]``): one f32 step on the card against the same
+  step on the CPU, then 30 bf16 steps with CORAL at the 2urban geometry
+  (synthetic 1024^2 LoveDA tiles cropped to 512^2 by the K9 kernel, batch 8)
+  through ``run_training_loop``, ending in an evaluation.
+
+It times kernels, forwards and steps with CUDA events, profiles both paths,
+and prints one line per phase. Any failed check prints FAIL and exits
+nonzero. The second-to-last line is the kernels' JSON record; the last line
+is ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
 
 import copy
 import json
+import logging
 import os
 import re
 import subprocess
@@ -61,7 +70,9 @@ def check_close(name, got, ref, atol, rtol):
 
 
 def cuda_ms(fn, iters=20, warmup=3):
-    """Mean device time of fn() in ms over ``iters`` back-to-back calls."""
+    """Time per call of fn() in ms between CUDA events around ``iters``
+    back-to-back calls: the device's time, including any wait for the host
+    when the caller's host work is the slower side."""
     import torch
 
     for _ in range(warmup):
@@ -75,6 +86,235 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, iters=20, warmup=3, spin_cycles=200_000_000):
+    """Device time per call of fn() in ms: a spinner kernel (about 0.1 s)
+    keeps the device busy while the host enqueues ``iters`` calls, so the
+    events around them time back-to-back device work, not the wrapper's host
+    work."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin_cycles)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def profile_rows(prof, n):
+    """(by kernel, by operator) device time per iteration in us, largest
+    first, and the total kernel time per iteration."""
+    import torch
+
+    events = prof.key_averages()
+    rows = [(e.key, e.self_device_time_total / n) for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    ops = [(e.key, e.self_device_time_total / n) for e in events
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    ops.sort(key=lambda r: -r[1])
+    return rows, ops, sum(t for _, t in rows)
+
+
+def train_phase(dev):
+    """The stage-1 training path. (a) One f32 step on the card against the
+    same step on the CPU's plain path. (b) The flagship run through
+    ``run_training_loop``, every launch count set to 0 just before it and
+    read just after; returns those counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from uemda_tpu_torch.config import PRESETS
+    from uemda_tpu_torch.datasets.base import infinite_batches
+    from uemda_tpu_torch.datasets.meta import LoveDA
+    from uemda_tpu_torch.datasets.synthetic import synthetic_split
+    from uemda_tpu_torch.ops.crop import crop_normalize
+    from uemda_tpu_torch.ops.insnorm import instance_norm, instance_norm_backward
+    from uemda_tpu_torch.ops.stem import stem_pool
+    from uemda_tpu_torch.ops.tail import tail_upsample_softmax_mean
+    from uemda_tpu_torch.train.loop import (
+        batch_to_device,
+        build_model,
+        build_state,
+        default_hparams,
+        make_eval_hook,
+        run_training_loop,
+    )
+    from uemda_tpu_torch.datasets.augment import draw_augment
+    from uemda_tpu_torch.train.steps import StepDraws, make_src_step
+
+    cfg = PRESETS["2urban"]  # LoveDA: 7 classes, 1024^2 tiles, crop 512^2
+    nc = cfg.class_num
+
+    # (a) f32, TF32 off: ResNet-50 OS16 dual PPM at 128^2, batch 2, CORAL
+    # on; the same weights, batches, augmentation draws and dropout masks on
+    # both devices, at step 1 (lr(1) != 0) of a 100-step schedule
+    small = dataclasses.replace(cfg, crop=(128, 128))
+    g = torch.Generator().manual_seed(1)
+    cpu_model = build_model(small, device="cpu",
+                            generator=torch.Generator().manual_seed(0))
+    gpu_model = build_model(small, device=dev,
+                            generator=torch.Generator().manual_seed(0))
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    hp32 = default_hparams(small, align_domain=True, compute_dtype="float32")
+    data = synthetic_split(LoveDA, n=4, hw=160, seed=2)
+    bs = {"image": data.images[:2], "label": data.labels[:2]}
+    bt = {"image": data.images[2:]}
+    drop = [{h: torch.rand(2, 512, 8, 8, generator=g) < 0.9
+             for h in ("layer5", "layer6")} for _ in range(2)]
+    draws = StepDraws(draw_augment(g, 2, (160, 160), small.crop),
+                      draw_augment(g, 2, (160, 160), small.crop), *drop)
+    out = {}
+    for name, model, d in (("cpu", cpu_model, "cpu"), ("gpu", gpu_model, dev)):
+        state = build_state(model, small, 100)
+        state.step = state.opt.count = 1
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        metrics = make_src_step(model, hp32)(
+            state, batch_to_device(bs, d), batch_to_device(bt, d), 0,
+            draws=draws)
+        out[name] = (
+            {k: float(v) for k, v in metrics.items()},
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            {n: (p.detach() - before[n]).cpu()
+             for n, p in model.named_parameters()})
+    (m_c, g_c, u_c), (m_g, g_g, u_g) = out["cpu"], out["gpu"]
+    for k in m_c:
+        rel = abs(m_g[k] - m_c[k]) / max(abs(m_c[k]), 1e-30)
+        if not rel <= 1e-4:  # f32 sums in other orders; measured in PERF.md
+            fail(f"f32 step {k}: card {m_g[k]} vs CPU {m_c[k]} (rel {rel:.3g})")
+
+    def rel_max(a, b):
+        num = max(float((a[n] - b[n]).abs().max()) for n in a)
+        return num / max(float(b[n].abs().max()) for n in b)
+
+    e_g, e_u = rel_max(g_g, g_c), rel_max(u_g, u_c)
+    worst = max(g_c, key=lambda n: float((g_g[n] - g_c[n]).abs().max()))
+    # the gradients of a random-weight net at 8x8 features are
+    # ill-conditioned in f32 (PERF.md, stage-1 section): 2e-2 of max |g|
+    if not (e_g <= 2e-2 and e_u <= 2e-2):
+        fail(f"f32 step gradients: max abs err / max |g| {e_g:.3g}, update "
+             f"{e_u:.3g} (limit 2e-2), worst {worst}")
+    phase("train", f"f32 step on the card vs the CPU plain path (ResNet-50 "
+          f"OS16, 128^2, batch 2, CORAL, step 1): losses "
+          f"{json.dumps({k: [m_g[k], m_c[k]] for k in m_c})}; gradients max "
+          f"abs err / max |g| {e_g:.3g} (worst {worst}), updates {e_u:.3g}")
+    del cpu_model, gpu_model, out, g_c, g_g, u_c, u_g
+
+    # (b) the flagship: 2urban geometry, bf16, CORAL, batch 8, 30 steps with
+    # the schedule's horizon at 30 (warm-up 1 step), synthetic 1024^2 tiles
+    steps, batch = 30, BATCH
+    src = synthetic_split(LoveDA, n=2 * batch, hw=2 * TILE, seed=3)
+    tgt = synthetic_split(LoveDA, n=2 * batch, hw=2 * TILE, seed=4,
+                          domain_shift=20.0)
+    val = synthetic_split(LoveDA, n=2, hw=2 * TILE, seed=5, domain_shift=20.0)
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    state = build_state(model, cfg, steps)
+    step_fn = make_src_step(model, default_hparams(cfg, align_domain=True))
+    eval_fn, _ = make_eval_hook(cfg, None, dataset=val)
+    src_it = infinite_batches(src, batch, seed=0)
+    tgt_it = infinite_batches(tgt, batch, seed=1)
+    losses, events = [], []
+
+    def on_step(i, metrics):
+        losses.append(metrics)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    logger = logging.getLogger("chip_smoke.train")
+    wrappers = (instance_norm, instance_norm_backward, crop_normalize,
+                stem_pool, tail_upsample_softmax_mean)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers:
+        fn.launches = 0
+    t0 = time.time()
+    best = run_training_loop(state, step_fn, src_it, tgt_it, steps, logger,
+                             eval_every=steps, log_every=10, eval_fn=eval_fn,
+                             seed=2333, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = {fn.__name__: fn.launches for fn in wrappers}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss = [{k: float(v) for k, v in m.items()} for m in losses]
+    if len(loss) != steps or not all(np.isfinite(list(m.values())).all()
+                                     for m in loss):
+        fail(f"flagship training: {len(loss)} steps, losses {loss}")
+    if not loss[-1]["loss"] < loss[0]["loss"]:
+        fail(f"flagship training: loss did not fall ({loss[0]['loss']} -> "
+             f"{loss[-1]['loss']})")
+    for name in ("instance_norm", "instance_norm_backward", "crop_normalize"):
+        if counts[name] <= 0:
+            fail(f"{name} was not launched on the training path")
+    w0 = 5  # steps 1-5 warm cuDNN's algorithm choice and the allocator
+    ms_step = events[w0 - 1].elapsed_time(events[-1]) / (steps - w0)
+    phase("train", f"flagship stage 1 (ResNet-50 OS16 dual PPM, 2urban: 7 "
+          f"classes, 1024^2 synthetic tiles -> 512^2 crops, batch {batch}, "
+          f"bf16, CORAL) {steps} steps + evaluation in {wall:.2f} s; loss "
+          f"{loss[0]['loss']:.5g} -> {loss[-1]['loss']:.5g} (seg "
+          f"{loss[0]['loss_seg']:.5g} -> {loss[-1]['loss_seg']:.5g}, CORAL "
+          f"{loss[0]['loss_domain']:.4g} -> {loss[-1]['loss_domain']:.4g}); "
+          f"mIoU {best['miou']:.5f} (random init)")
+    phase("train", "losses by step: " + json.dumps(
+        [round(m["loss"], 5) for m in loss]))
+    phase("train", f"steps {w0 + 1}-{steps}: {ms_step:.3f} ms/step by CUDA "
+          f"events, {batch / ms_step * 1e3:.2f} source images/s "
+          f"({2 * batch / ms_step * 1e3:.2f} with the target batch); peak "
+          f"memory {peak:.2f} GiB")
+    phase("launches", f"training path (30 steps + evaluation): "
+          f"{json.dumps(counts)}")
+
+    # where a step's device time goes: 3 more steps under the profiler
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step_fn(state, batch_to_device(next(src_it), dev),
+                    batch_to_device(next(tgt_it), dev), 2333)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+    rows, ops, total_us = profile_rows(prof, 3)
+    if total_us > 0:
+        phase("profile", f"stage-1 step (bf16, batch {batch}, CORAL), 3 "
+              f"steps: device time {total_us / 1e3:.3f} ms/step; idle share "
+              f"{max(0.0, 1 - total_us / 1e3 / ms_step):.3f} of the "
+              f"event-timed step, {max(0.0, 1 - total_us / 1e3 / wall_ms):.3f}"
+              f" of the profiled wall {wall_ms:.3f} ms/step; by kernel:")
+        for key, t in rows[:15]:
+            phase("profile", f"  {t / total_us * 100:5.1f}%  {t / 1e3:.4f} ms"
+                  f"  {key[:150]}")
+        phase("profile", "by operator (device time of the kernels each "
+              "launched itself), per step:")
+        for key, t in ops[:15]:
+            phase("profile", f"  {t / total_us * 100:5.1f}%  {t / 1e3:.4f} ms"
+                  f"  {key}")
+        host = sorted(((e.key, e.self_cpu_time_total / 3, e.count / 3)
+                       for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CPU),
+                      key=lambda r: -r[1])
+        phase("profile", f"host: {sum(t for _, t, _ in host) / 1e3:.3f} ms of "
+              f"self CPU time per step under the profiler, in "
+              f"{sum(c for _, _, c in host):.0f} operator calls; largest:")
+        for key, t, c in host[:10]:
+            phase("profile", f"  {t / 1e3:.4f} ms  {c:.0f} calls  {key}")
+    else:
+        phase("profile", "stage-1 device time not measured (profiler saw none)")
+    return counts
 
 
 def main():
@@ -94,7 +334,14 @@ def main():
     from uemda_tpu_torch.infer.evaluate import evaluate_dataset
     from uemda_tpu_torch.infer.fastpath import build_fastpath, make_serving_fn
     from uemda_tpu_torch.models import DeeplabV2, DeeplabV2Config
-    from uemda_tpu_torch.ops.insnorm import instance_norm, instance_norm_plain
+    from uemda_tpu_torch.ops.crop import crop_normalize, crop_normalize_plain
+    from uemda_tpu_torch.ops.insnorm import (
+        instance_norm,
+        instance_norm_backward,
+        instance_norm_backward_plain,
+        instance_norm_forward_plain,
+        instance_norm_plain,
+    )
     from uemda_tpu_torch.ops.stem import stem_pool, stem_pool_plain
     from uemda_tpu_torch.ops.tail import (
         tail_upsample_softmax_mean,
@@ -168,6 +415,65 @@ def main():
             errs[(name, dn)] = check_close(f"{name} {dn}", got, ref, atol, rtol)
             phase("kernel", f"{name} {dn} {tuple(got.shape)}: max abs err "
                   f"{errs[(name, dn)]:.3g} (atol {atol}, rtol {rtol})")
+
+    # K1 backward against its plain version on the same (x, dy) and the
+    # plain f32 statistics: the flagship's (8, 2048, 32, 32) -- bf16 through
+    # the shared-memory slabs, f32 through the global-memory route -- and an
+    # odd (3, 96, 20, 28), and bf16 at 64x64 (global route too)
+    bwd_cases = {"flagship": (BATCH, 2048, TILE // 16, TILE // 16),
+                 "odd": (3, 96, 20, 28), "64x64": (2, 64, 64, 64)}
+    bwd_tol = {"float32": 1e-5, "bfloat16": 1e-2}  # test_pallas_insnorm.py
+    for case, shape in bwd_cases.items():
+        xb0 = randn(*shape) + 3.0
+        dyb0 = randn(*shape)
+        for dt in (torch.float32, torch.bfloat16):
+            dn = str(dt).split(".")[-1]
+            if case == "64x64" and dt == torch.float32:
+                continue
+            xb = xb0.to(dev, dt).contiguous(memory_format=CL)
+            dyb = dyb0.to(dev, dt).contiguous(memory_format=CL)
+            _, mb, rb = instance_norm_forward_plain(xb)
+            got = instance_norm_backward(xb, dyb, mb, rb)
+            ref = instance_norm_backward_plain(xb, dyb, mb, rb)
+            torch.cuda.synchronize()
+            t = bwd_tol[dn]
+            e = check_close(f"instance_norm_backward {dn} {case}", got, ref, t, t)
+            if case == "flagship":
+                errs[("instance_norm_backward", dn)] = e
+                if dn == "bfloat16":
+                    inputs["bwd"] = (xb, dyb, mb, rb)
+            phase("kernel", f"instance_norm_backward {dn} {shape}: max abs err "
+                  f"{e:.3g} (atol {t}, rtol {t})")
+
+    # K9 against its plain version: uint8 and f32 images, origins 0, odd and
+    # maximal, at the training shape (8 crops of 512^2 from 1024^2 tiles)
+    # and an odd one. Exact (tolerance 0): one subtract and one multiply by
+    # the same f32 reciprocal of std on both sides.
+    st_l = NORM_STATS["LoveDA"]
+    crop_cases = {
+        "train": ((BATCH, 2 * TILE, 2 * TILE), (TILE, TILE),
+                  [(0, 0), (1, 3), (TILE, TILE), (17, 511), (256, 0),
+                   (TILE - 1, TILE - 7), (3, 16), (TILE, 1)]),
+        "odd": ((3, 301, 257), (97, 131), [(0, 0), (101, 63), (204, 126)]),
+    }
+    raw = {}
+    for case, ((b, h, w), chw, offs) in crop_cases.items():
+        img = torch.randint(0, 256, (b, h, w, 3), generator=g,
+                            dtype=torch.uint8)
+        off = torch.tensor(offs, dtype=torch.int32)
+        for dt in (torch.uint8, torch.float32):
+            dn = str(dt).split(".")[-1]
+            xc = img.to(dev, dt)
+            got = crop_normalize(xc, off, chw, st_l["mean"], st_l["std"])
+            ref = crop_normalize_plain(xc, off, chw, st_l["mean"], st_l["std"])
+            torch.cuda.synchronize()
+            e = check_close(f"crop_normalize {dn} {case}", got, ref, 0.0, 0.0)
+            if case == "train":
+                errs[("crop_normalize", dn)] = e
+                raw[dn] = (xc, off)
+            phase("kernel", f"crop_normalize {dn} {tuple(xc.shape)} -> "
+                  f"{tuple(got.shape)}: max abs err {e:.3g} (exact)")
+    inputs["crop"] = raw["uint8"]
 
     # 4. the flagship model, f32 on a small input, against the plain path
     #    on the CPU (a comparison: its launches are not the main path's)
@@ -254,10 +560,20 @@ def main():
         if n <= 0:
             fail(f"{name} was not launched on the main path")
 
-    # 6. timing (bf16, the serving dtype), CUDA events after warm-up -----
+    # 6. the stage-1 training path: the f32 step against the CPU, then the
+    #    flagship bf16 run with its own launch counts
+    train_launches = train_phase(dev)
+
+    # 7. timing (bf16, the serving and training dtype; K9 on uint8 tiles),
+    #    CUDA events after warm-up
     xi, xs, ws, bs, xt = inputs["bfloat16"]
+    xb, dyb, mb, rb = inputs["bwd"]
+    xc, offc = inputs["crop"]
     wt_oihw = ws.permute(3, 2, 0, 1).contiguous(memory_format=CL)
     bs16 = bs.to(torch.bfloat16)
+    xr = xb.detach().requires_grad_()
+    yr = F.instance_norm(xr, eps=1e-5)   # the library yardstick's graph
+    crop_args = (xc, offc, (TILE, TILE), st_l["mean"], st_l["std"])
     timed = {
         "instance_norm": (
             lambda: instance_norm(xi), lambda: instance_norm_plain(xi),
@@ -272,6 +588,13 @@ def main():
             lambda: torch.softmax(F.interpolate(
                 xt, size=(TILE, TILE), mode="bilinear", align_corners=True
             ).view(BATCH, 2, 6, TILE, TILE), dim=2).mean(1)),
+        "instance_norm_backward": (
+            lambda: instance_norm_backward(xb, dyb, mb, rb),
+            lambda: instance_norm_backward_plain(xb, dyb, mb, rb),
+            lambda: torch.autograd.grad(yr, xr, dyb, retain_graph=True)),
+        "crop_normalize": (
+            lambda: crop_normalize(*crop_args),
+            lambda: crop_normalize_plain(*crop_args), None),
     }
     # bytes each function must move (inputs read once, outputs written once)
     # and the operations it does, from this run's shapes, each with the peak
@@ -279,11 +602,19 @@ def main():
     # tensor cores; instance norm's and the tail's elementwise f32 work
     # (per element 6 ops; per pixel and logit 3 lerps = 9, softmax 4, mean
     # 1) runs outside them
+    # K1's backward reads x and dy and the f32 statistics and writes dx,
+    # ~10 f32 ops per element (x-hat 2, the two sums 3, dx 4); K9 reads the
+    # uint8 windows and writes f32, 2 ops per element
     el = 2  # bf16
     n_in, n_st_in = xi.numel(), xs.numel() + ws.numel()
     n_st_out = BATCH * 64 * (TILE // 4) ** 2
     n_px = BATCH * TILE * TILE
+    n_crop = BATCH * TILE * TILE * 3
     work = {
+        "instance_norm_backward": (3 * xb.numel() * el + 2 * mb.numel() * 4,
+                                   10 * xb.numel(), PEAK_FLOPS["float32"]),
+        "crop_normalize": (n_crop * 1 + n_crop * 4, 2 * n_crop,
+                           PEAK_FLOPS["float32"]),
         "instance_norm": (2 * n_in * el, 6 * n_in, PEAK_FLOPS["float32"]),
         "stem_pool": (n_st_in * el + bs.numel() * 4 + n_st_out * el,
                       2 * BATCH * (TILE // 2) ** 2 * 64 * 192,
@@ -299,37 +630,53 @@ def main():
         "tail": ("uemda_tpu_torch/kernels/csrc/tail.cu",
                  "uemda_tpu/ops/pallas_tail.py:57",
                  "tail_upsample_softmax_mean"),
+        "instance_norm_backward": (
+            "uemda_tpu_torch/kernels/csrc/insnorm.cu",
+            "uemda_tpu/ops/pallas_insnorm.py:32 (backward of)",
+            "instance_norm_backward"),
+        "crop_normalize": ("uemda_tpu_torch/kernels/csrc/crop.cu",
+                           "uemda_tpu/ops/pallas_kernels.py:335",
+                           "crop_normalize"),
     }
     record = []
+    for name, (k_fn, plain_fn, lib_fn) in timed.items():
+        with torch.no_grad():
+            ms = kernel_ms(k_fn)
+            host_ms = cuda_ms(k_fn)
+            plain_ms = kernel_ms(plain_fn)
+        lib_ms = kernel_ms(lib_fn) if lib_fn is not None else None
+        nbytes, nops, peak = work[name]
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / peak * 1e3
+        bound = max(t_bytes, t_ops)
+        src, rep, fn_name = meta[name]
+        dn = "uint8" if name == "crop_normalize" else "bfloat16"
+        n_serve = launches.get(fn_name, 0)
+        n_train = train_launches[fn_name]
+        record.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": n_serve + n_train, "launches_serve": n_serve,
+            "launches_train": n_train,
+            "max_abs_err": errs[(name, dn)], "ms": ms,
+            "ms_with_host": host_ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms,
+        })
+        lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        phase("time", f"{name} {dn}: kernel {ms:.4f} ms ({host_ms:.4f} ms "
+              f"back to back with its wrapper's host work), plain "
+              f"{plain_ms:.4f} ms, library {lib_txt}, bound "
+              f"{bound:.4f} ms ({record[-1]['bound_by']}; {nbytes} B, "
+              f"{nops} op)")
     with torch.no_grad():
-        for name, (k_fn, plain_fn, lib_fn) in timed.items():
-            ms = cuda_ms(k_fn)
-            plain_ms = cuda_ms(plain_fn)
-            lib_ms = cuda_ms(lib_fn)
-            nbytes, nops, peak = work[name]
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = nops / peak * 1e3
-            bound = max(t_bytes, t_ops)
-            src, rep, fn_name = meta[name]
-            record.append({
-                "name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[fn_name],
-                "max_abs_err": errs[(name, "bfloat16")], "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound,
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": lib_ms,
-            })
-            phase("time", f"{name} bf16: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-                  f"{bound:.4f} ms ({record[-1]['bound_by']}; {nbytes} B, "
-                  f"{nops} op)")
 
         fast_ms = {}
         for b in (8, 16, 32):
-            xb = torch.randn(b, 3, TILE, TILE, device=dev,
+            xq = torch.randn(b, 3, TILE, TILE, device=dev,
                              dtype=torch.bfloat16).contiguous(memory_format=CL)
             torch.cuda.reset_peak_memory_stats()
-            fast_ms[b] = ms = cuda_ms(lambda: fast_bf16(xb), iters=5, warmup=2)
+            fast_ms[b] = ms = cuda_ms(lambda: fast_bf16(xq), iters=5, warmup=2)
             peak = torch.cuda.max_memory_allocated() / 2**30
             phase("time", f"fast path bf16 batch {b}: {ms:.3f} ms/forward, "
                   f"{b / ms * 1e3:.2f} tiles/s, peak memory {peak:.2f} GiB")

@@ -201,15 +201,24 @@ def test_serving_path_goes_through_every_kernel_wrapper():
 
 
 def test_later_slices_raise():
-    """int8 serving, fused_stages, train mode, ResNeXt and v1c stems, odd
-    fast-path sizes: each raises instead of running something else."""
+    """int8 serving, fused_stages, the stage-1 step's OHEM, class balance
+    and gradient accumulation, ResNeXt and v1c stems, odd fast-path sizes:
+    each raises instead of running something else."""
+    from uemda_tpu_torch.train.optim import SGD
+    from uemda_tpu_torch.train.steps import StageHParams, make_src_step
+
     tmodel = _models("resnet18-single", 64)[2]
     with pytest.raises(NotImplementedError):
         build_fastpath(tmodel, dtype=torch.float32, int8=True)
     with pytest.raises(NotImplementedError):
         make_serving_fn(tmodel, dtype=torch.float32, fused_stages=(1,))
-    with pytest.raises(NotImplementedError, match="training"):
-        tmodel(torch.zeros(1, 3, 32, 32), train=True)
+    dual = DeeplabV2(DeeplabV2Config.uemda_default(6, resnet_type="resnet18"),
+                     device="cpu")
+    for kw in ({"source_loss": "ohem"}, {"balance_source": True}):
+        with pytest.raises(NotImplementedError):
+            make_src_step(dual, StageHParams(class_num=6, **kw))
+    with pytest.raises(NotImplementedError, match="accum"):
+        SGD(list(dual.named_parameters()), lambda step: 0.0, accum_steps=2)
     for name in ("resnext50_32x4d", "resnet50_v1c"):
         with pytest.raises(NotImplementedError):
             ResNet(BackboneConfig(resnet_type=name))

@@ -12,7 +12,8 @@ import torch
 
 from uemda_tpu_torch.infer.evaluate import evaluate_dataset
 from uemda_tpu_torch.models import DeeplabV2, DeeplabV2Config
-from uemda_tpu_torch.ops.insnorm import instance_norm
+from uemda_tpu_torch.ops.crop import crop_normalize
+from uemda_tpu_torch.ops.insnorm import instance_norm, instance_norm_backward
 from uemda_tpu_torch.ops.stem import stem_pool
 from uemda_tpu_torch.ops.tail import tail_upsample_softmax_mean
 from uemda_tpu_torch.utils.runtime import resolve_device
@@ -96,9 +97,12 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             evaluate_dataset(None, None, (0, 0, 0), (1, 1, 1), device=device)
     from uemda_tpu_torch.tools import eval as eval_cli
+    from uemda_tpu_torch.tools import train_src
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         eval_cli.build_model(eval_cli.load_config("2vaihingen"), "cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_src.main(["--config-path", "2vaihingen", "--steps", "1"])
     assert resolve_device("cpu") == torch.device("cpu")
     DeeplabV2(cfg, device="cpu")
 
@@ -106,7 +110,8 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(monkeypatch):
 def test_wrappers_take_the_plain_version_only_on_the_cpu():
     """A tensor on neither the CPU nor the card (here the meta device) is
     refused by every kernel wrapper, not computed by its plain version."""
-    fns = (instance_norm, stem_pool, tail_upsample_softmax_mean)
+    fns = (instance_norm, instance_norm_backward, stem_pool,
+           tail_upsample_softmax_mean, crop_normalize)
     before = [fn.launches for fn in fns]
     x = torch.empty(1, 32, 4, 4, device="meta").contiguous(
         memory_format=torch.channels_last)
@@ -121,4 +126,11 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
         memory_format=torch.channels_last)
     with pytest.raises(RuntimeError, match="CUDA or CPU"):
         tail_upsample_softmax_mean(xt, (8, 8), 2, 6)
+    stats = torch.zeros(1, 32, device="meta")
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        instance_norm_backward(x, x, stats, stats)
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        crop_normalize(torch.empty(1, 8, 8, 3, dtype=torch.uint8, device="meta"),
+                       torch.zeros(1, 2, dtype=torch.int32), (4, 4),
+                       (0.0, 0.0, 0.0), (1.0, 1.0, 1.0))
     assert [fn.launches for fn in fns] == before

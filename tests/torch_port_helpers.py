@@ -71,3 +71,28 @@ def no_tf32():
     """f32 parity: cuDNN would run f32 convs in TF32 by default."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def jax_aug_draws(key, batch, image_hw, crop_hw, mode="oneof"):
+    """The draws ``uemda_tpu/datasets/augment.py:34-121`` derives from
+    ``key`` for a batch, as the port's ``AugDraws`` (crop origins, then the
+    D4 columns of ``mode``)."""
+    from uemda_tpu_torch.datasets.augment import AugDraws
+
+    (h, w), (ch, cw) = image_hw, crop_hw
+    offsets, d4 = [], []
+    for k in jax.random.split(key, batch):
+        kc, kd = jax.random.split(k)
+        ky, kx = jax.random.split(kc)
+        offsets.append([int(jax.random.randint(ky, (), 0, max(h - ch, 0) + 1)),
+                        int(jax.random.randint(kx, (), 0, max(w - cw, 0) + 1))])
+        if mode == "oneof":
+            kc2, kp, kk = jax.random.split(kd, 3)
+            d4.append([int(jax.random.uniform(kp) < 0.75),
+                       int(jax.random.randint(kc2, (), 0, 3)),
+                       int(jax.random.randint(kk, (), 0, 4))])
+        else:
+            d4.append([int(jax.random.uniform(k_) < 0.5)
+                       for k_ in jax.random.split(kd, 3)])
+    return AugDraws(torch.tensor(offsets, dtype=torch.int32),
+                    torch.tensor(d4, dtype=torch.int64), mode)

@@ -1,13 +1,12 @@
-"""Dataset-pair presets: the port's copy of the part of
-``uemda_tpu/config.py`` that evaluation reads.
+"""Dataset-pair presets: the port's copy of ``uemda_tpu/config.py``.
 
 A ``PairConfig`` per dataset pair (2vaihingen, 2potsdam, 2urban, 2rural,
 the RGB-Potsdam pairs and their ``proca.`` twins; reference
 ``configs/To*.py``, ``configs/st/*/*.py``) holds the split directories, the
-per-domain normalization statistics, the backbone name and the tile size.
-The training hyperparameters of the JAX package's config come with the
-training slice. ``load_config(name)`` resolves a preset by name or imports
-a user Python file exposing ``CONFIG``.
+per-domain normalization statistics, the backbone name, the tile size, the
+snapshot directory and the training hyperparameters
+(``configs/st/uemda/2vaihingen.py:13-48``). ``load_config(name)`` resolves
+a preset by name or imports a user Python file exposing ``CONFIG``.
 """
 
 import dataclasses
@@ -35,12 +34,34 @@ class PairConfig:
     target: SplitConfig
     val: SplitConfig
     test: SplitConfig
+    snapshot_dir: str = "./log/uemda"
+
+    # hyperparameters (configs/st/uemda/2vaihingen.py:13-25)
     model: str = "resnet50"
+    learning_rate: float = 1e-2
+    momentum: float = 0.9
+    weight_decay: float = 5e-4
+    power: float = 0.9
+    stage1_steps: int = 4000
+    stage2_steps: int = 6000
+    stage3_steps: int = 6000
+    eval_every: int = 500
+    gene_every: int = 1000
+    cutoff_top: float = 0.8
+    cutoff_low: float = 0.6
     crop: Tuple[int, int] = (512, 512)
+    # stage-3-style target Normalize clamp(max=1.0): the ISPRS configs only
+    # (configs/st/uemda/2vaihingen.py:38); every LoveDA config normalizes
+    # without it (uemda_tpu/config.py:59-67)
+    clamp_target: bool = False
 
     @property
     def meta(self) -> DatasetMeta:
         return DATASET_META[self.datasets]
+
+    @property
+    def ignore_label(self) -> int:
+        return self.meta.ignore_label
 
     @property
     def class_num(self) -> int:
@@ -75,6 +96,8 @@ def _isprs_pair(name, target_set, src_stats, tgt_stats, src_city, tgt_city,
             (f"{data_root}/{tgt_city}/ann_dir/test",),
             tm, ts, batch_size=8,
         ),
+        snapshot_dir=f"./log/uemda/{name}",
+        clamp_target=True,  # configs/st/uemda/2vaihingen.py:38
     )
 
 
@@ -104,6 +127,7 @@ def _loveda_pair(name, target_set, src_domain, tgt_domain, data_root="data/LoveD
             (f"{data_root}/Val/{tgt_domain}/masks_png",),
             m, s, batch_size=2,
         ),
+        snapshot_dir=f"./log/uemda/{name}",
     )
 
 
@@ -130,6 +154,7 @@ PRESETS["pRgb2vaihingen"] = dataclasses.replace(
         "Potsdam_rgb", "Vaihingen",
     ),
     model="resnet101",
+    snapshot_dir="./log/uemda/pRgb2vaihingen",
 )
 PRESETS["pRgb2potsdam"] = dataclasses.replace(
     _isprs_pair(
@@ -137,19 +162,22 @@ PRESETS["pRgb2potsdam"] = dataclasses.replace(
         "Potsdam_rgb", "Potsdam",
     ),
     model="resnet101",
+    snapshot_dir="./log/uemda/pRgb2potsdam",
 )
 
 # ProCA-method variants: the reference's configs/st/proca/*.py differ from
-# the uemda configs only in the snapshot directory, which evaluation does
-# not read ('st.proca.X' resolves to 'proca.X').
+# the uemda configs only in the snapshot directory ('st.proca.X' resolves to
+# 'proca.X').
 for _name in list(PRESETS):
-    PRESETS[f"proca.{_name}"] = PRESETS[_name]
+    PRESETS[f"proca.{_name}"] = dataclasses.replace(
+        PRESETS[_name], snapshot_dir=f"./log/proca/{_name}")
 
 
-def load_config(name_or_path: str) -> PairConfig:
+def load_config(name_or_path: str, snapshot_postfix: str = "") -> PairConfig:
     """Resolve a preset name ('2vaihingen', also the reference's dotted
     'st.uemda.2vaihingen' / 'st.proca.pRgb2vaihingen' forms) or a Python
-    file with CONFIG."""
+    file with CONFIG; ``snapshot_postfix`` is appended to its snapshot
+    directory (a stage's subdirectory, e.g. ``/src``)."""
     parts = name_or_path.split(".")
     key = next(
         (k for k in (".".join(parts[-2:]), parts[-1]) if k in PRESETS), None
@@ -167,4 +195,7 @@ def load_config(name_or_path: str) -> PairConfig:
         raise KeyError(
             f"unknown config '{name_or_path}' (presets: {sorted(PRESETS)})"
         )
+    if snapshot_postfix:
+        cfg = dataclasses.replace(
+            cfg, snapshot_dir=cfg.snapshot_dir + snapshot_postfix)
     return cfg

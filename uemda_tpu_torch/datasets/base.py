@@ -1,13 +1,15 @@
-"""Dataset objects for evaluation (host side).
+"""Dataset objects (host side).
 
-The port's copy of the eval part of ``uemda_tpu/datasets/base.py``: a
-split of images with hard masks read from disk (:class:`SegDataset`), an
-in-memory split of arrays (:class:`ArrayDataset`), and the eval-order batch
-iterator (SequentialSampler, reference ``daLoader.py``).
+The port's copy of ``uemda_tpu/datasets/base.py``: a split of images with
+hard masks read from disk (:class:`SegDataset`), an in-memory split of
+arrays (:class:`ArrayDataset`), the shuffled training stream
+(:func:`infinite_batches`) and the eval-order batch iterator
+(SequentialSampler, reference ``daLoader.py``). The host only reads and
+stacks raw uint8 tiles; augmentation runs on the device.
 """
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
@@ -70,6 +72,30 @@ class ArrayDataset:
     def batch(self, indices) -> Dict[str, np.ndarray]:
         idx = np.asarray(indices, np.int64)
         return {"image": self.images[idx], "label": self.labels[idx]}
+
+
+def infinite_batches(dataset, batch_size: int, seed: int = 0,
+                     skip_batches: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """Shuffled epoch-cycling batch iterator (DALoader semantics:
+    RandomSampler + drop_last=True, ``daLoader.py:38-55``), the numpy
+    stream of ``uemda_tpu/datasets/base.py:118-177`` without its multi-host
+    ``process_shard`` and ``host_crop``: the same seed and skip give the
+    same batch indices as the JAX package. ``skip_batches`` fast-forwards
+    the shuffle stream without reading any tile."""
+    rng = np.random.default_rng(seed)
+    n = len(dataset)
+    skipped = 0
+    while True:
+        perm = rng.permutation(n)
+        stop = (n // batch_size) * batch_size
+        for i in range(0, max(stop, batch_size), batch_size):
+            if skipped < skip_batches:
+                skipped += 1
+                continue
+            idx = perm[i:i + batch_size]
+            if len(idx) < batch_size:
+                idx = np.concatenate([idx, perm[:batch_size - len(idx)]])
+            yield dataset.batch(idx)
 
 
 def sequential_batches(dataset, batch_size: int = 1):

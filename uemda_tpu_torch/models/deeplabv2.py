@@ -1,18 +1,22 @@
-"""Dual-head DeepLab-v2/PSP segmenter, eval mode.
+"""Dual-head DeepLab-v2/PSP segmenter.
 
 Port of ``uemda_tpu/models/deeplabv2.py`` (reference
 ``uemda/models/Encoder.py:87-186``): ResNet encoder (OS16) -> optional
-affine-free instance norm on the last feature map (the K1 kernel) -> twin
-heads (layer5/layer6, PPM or ASPP) -> the average of the heads' softmax at
-input resolution with align_corners=True (``Encoder.py:144-155``), computed
-by the K3 eval-tail kernel. Cascade mode feeds c4 to head1 and c5 to head2
-(``Encoder.py:131-143``); single-head mode mirrors ``Encoder.py:156-165``.
+affine-free instance norm on the last feature map (the K1 kernels) -> twin
+heads (layer5/layer6, PPM or ASPP). In eval mode the result is the average
+of the heads' softmax at input resolution with align_corners=True
+(``Encoder.py:144-155``), computed by the K3 eval-tail kernel. In train mode
+(``model.train()``, the JAX package's ``train=True``) it is the stride-16
+logits and feature, ``(x1, x2, feat)`` (``deeplabv2.py:88-109``), with
+batch-statistics BatchNorm and the heads' dropout. Cascade mode feeds c4 to
+head1 and c5 to head2 (``Encoder.py:131-143``); single-head mode mirrors
+``Encoder.py:156-165``.
 
 Tensors are NCHW in logical order and channels_last in memory.
 """
 
 import math
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
@@ -73,27 +77,44 @@ class DeeplabV2(nn.Module):
                 use_aux=cfg.ppm.use_aux, pool_scales=cfg.ppm.pool_scales))
         return ASPPHead(fc_dim, cfg.num_classes, cfg.aspp_dilations)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """(B, 3, H, W) -> (B, nc, H, W) averaged head softmax."""
-        if train or self.training:
-            raise NotImplementedError(
-                "the training forward (x1, x2, feat) comes with the stage-1 "
-                "training slice, together with the instance-norm backward "
-                "kernel; call .eval() and train=False")
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                dropout_masks: Optional[Dict[str, torch.Tensor]] = None):
+        """Eval mode: (B, 3, H, W) -> (B, nc, H, W) averaged head softmax.
+
+        Train mode: ``(x1, x2, feat)``; cascade ``(x1, feat1, x2, feat2)``;
+        one head ``(x1, feat)`` -- logits and features at stride 16. Each
+        PPM head's dropout draws from ``generator`` (on x's device) unless
+        ``dropout_masks[head name]`` (bool, True = keep, the shape of the
+        head's 512-channel activation) is given."""
         cfg = self.config
+        train = self.training
+        masks = dropout_masks or {}
         in_hw = (x.shape[2], x.shape[3])
         x = x.contiguous(memory_format=torch.channels_last)
         pyramid = self.encoder(x)
         norm = instance_norm if cfg.is_ins_norm else (lambda t: t)
+
+        def head(name, feat):
+            return getattr(self, name)(feat, generator, masks.get(name))
+
         if cfg.multi_layer:
             if cfg.cascade:
-                x1 = self.layer5(norm(pyramid[-2]))
-                x2 = self.layer6(norm(pyramid[-1]))
+                feat1, feat2 = norm(pyramid[-2]), norm(pyramid[-1])
+                x1, x2 = head("layer5", feat1), head("layer6", feat2)
+                if train:
+                    return x1, feat1, x2, feat2
             else:
                 feat = norm(pyramid[-1])
-                x1, x2 = self.layer5(feat), self.layer6(feat)
+                x1, x2 = head("layer5", feat), head("layer6", feat)
+                if train:
+                    return x1, x2, feat
             return eval_tail([x1, x2], in_hw)
-        return eval_tail([self.cls_pred(norm(pyramid[-1]))], in_hw)
+        feat = norm(pyramid[-1])
+        x1 = head("cls_pred", feat)
+        if train:
+            return x1, feat
+        return eval_tail([x1], in_hw)
 
 
 @torch.no_grad()

@@ -8,9 +8,11 @@ reference's ``encoder.resnet.*`` state-dict keys load as they are.
   :func:`stage_plan`: the 3x3 that carried the stride keeps ``dilate // 2``,
   every other 3x3 of the stage gets the full ``dilate`` -- including conv2
   of the first BasicBlock.
-* :class:`BatchNorm` always uses the running statistics, in f32, and returns
-  the input dtype (``models/resnet.py:59-78``); training comes in a later
-  slice.
+* :class:`BatchNorm` (``models/resnet.py:59-78``) computes in f32 and
+  returns the input dtype. In eval mode, or when ``frozen``, it uses the
+  running statistics; in train mode it normalizes with the batch statistics
+  and updates the running ones as flax does, with the *biased* batch
+  variance.
 
 ResNeXt and the v1c deep-stem variants raise ``NotImplementedError``.
 """
@@ -33,16 +35,44 @@ def conv(cin: int, cout: int, kernel: int, stride: int = 1, dilation: int = 1,
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """Eval-mode BatchNorm (eps 1e-5) from the running statistics, computed
-    in f32 whatever the activation dtype; returns the input dtype."""
+    """BatchNorm (eps 1e-5, torch momentum 0.1 = flax 0.9) whose statistics
+    are f32 whatever the activation dtype; returns the input dtype.
 
-    def __init__(self, num_features: int):
+    Eval mode, or ``frozen`` (``batchnorm_trainable=False``, the reference's
+    BN-eval trick): the running statistics, never updated. Train mode: the
+    batch statistics, and the running ones move to
+    ``0.9 * running + 0.1 * batch`` with the *biased* batch variance, as
+    flax puts it (``flax/linen/normalization.py:401-404``).
+    ``F.batch_norm(training=True)`` would put in the unbiased one -- 8/7 of
+    it at the PPM's 1x1 pool with batch 8 -- so the library call here only
+    writes the batch statistics (momentum 1.0 into scratch buffers) and the
+    update is computed below. The affine parameters are used in f32 even
+    when the caller hands in a bf16 copy: flax's BatchNorm(dtype=f32) takes
+    the bf16-rounded values in f32 too."""
+
+    def __init__(self, num_features: int, frozen: bool = False):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+        self.frozen = frozen
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.batch_norm(x.float(), self.running_mean.float(),
-                         self.running_var.float(), self.weight.float(),
-                         self.bias.float(), False, 0.0, self.eps)
+        w, b = self.weight.float(), self.bias.float()
+        if not self.training or self.frozen:
+            y = F.batch_norm(x.float(), self.running_mean.float(),
+                             self.running_var.float(), w, b, False, 0.0,
+                             self.eps)
+            return y.to(x.dtype)
+        c = x.shape[1]
+        # zeros, not empty: the library scales the old value by 1 - 1.0,
+        # and 0 * NaN garbage would stay NaN
+        batch_mean = torch.zeros(c, dtype=torch.float32, device=x.device)
+        batch_var = torch.zeros_like(batch_mean)  # unbiased, as torch writes it
+        xin = x if x.dtype == torch.bfloat16 and x.is_cuda else x.float()
+        y = F.batch_norm(xin, batch_mean, batch_var, w, b, True, 1.0, self.eps)
+        n = x.numel() // c
+        with torch.no_grad():
+            biased = batch_var * ((n - 1) / n)
+            self.running_mean.mul_(0.9).add_(0.1 * batch_mean)
+            self.running_var.mul_(0.9).add_(0.1 * biased)
         return y.to(x.dtype)
 
 
@@ -51,14 +81,14 @@ class BasicBlock(nn.Module):
 
     def __init__(self, inp: int, planes: int, stride: int = 1,
                  dilation: int = 1, dilation2: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, frozen_bn: bool = False):
         super().__init__()
         self.conv1 = conv(inp, planes, 3, stride, dilation)
-        self.bn1 = BatchNorm(planes)
+        self.bn1 = BatchNorm(planes, frozen_bn)
         self.conv2 = conv(planes, planes, 3, 1, dilation2)
-        self.bn2 = BatchNorm(planes)
+        self.bn2 = BatchNorm(planes, frozen_bn)
         self.downsample = nn.Sequential(
-            conv(inp, planes, 1, stride), BatchNorm(planes)
+            conv(inp, planes, 1, stride), BatchNorm(planes, frozen_bn)
         ) if downsample else None
 
     def forward(self, x):
@@ -73,18 +103,18 @@ class Bottleneck(nn.Module):
 
     def __init__(self, inp: int, planes: int, stride: int = 1,
                  dilation: int = 1, dilation2: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, frozen_bn: bool = False):
         super().__init__()
         out_ch = planes * self.expansion
         self.conv1 = conv(inp, planes, 1)
-        self.bn1 = BatchNorm(planes)
+        self.bn1 = BatchNorm(planes, frozen_bn)
         # stride lives on conv2 (torchvision v1.5, _resnets.py:84)
         self.conv2 = conv(planes, planes, 3, stride, dilation)
-        self.bn2 = BatchNorm(planes)
+        self.bn2 = BatchNorm(planes, frozen_bn)
         self.conv3 = conv(planes, out_ch, 1)
-        self.bn3 = BatchNorm(out_ch)
+        self.bn3 = BatchNorm(out_ch, frozen_bn)
         self.downsample = nn.Sequential(
-            conv(inp, out_ch, 1, stride), BatchNorm(out_ch)
+            conv(inp, out_ch, 1, stride), BatchNorm(out_ch, frozen_bn)
         ) if downsample else None
 
     def forward(self, x):
@@ -144,8 +174,10 @@ class ResNet(nn.Module):
         check_supported(cfg.resnet_type)
         block_cls, layers, _, _, _ = RESNET_SPECS[cfg.resnet_type]
         self.output_stride = cfg.output_stride
+        self.with_cp = tuple(cfg.with_cp)
+        frozen_bn = not cfg.batchnorm_trainable
         self.conv1 = conv(3, 64, 7, 2)
-        self.bn1 = BatchNorm(64)
+        self.bn1 = BatchNorm(64, frozen_bn)
         plan = stage_plan(cfg.output_stride)
         planes = (64, 128, 256, 512)
         in_ch = 64
@@ -163,11 +195,16 @@ class ResNet(nn.Module):
                     downsample=first and (
                         stride != 1 or in_ch != planes[si] * block_cls.expansion
                     ),
+                    frozen_bn=frozen_bn,
                 ))
                 in_ch = planes[si] * block_cls.expansion
             self.add_module(f"layer{si + 1}", nn.Sequential(*blocks))
 
     def forward(self, x) -> List[torch.Tensor]:
+        if self.training and any(self.with_cp[:self.num_stages]):
+            raise NotImplementedError(
+                "per-stage gradient checkpointing (with_cp) is not ported "
+                "yet (ROADMAP.md queue A)")
         x = _max_pool_3x3_s2(F.relu(self.bn1(self.conv1(x))))
         outs = []
         for si in range(self.num_stages):

@@ -131,3 +131,10 @@ def adaptive_avg_pool_multi(x: torch.Tensor, scales) -> dict:
         .to(x.dtype).contiguous(memory_format=torch.channels_last)
         for s, off in zip(scales, offs)
     }
+
+
+def upsample_logits(logits: torch.Tensor, out_hw) -> torch.Tensor:
+    """Head-logit upsampling: bilinear, align_corners=True (reference
+    ``Encoder.py:141-142`` / ``tools.py:249-250``;
+    ``uemda_tpu/ops/resize.py:154-157``)."""
+    return resize_bilinear(logits, out_hw, align_corners=True)

@@ -20,31 +20,12 @@ import torch
 from uemda_tpu_torch.config import load_config
 from uemda_tpu_torch.datasets.base import SegDataset
 from uemda_tpu_torch.infer.evaluate import evaluate_dataset
-from uemda_tpu_torch.models.config import DeeplabV2Config, PPMConfig
-from uemda_tpu_torch.models.deeplabv2 import DeeplabV2
 from uemda_tpu_torch.models.port import load_checkpoint
-from uemda_tpu_torch.models.resnet import ResNetEncoder
+from uemda_tpu_torch.train.loop import build_model
 
 
 def str2bool(v) -> bool:
     return str(v).lower() in ("1", "true", "yes", "y")
-
-
-def build_model(cfg, device) -> DeeplabV2:
-    """The one model config every reference tool uses (train_src.py:63-80);
-    head widths follow the backbone (uemda_tpu/train/loop.py:44-63)."""
-    name = str(cfg.model).lower()
-    name = "resnet50" if name == "resnet" else name
-    fc_dim = ResNetEncoder.out_channels(name)
-    mcfg = DeeplabV2Config.uemda_default(num_classes=cfg.class_num,
-                                         resnet_type=name)
-    if fc_dim != 2048:
-        import dataclasses
-
-        mcfg = dataclasses.replace(
-            mcfg, ppm=PPMConfig(num_classes=cfg.class_num, fc_dim=fc_dim),
-            inchannels=fc_dim)
-    return DeeplabV2(mcfg, device=device)
 
 
 def main(argv=None):
