@@ -126,25 +126,73 @@ def profile_rows(prof, n):
     return rows, ops, sum(t for _, t in rows)
 
 
+WRAPPERS = []  # every kernel wrapper with a launch count, filled by main()
+
+
+def profile_steps(what, step_fn, state, src_it, tgt_it, dev, ms_step, n=3):
+    """``n`` more steps under the profiler: device time per step, the
+    device's idle share, device time by kernel and by operator, and the
+    host's operator time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from uemda_tpu_torch.train.loop import batch_to_device
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step_fn(state, batch_to_device(next(src_it), dev),
+                    batch_to_device(next(tgt_it), dev), 2333)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    rows, ops, total_us = profile_rows(prof, n)
+    if total_us <= 0:
+        phase("profile", f"{what}: device time not measured (profiler saw "
+              "none)")
+        return None
+    phase("profile", f"{what}, {n} steps: device time {total_us / 1e3:.3f} "
+          f"ms/step; idle share {max(0.0, 1 - total_us / 1e3 / ms_step):.3f} "
+          f"of the event-timed step, "
+          f"{max(0.0, 1 - total_us / 1e3 / wall_ms):.3f} of the profiled wall "
+          f"{wall_ms:.3f} ms/step; by kernel:")
+    for key, t in rows[:15]:
+        phase("profile", f"  {t / total_us * 100:5.1f}%  {t / 1e3:.4f} ms"
+              f"  {key[:150]}")
+    phase("profile", "by operator (device time of the kernels each "
+          "launched itself), per step:")
+    for key, t in ops[:15]:
+        phase("profile", f"  {t / total_us * 100:5.1f}%  {t / 1e3:.4f} ms"
+              f"  {key}")
+    host = sorted(((e.key, e.self_cpu_time_total / n, e.count / n)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda r: -r[1])
+    phase("profile", f"host: {sum(t for _, t, _ in host) / 1e3:.3f} ms of "
+          f"self CPU time per step under the profiler, in "
+          f"{sum(c for _, _, c in host):.0f} operator calls; largest:")
+    for key, t, c in host[:10]:
+        phase("profile", f"  {t / 1e3:.4f} ms  {c:.0f} calls  {key}")
+    return total_us / 1e3
+
+
 def train_phase(dev):
     """The stage-1 training path. (a) One f32 step on the card against the
     same step on the CPU's plain path. (b) The flagship run through
     ``run_training_loop``, every launch count set to 0 just before it and
-    read just after; returns those counts."""
+    read just after; returns those counts and what stage 2 starts from
+    (the config, the trained model, the source split and the target split
+    with its superpixel maps)."""
     import dataclasses
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from uemda_tpu_torch.config import PRESETS
     from uemda_tpu_torch.datasets.base import infinite_batches
     from uemda_tpu_torch.datasets.meta import LoveDA
     from uemda_tpu_torch.datasets.synthetic import synthetic_split
-    from uemda_tpu_torch.ops.crop import crop_normalize
-    from uemda_tpu_torch.ops.insnorm import instance_norm, instance_norm_backward
-    from uemda_tpu_torch.ops.stem import stem_pool
-    from uemda_tpu_torch.ops.tail import tail_upsample_softmax_mean
     from uemda_tpu_torch.train.loop import (
         batch_to_device,
         build_model,
@@ -217,8 +265,9 @@ def train_phase(dev):
     # the schedule's horizon at 30 (warm-up 1 step), synthetic 1024^2 tiles
     steps, batch = 30, BATCH
     src = synthetic_split(LoveDA, n=2 * batch, hw=2 * TILE, seed=3)
-    tgt = synthetic_split(LoveDA, n=2 * batch, hw=2 * TILE, seed=4,
-                          domain_shift=20.0)
+    tgt_sup = synthetic_split(LoveDA, n=2 * batch, hw=2 * TILE, seed=4,
+                              domain_shift=20.0, with_sup=True)
+    tgt = dataclasses.replace(tgt_sup, sup=None)  # stage 1 reads no maps
     val = synthetic_split(LoveDA, n=2, hw=2 * TILE, seed=5, domain_shift=20.0)
     model = build_model(cfg, device=dev,
                         generator=torch.Generator().manual_seed(0))
@@ -236,11 +285,9 @@ def train_phase(dev):
         events.append(ev)
 
     logger = logging.getLogger("chip_smoke.train")
-    wrappers = (instance_norm, instance_norm_backward, crop_normalize,
-                stem_pool, tail_upsample_softmax_mean)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in wrappers:
+    for fn in WRAPPERS:
         fn.launches = 0
     t0 = time.time()
     best = run_training_loop(state, step_fn, src_it, tgt_it, steps, logger,
@@ -248,7 +295,7 @@ def train_phase(dev):
                              seed=2333, on_step=on_step)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    counts = {fn.__name__: fn.launches for fn in wrappers}
+    counts = {fn.__name__: fn.launches for fn in WRAPPERS}
     peak = torch.cuda.max_memory_allocated() / 2**30
     loss = [{k: float(v) for k, v in m.items()} for m in losses]
     if len(loss) != steps or not all(np.isfinite(list(m.values())).all()
@@ -278,43 +325,186 @@ def train_phase(dev):
     phase("launches", f"training path (30 steps + evaluation): "
           f"{json.dumps(counts)}")
 
-    # where a step's device time goes: 3 more steps under the profiler
+    profile_steps(f"stage-1 step (bf16, batch {batch}, CORAL)", step_fn,
+                  state, src_it, tgt_it, dev, ms_step)
+    return counts, dict(cfg=cfg, model=model, src=src, tgt=tgt_sup, val=val)
+
+
+def align_phase(dev, ctx):
+    """``init_prototypes`` and the stage-2 path. (a) One f32 stage-2 step on
+    the card against the same step on the CPU's plain path. (b) On the model
+    stage 1 left: the prototype pass over the source split, 30 bf16
+    stage-2 steps through ``run_training_loop`` and an evaluation, every
+    launch count set to 0 just before the pass and read just after the
+    evaluation; returns those counts and the inputs ``label_refine`` saw
+    last, for its timing."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from uemda_tpu_torch.datasets.augment import draw_augment
+    from uemda_tpu_torch.datasets.base import infinite_batches
+    from uemda_tpu_torch.datasets.meta import LoveDA
+    from uemda_tpu_torch.datasets.synthetic import synthetic_split
+    from uemda_tpu_torch.tools.init_prototypes import init_prototypes
+    from uemda_tpu_torch.train.loop import (
+        batch_to_device,
+        build_model,
+        build_state,
+        default_hparams,
+        make_eval_hook,
+        run_training_loop,
+    )
+    from uemda_tpu_torch.train.steps import (
+        StepDraws,
+        make_align_step,
+        make_init_proto_step,
+    )
+
+    cfg = ctx["cfg"]
+    nc = cfg.class_num
+
+    # (a) f32, TF32 off: ResNet-50 OS16 dual PPM at 128^2, batch 2, CORAL,
+    # refine 'all' with 16-pixel grid superpixels: the stage-1 check's
+    # weights, batches, draws and dropout masks (seeds 0, 1, 2), the target's
+    # superpixel maps and random prototypes, the same on both devices, at
+    # step 1 of a 100-step schedule. The gradient limit measures the
+    # conditioning of this tiny geometry (the stem conv's gradient, as in
+    # stage 1) as much as the port; another draw exceeds it for the
+    # stage-1 step as well (PERF.md, PR 3)
+    small = dataclasses.replace(cfg, crop=(128, 128))
+    g = torch.Generator().manual_seed(1)
+    cpu_model = build_model(small, device="cpu",
+                            generator=torch.Generator().manual_seed(0))
+    gpu_model = build_model(small, device=dev,
+                            generator=torch.Generator().manual_seed(0))
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    hp32 = default_hparams(small, align_domain=True, compute_dtype="float32")
+    data = synthetic_split(LoveDA, n=4, hw=160, seed=2, with_sup=True)
+    bs = {"image": data.images[:2], "label": data.labels[:2]}
+    bt = {"image": data.images[2:], "sup": data.sup[2:]}
+    drop = [{h: torch.rand(2, 512, 8, 8, generator=g) < 0.9
+             for h in ("layer5", "layer6")} for _ in range(2)]
+    draws = StepDraws(draw_augment(g, 2, (160, 160), small.crop),
+                      draw_augment(g, 2, (160, 160), small.crop), *drop)
+    proto = torch.randn(nc, 2048, generator=g)
+    out = {}
+    for name, model, d in (("cpu", cpu_model, "cpu"), ("gpu", gpu_model, dev)):
+        state = build_state(model, small, 100, prototypes=proto)
+        state.step = state.opt.count = 1
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        metrics = make_align_step(model, hp32)(
+            state, batch_to_device(bs, d), batch_to_device(bt, d), 0,
+            draws=draws)
+        out[name] = (
+            {k: float(v) for k, v in metrics.items()},
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            {n: (p.detach() - before[n]).cpu()
+             for n, p in model.named_parameters()},
+            state.aligner.prototypes.cpu())
+    (m_c, g_c, u_c, p_c), (m_g, g_g, u_g, p_g) = out["cpu"], out["gpu"]
+    for k in m_c:
+        rel = abs(m_g[k] - m_c[k]) / max(abs(m_c[k]), 1e-30)
+        if not rel <= 1e-4:  # f32 sums in other orders, as stage 1
+            fail(f"f32 stage-2 step {k}: card {m_g[k]} vs CPU {m_c[k]} "
+                 f"(rel {rel:.3g})")
+
+    def rel_max(a, b):
+        num = max(float((a[n] - b[n]).abs().max()) for n in a)
+        return num / max(float(b[n].abs().max()) for n in b)
+
+    e_g, e_u = rel_max(g_g, g_c), rel_max(u_g, u_c)
+    e_p = float((p_g - p_c).abs().max()) / float(p_c.abs().max())
+    if not (e_g <= 2e-2 and e_u <= 2e-2 and e_p <= 1e-5):
+        fail(f"f32 stage-2 step: gradients {e_g:.3g}, updates {e_u:.3g} of "
+             f"max |g| (limit 2e-2); prototypes {e_p:.3g} of max |p| (limit "
+             "1e-5)")
+    phase("align", f"f32 stage-2 step on the card vs the CPU plain path "
+          f"(ResNet-50 OS16, 128^2, batch 2, CORAL, refine 'all', step 1): "
+          f"losses {json.dumps({k: [m_g[k], m_c[k]] for k in m_c})}; "
+          f"gradients max abs err / max |g| {e_g:.3g}, updates {e_u:.3g}; "
+          f"prototypes {e_p:.3g} of max |p|")
+    del cpu_model, gpu_model, out, g_c, g_g, u_c, u_g
+
+    # (b) the chain at the flagship: the stage-1 model -> init_prototypes
+    # over the 16 source tiles (2 batches of 8) -> 30 stage-2 steps with
+    # the schedule's horizon at 30 -> evaluation
+    steps, batch = 30, BATCH
+    model = ctx["model"]
+    hp = default_hparams(cfg, align_domain=True, refine=True,
+                         refine_mode="all")
+    eval_fn, _ = make_eval_hook(cfg, None, dataset=ctx["val"])
+    src_it = infinite_batches(ctx["src"], batch, seed=10)
+    tgt_it = infinite_batches(ctx["tgt"], batch, seed=11)
+    losses, events = [], []
+
+    def on_step(i, metrics):
+        losses.append(metrics)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    logger = logging.getLogger("chip_smoke.align")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            step_fn(state, batch_to_device(next(src_it), dev),
-                    batch_to_device(next(tgt_it), dev), 2333)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
-    rows, ops, total_us = profile_rows(prof, 3)
-    if total_us > 0:
-        phase("profile", f"stage-1 step (bf16, batch {batch}, CORAL), 3 "
-              f"steps: device time {total_us / 1e3:.3f} ms/step; idle share "
-              f"{max(0.0, 1 - total_us / 1e3 / ms_step):.3f} of the "
-              f"event-timed step, {max(0.0, 1 - total_us / 1e3 / wall_ms):.3f}"
-              f" of the profiled wall {wall_ms:.3f} ms/step; by kernel:")
-        for key, t in rows[:15]:
-            phase("profile", f"  {t / total_us * 100:5.1f}%  {t / 1e3:.4f} ms"
-                  f"  {key[:150]}")
-        phase("profile", "by operator (device time of the kernels each "
-              "launched itself), per step:")
-        for key, t in ops[:15]:
-            phase("profile", f"  {t / total_us * 100:5.1f}%  {t / 1e3:.4f} ms"
-                  f"  {key}")
-        host = sorted(((e.key, e.self_cpu_time_total / 3, e.count / 3)
-                       for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CPU),
-                      key=lambda r: -r[1])
-        phase("profile", f"host: {sum(t for _, t, _ in host) / 1e3:.3f} ms of "
-              f"self CPU time per step under the profiler, in "
-              f"{sum(c for _, _, c in host):.0f} operator calls; largest:")
-        for key, t, c in host[:10]:
-            phase("profile", f"  {t / 1e3:.4f} ms  {c:.0f} calls  {key}")
-    else:
-        phase("profile", "stage-1 device time not measured (profiler saw none)")
-    return counts
+    torch.cuda.reset_peak_memory_stats()
+    for fn in WRAPPERS:
+        fn.launches = 0
+    t0 = time.time()
+    state = build_state(model, cfg, steps)
+    n_proto = init_prototypes(state, make_init_proto_step(model, hp),
+                              ctx["src"], batch, 2333, dev)
+    torch.cuda.synchronize()
+    t_proto = time.time() - t0
+    proto0 = state.aligner.prototypes.clone()
+    cnt = state.aligner.data_cnt.cpu().numpy().ravel()
+    if not (torch.isfinite(proto0).all() and cnt.sum() > 0):
+        fail(f"init_prototypes: counts {cnt}, finite "
+             f"{bool(torch.isfinite(proto0).all())}")
+    phase("align", f"init_prototypes: {n_proto} batches of {batch} in "
+          f"{t_proto:.2f} s; class counts {cnt.tolist()}")
+    step_fn = make_align_step(model, hp)
+    t0 = time.time()
+    best = run_training_loop(state, step_fn, src_it, tgt_it, steps, logger,
+                             eval_every=steps, log_every=10, eval_fn=eval_fn,
+                             seed=2333, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = {fn.__name__: fn.launches for fn in WRAPPERS}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss = [{k: float(v) for k, v in m.items()} for m in losses]
+    if len(loss) != steps or not all(np.isfinite(list(m.values())).all()
+                                     for m in loss):
+        fail(f"flagship stage 2: {len(loss)} steps, losses {loss}")
+    moved = float((state.aligner.prototypes - proto0).abs().max())
+    if not (torch.isfinite(state.aligner.prototypes).all() and moved > 0):
+        fail(f"flagship stage 2: prototypes moved {moved}")
+    for name in ("segment_max", "segment_gather", "instance_norm",
+                 "instance_norm_backward", "crop_normalize",
+                 "tail_upsample_softmax_mean"):
+        if counts[name] <= 0:
+            fail(f"{name} was not launched on the stage-2 path")
+    w0 = 5
+    ms_step = events[w0 - 1].elapsed_time(events[-1]) / (steps - w0)
+    phase("align", f"flagship stage 2 (ResNet-50 OS16 dual PPM, 2urban, batch "
+          f"{batch} per domain, bf16, CORAL, refine 'all', max_segments "
+          f"{hp.max_segments}) {steps} steps + evaluation in {wall:.2f} s; loss "
+          f"{loss[0]['loss']:.5g} -> {loss[-1]['loss']:.5g} (seg "
+          f"{loss[0]['loss_seg']:.5g} -> {loss[-1]['loss_seg']:.5g}, PCL "
+          f"{loss[0]['loss_align']:.5g} -> {loss[-1]['loss_align']:.5g}, "
+          f"CORAL {loss[0]['loss_domain']:.4g} -> "
+          f"{loss[-1]['loss_domain']:.4g}); prototypes moved {moved:.4g}; "
+          f"mIoU {best['miou']:.5f}")
+    phase("align", "losses by step: " + json.dumps(
+        [round(m["loss"], 5) for m in loss]))
+    phase("align", f"steps {w0 + 1}-{steps}: {ms_step:.3f} ms/step by CUDA "
+          f"events, {batch / ms_step * 1e3:.2f} source images/s; peak memory "
+          f"{peak:.2f} GiB")
+    phase("launches", f"stage-2 path (init_prototypes + {steps} steps + "
+          f"evaluation): {json.dumps(counts)}")
+    profile_steps(f"stage-2 step (bf16, batch {batch}, CORAL, refine 'all')",
+                  step_fn, state, src_it, tgt_it, dev, ms_step)
+    return counts, state
 
 
 def main():
@@ -342,12 +532,25 @@ def main():
         instance_norm_forward_plain,
         instance_norm_plain,
     )
+    from uemda_tpu_torch.ops.segment import (
+        segment_gather,
+        segment_gather_plain,
+        segment_max,
+        segment_max_plain,
+        segment_sum,
+        segment_sum_bound,
+        segment_sum_plain,
+        superpixel_expand,
+    )
     from uemda_tpu_torch.ops.stem import stem_pool, stem_pool_plain
     from uemda_tpu_torch.ops.tail import (
         tail_upsample_softmax_mean,
         tail_upsample_softmax_mean_plain,
     )
 
+    WRAPPERS[:] = [instance_norm, instance_norm_backward, crop_normalize,
+                   stem_pool, tail_upsample_softmax_mean, segment_max,
+                   segment_sum, segment_gather]
     t_start = time.time()
     dev = torch.device("cuda")
     CL = torch.channels_last
@@ -475,6 +678,76 @@ def main():
                   f"{tuple(got.shape)}: max abs err {e:.3g} (exact)")
     inputs["crop"] = raw["uint8"]
 
+    # K5, K6, K7 against their plain versions at the 2urban stage-2 shape:
+    # 8 crops of 512^2 from 1024^2 grid-superpixel maps (16-pixel cells,
+    # ids 0-4095, the boundary ring 4096), S = 4128, 7 classes; then the
+    # same with one id out of range (>= S). Max, gather and one-hot counts
+    # are exact; a sum of random f32 values is held to the error bound of
+    # f32 summation in any order (count * 2^-24 * sum |x| per segment) of
+    # the exact f64 sums: the atomics' order varies, and the boundary
+    # segment sums ~60K values
+    from uemda_tpu_torch.datasets.synthetic import grid_superpixels
+
+    n_seg, nc7 = 4128, 7
+    grid = torch.from_numpy(grid_superpixels(2 * TILE))
+    seg_ids = torch.stack([grid[y:y + TILE, x:x + TILE] for y, x in
+                           ((0, 0), (3, 17), (TILE, TILE), (100, 511),
+                            (256, 0), (511, 9), (40, 300), (TILE, 1))])
+    seg_ids = seg_ids.reshape(BATCH, -1).to(dev, torch.int32).contiguous()
+    seg_val = torch.softmax(randn(BATCH, TILE * TILE, nc7, scale=3.0), -1) \
+        .to(dev).contiguous()
+    seg_oh = F.one_hot(torch.randint(0, nc7, (BATCH, TILE * TILE),
+                                     generator=g), nc7).float().to(dev)
+    bad_ids = seg_ids.clone()
+    bad_ids[0, 5] = n_seg + 3
+    for case, ids in (("2urban", seg_ids), ("id out of range", bad_ids)):
+        table = segment_max(seg_val, ids, n_seg)
+        ref5 = segment_max_plain(seg_val, ids, n_seg)
+        torch.cuda.synchronize()
+        if not torch.equal(table, ref5):  # -inf in empty segments on both
+            fail(f"segment_max {case}: differs from its plain version")
+        e5 = max_err(table[torch.isfinite(ref5)], ref5[torch.isfinite(ref5)])
+        cnt = segment_sum(seg_oh, ids, n_seg)
+        e6 = check_close(f"segment_sum one-hot {case}", cnt,
+                         segment_sum_plain(seg_oh, ids, n_seg), 0.0, 0.0)
+        exact, bound = segment_sum_bound(seg_val, ids, n_seg)
+        d6 = (segment_sum(seg_val, ids, n_seg).double() - exact).abs()
+        e6r = float((d6 / bound.clamp(min=1e-300)).max())
+        if not bool((d6 <= bound).all()):
+            fail(f"segment_sum {case}: max abs err {float(d6.max()):.3g}, "
+                 f"{e6r:.3g} of the f32 summation bound")
+        occ = torch.where(torch.isinf(table), torch.zeros_like(table), table)
+        got = segment_gather(occ, ids)
+        ref = segment_gather_plain(occ, ids)
+        torch.cuda.synchronize()
+        nan_g, nan_r = torch.isnan(got), torch.isnan(ref)
+        if not (torch.equal(nan_g, nan_r) and torch.equal(got[~nan_g],
+                                                          ref[~nan_r])):
+            fail(f"segment_gather {case}: differs from its plain version")
+        if case != "2urban" and not bool(nan_g[0, 5].all()):
+            fail("segment_gather: an id >= S did not gather NaN")
+        if case == "2urban":
+            errs[("segment_max", "float32")] = e5
+            errs[("segment_sum", "float32")] = e6
+            errs[("segment_gather", "float32")] = max_err(got, ref)
+            inputs["segment"] = (seg_val, seg_ids, seg_oh, occ)
+        phase("kernel", f"segment_max / segment_sum / segment_gather {case} "
+              f"({BATCH}, {TILE * TILE}, {nc7}), S {n_seg}, route "
+              f"{segment_max.route}: max err {e5:.3g} (exact), one-hot counts "
+              f"{e6:.3g} (exact), random sums at {e6r:.3g} of the f32 bound, "
+              f"gather exact, "
+              f"{int(nan_g.any(-1).sum())} NaN pixels")
+    # K6 on its own function, superpixel_expand (no path calls it), against
+    # the CPU plain path on the same labels and maps
+    lab_t = torch.randint(-1, nc7, (BATCH, TILE, TILE), generator=g)
+    sup_t = seg_ids.reshape(BATCH, TILE, TILE).cpu()
+    exp_g = superpixel_expand(lab_t.to(dev), sup_t.to(dev), nc7, n_seg)
+    exp_c = superpixel_expand(lab_t, sup_t, nc7, n_seg)
+    if not torch.equal(exp_g.cpu(), exp_c):
+        fail("superpixel_expand on the card differs from the CPU")
+    phase("kernel", f"superpixel_expand ({BATCH}, {TILE}, {TILE}), S {n_seg}: "
+          f"equal to the CPU plain path")
+
     # 4. the flagship model, f32 on a small input, against the plain path
     #    on the CPU (a comparison: its launches are not the main path's)
     cfg = DeeplabV2Config.uemda_default(num_classes=NUM_CLASSES)
@@ -562,10 +835,14 @@ def main():
 
     # 6. the stage-1 training path: the f32 step against the CPU, then the
     #    flagship bf16 run with its own launch counts
-    train_launches = train_phase(dev)
+    train_launches, ctx = train_phase(dev)
 
-    # 7. timing (bf16, the serving and training dtype; K9 on uint8 tiles),
-    #    CUDA events after warm-up
+    # 7. init_prototypes and stage 2 on the model stage 1 left: the f32
+    #    step against the CPU, then the flagship chain with its own counts
+    align_launches, astate = align_phase(dev, ctx)
+
+    # 8. timing (bf16, the serving and training dtype; K9 on uint8 tiles,
+    #    K5-K7 on f32 probabilities), CUDA events after warm-up
     xi, xs, ws, bs, xt = inputs["bfloat16"]
     xb, dyb, mb, rb = inputs["bwd"]
     xc, offc = inputs["crop"]
@@ -574,6 +851,14 @@ def main():
     xr = xb.detach().requires_grad_()
     yr = F.instance_norm(xr, eps=1e-5)   # the library yardstick's graph
     crop_args = (xc, offc, (TILE, TILE), st_l["mean"], st_l["std"])
+    # K5-K7 at the 2urban stage-2 shape; the library yardsticks take the
+    # int64 indices they need, made here once
+    sv, sid, _, stab = inputs["segment"]
+    sidx = sid.long()[..., None].expand(BATCH, TILE * TILE, nc7)
+    srow = (sid.long() + n_seg * torch.arange(BATCH, device=dev)[:, None]
+            ).reshape(-1)
+    neg_table = torch.full((BATCH, n_seg, nc7), float("-inf"), device=dev)
+    zero_rows = torch.zeros(BATCH * n_seg, nc7, device=dev)
     timed = {
         "instance_norm": (
             lambda: instance_norm(xi), lambda: instance_norm_plain(xi),
@@ -595,6 +880,18 @@ def main():
         "crop_normalize": (
             lambda: crop_normalize(*crop_args),
             lambda: crop_normalize_plain(*crop_args), None),
+        "segment_max": (
+            lambda: segment_max(sv, sid, n_seg),
+            lambda: segment_max_plain(sv, sid, n_seg),
+            lambda: neg_table.scatter_reduce(1, sidx, sv, "amax")),
+        "segment_sum": (
+            lambda: segment_sum(sv, sid, n_seg),
+            lambda: segment_sum_plain(sv, sid, n_seg),
+            lambda: zero_rows.index_add_(0, srow, sv.view(-1, nc7))),
+        "segment_gather": (
+            lambda: segment_gather(stab, sid),
+            lambda: segment_gather_plain(stab, sid),
+            lambda: torch.gather(stab, 1, sidx)),
     }
     # bytes each function must move (inputs read once, outputs written once)
     # and the operations it does, from this run's shapes, each with the peak
@@ -621,6 +918,15 @@ def main():
                       PEAK_FLOPS["bfloat16"]),
         "tail": (xt.numel() * el + n_px * 6 * el, n_px * 12 * 14,
                  PEAK_FLOPS["float32"]),
+        # K5/K6 read the f32 values and int32 ids and write the (B, S, C)
+        # table, one compare or add per value; K7 reads the ids and the
+        # table and writes the values, no arithmetic
+        "segment_max": (4 * sv.numel() + 4 * sid.numel() + 4 * stab.numel(),
+                        sv.numel(), PEAK_FLOPS["float32"]),
+        "segment_sum": (4 * sv.numel() + 4 * sid.numel() + 4 * stab.numel(),
+                        sv.numel(), PEAK_FLOPS["float32"]),
+        "segment_gather": (4 * sid.numel() + 4 * stab.numel() + 4 * sv.numel(),
+                           0, PEAK_FLOPS["float32"]),
     }
     meta = {
         "instance_norm": ("uemda_tpu_torch/kernels/csrc/insnorm.cu",
@@ -637,6 +943,13 @@ def main():
         "crop_normalize": ("uemda_tpu_torch/kernels/csrc/crop.cu",
                            "uemda_tpu/ops/pallas_kernels.py:335",
                            "crop_normalize"),
+        "segment_max": ("uemda_tpu_torch/kernels/csrc/segment.cu",
+                        "uemda_tpu/ops/pallas_kernels.py:108", "segment_max"),
+        "segment_sum": ("uemda_tpu_torch/kernels/csrc/segment.cu",
+                        "uemda_tpu/ops/pallas_kernels.py:118", "segment_sum"),
+        "segment_gather": ("uemda_tpu_torch/kernels/csrc/segment.cu",
+                           "uemda_tpu/ops/pallas_kernels.py:143",
+                           "segment_gather"),
     }
     record = []
     for name, (k_fn, plain_fn, lib_fn) in timed.items():
@@ -650,13 +963,16 @@ def main():
         t_ops = nops / peak * 1e3
         bound = max(t_bytes, t_ops)
         src, rep, fn_name = meta[name]
-        dn = "uint8" if name == "crop_normalize" else "bfloat16"
+        dn = ("uint8" if name == "crop_normalize" else "float32"
+              if name.startswith("segment") else "bfloat16")
         n_serve = launches.get(fn_name, 0)
         n_train = train_launches[fn_name]
+        n_align = align_launches[fn_name]
         record.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": n_serve + n_train, "launches_serve": n_serve,
-            "launches_train": n_train,
+            "launches": n_serve + n_train + n_align,
+            "launches_serve": n_serve, "launches_train": n_train,
+            "launches_align": n_align,
             "max_abs_err": errs[(name, dn)], "ms": ms,
             "ms_with_host": host_ms,
             "plain_ms": plain_ms, "bound_ms": bound,
@@ -669,6 +985,29 @@ def main():
               f"{plain_ms:.4f} ms, library {lib_txt}, bound "
               f"{bound:.4f} ms ({record[-1]['bound_by']}; {nbytes} B, "
               f"{nops} op)")
+    # what label_refine costs at the flagship stage-2 shape, per view: the
+    # trained prototypes, (8, 2048, 32, 32) features, two heads' (8, 7, 32,
+    # 32) logits, the (8, 7, 512, 512) soft label and the 2urban maps
+    from uemda_tpu_torch.alignment.prototypes import label_refine
+
+    lr_feat = torch.randn(BATCH, 2048, TILE // 16, TILE // 16, device=dev) \
+        .contiguous(memory_format=CL)
+    lr_preds = [torch.randn(BATCH, nc7, TILE // 16, TILE // 16, device=dev)
+                .contiguous(memory_format=CL) for _ in range(2)]
+    lr_soft = torch.softmax(torch.randn(BATCH, nc7, TILE, TILE, device=dev), 1) \
+        .contiguous(memory_format=CL)
+    lr_sup = sid.reshape(BATCH, TILE, TILE)
+    for mode in ("all", "p", "l", "s"):
+        t_lr = kernel_ms(lambda: label_refine(
+            astate.aligner, lr_soft, lr_feat, lr_preds, sup=lr_sup, mode=mode,
+            max_segments=n_seg), iters=10)
+        t_lr_host = cuda_ms(lambda: label_refine(
+            astate.aligner, lr_soft, lr_feat, lr_preds, sup=lr_sup, mode=mode,
+            max_segments=n_seg), iters=10)
+        phase("time", f"label_refine mode {mode!r} at batch {BATCH}, "
+              f"{TILE}^2, S {n_seg}: {t_lr:.4f} ms device, {t_lr_host:.4f} ms "
+              "back to back with its host work")
+
     with torch.no_grad():
 
         fast_ms = {}

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card, against their plain versions: the
 odd shapes, both dtypes and both instance-norm routes (forward and
 backward) that chip_smoke.py's shapes do not reach, the crop kernel's
-vector and element routes, a training step that goes through the K1 and K9
-kernels, and the card as the entry points' default.
+vector and element routes, both routes of the segment kernels, training
+steps that go through the kernels, and the card as the entry points'
+default.
 
 These tests need an NVIDIA GPU and skip without one. They import neither JAX
 nor the JAX package, so they run where only PyTorch is installed; the
@@ -24,6 +25,15 @@ from uemda_tpu_torch.ops.insnorm import (
     instance_norm_forward,
     instance_norm_forward_plain,
     instance_norm_plain,
+)
+from uemda_tpu_torch.ops.segment import (
+    segment_gather,
+    segment_gather_plain,
+    segment_max,
+    segment_max_plain,
+    segment_sum,
+    segment_sum_bound,
+    segment_sum_plain,
 )
 from uemda_tpu_torch.ops.stem import stem_pool, stem_pool_plain
 from uemda_tpu_torch.ops.tail import (
@@ -267,5 +277,126 @@ def test_train_step_goes_through_the_kernels(dev):
     metrics = step(state, bs, bt, 0)
     torch.cuda.synchronize()
     assert [fn.launches - b for fn, b in zip(fns, before)] == [2, 2, 2]
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert state.step == 1
+
+
+def _grid_sup(b, h, w, cell, seed):
+    """Grid superpixel ids over a (b, h, w) batch with a one-pixel boundary
+    ring carrying the max id, as datasets/synthetic.py draws them, each
+    sample shifted so the maps differ."""
+    gy, gx = -(-h // cell), -(-w // cell)
+    n = gy * gx
+    r = np.random.default_rng(seed)
+    out = []
+    for _ in range(b):
+        ys = (np.arange(h) + r.integers(0, cell)) // cell % gy
+        xs = (np.arange(w) + r.integers(0, cell)) // cell % gx
+        sup = ys[:, None] * gx + xs[None, :]
+        ring = np.zeros((h, w), bool)
+        ring[::cell] = True
+        ring[:, ::cell] = True
+        out.append(np.where(ring, n, sup))
+    return np.stack(out), n + 1
+
+
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", [
+    # (B, H, W, C, cell, extra segments): shared-memory table ...
+    (2, 64, 96, 7, 16, 0),
+    (3, 33, 47, 6, 5, 3),          # odd sizes, empty segments at the top
+    (1, 40, 40, 11, 8, 0),         # C > 8: two channel passes
+    # ... and a table over the 227 KB of shared memory: global atomics
+    (2, 128, 128, 7, 2, 5000),
+])
+def test_segment_kernels(dev, ids_dtype, case):
+    """K5 and K7 exact against their plain versions; K6 exact on one-hot
+    counts and, on random values, within the error bound of f32 summation
+    in any order of the exact sums (its atomics' order varies); out-of-range
+    ids (>= S, and negative) left out of both reductions and gathered back
+    as NaN."""
+    b, h, w, c, cell, extra = case
+    sup, s = _grid_sup(b, h, w, cell, seed=c)
+    s += extra
+    sup[0, 0, :3] = [s, s + 7, -2]           # out of range
+    ids = torch.from_numpy(sup.reshape(b, -1)).to(dev, ids_dtype)
+    r = np.random.default_rng(h)
+    val = torch.from_numpy(r.normal(size=(b, h * w, c)).astype(np.float32)).to(dev)
+    n5, n6, n7 = segment_max.launches, segment_sum.launches, segment_gather.launches
+    got = segment_max(val, ids, s)
+    assert segment_max.route == ("global" if extra > 1000 else "shared")
+    ref = segment_max_plain(val, ids, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    if extra:  # the segments past the map's ids are empty: -inf
+        assert torch.isinf(got[:, -extra:]).all()
+    oh = torch.nn.functional.one_hot(
+        torch.from_numpy(r.integers(0, c, (b, h * w))), c).float().to(dev)
+    assert torch.equal(segment_sum(oh, ids, s), segment_sum_plain(oh, ids, s))
+    got_s = segment_sum(val, ids, s)
+    exact, bound = segment_sum_bound(val, ids, s)
+    torch.cuda.synchronize()
+    assert bool(((got_s.double() - exact).abs() <= bound).all())
+    g = segment_gather(got, ids)
+    gref = segment_gather_plain(ref, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.nan_to_num(g, nan=7.0),
+                       torch.nan_to_num(gref, nan=7.0))
+    assert torch.isnan(g[0, :3]).all() and not torch.isnan(g[0, 3:]).any()
+    assert (segment_max.launches, segment_sum.launches,
+            segment_gather.launches) == (n5 + 1, n6 + 2, n7 + 1)
+
+
+def test_segment_kernels_refuse_what_they_do_not_take(dev):
+    val = torch.zeros(2, 16, 7, device=dev)
+    ids = torch.zeros(2, 16, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        segment_max(val.bfloat16(), ids, 4)
+    with pytest.raises(TypeError):
+        segment_sum(val, ids.float(), 4)
+    with pytest.raises(ValueError, match="do not match"):
+        segment_max(val, ids[:, :8].contiguous(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        segment_max(val.transpose(0, 1).contiguous().transpose(0, 1), ids, 4)
+    with pytest.raises(ValueError, match="do not match"):
+        segment_gather(val, ids[:1])
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        segment_gather(val, ids.cpu())
+
+
+def test_align_step_goes_through_the_kernels(dev):
+    """One bf16 stage-2 step (CORAL, refine mode 'all') on a CUDA resnet18
+    model launches K5 and K7 once each, K9 twice, the K1 forward twice and
+    its backward twice, and gives finite losses; init_prototypes' step
+    launches the K1 forward once and leaves the BatchNorm buffers alone."""
+    import dataclasses
+
+    from uemda_tpu_torch.config import PRESETS
+    from uemda_tpu_torch.train.loop import build_model, build_state, default_hparams
+    from uemda_tpu_torch.train.steps import make_align_step, make_init_proto_step
+
+    cfg = dataclasses.replace(PRESETS["2urban"], model="resnet18", crop=(64, 64))
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    r = np.random.default_rng(0)
+    sup, _ = _grid_sup(2, 80, 80, 16, seed=1)
+    bs = {"image": torch.from_numpy(r.integers(0, 256, (2, 80, 80, 3)).astype(np.uint8)).to(dev),
+          "label": torch.from_numpy(r.integers(-1, 7, (2, 80, 80)).astype(np.int32)).to(dev)}
+    bt = {"image": torch.from_numpy(r.integers(0, 256, (2, 80, 80, 3)).astype(np.uint8)).to(dev),
+          "sup": torch.from_numpy(sup.astype(np.int32)).to(dev)}
+    hp = default_hparams(cfg, align_domain=True)
+    state = build_state(model, cfg, 10)
+    buffers = {n: t.clone() for n, t in model.named_buffers()}
+    n1 = instance_norm.launches
+    make_init_proto_step(model, hp)(state, {k: bs[k] for k in ("image", "label")}, 0)
+    torch.cuda.synchronize()
+    assert instance_norm.launches == n1 + 1
+    assert all(torch.equal(t, buffers[n]) for n, t in model.named_buffers())
+    assert float(state.aligner.data_cnt.sum()) >= 0
+    fns = (segment_max, segment_gather, crop_normalize, instance_norm,
+           instance_norm_backward)
+    before = [fn.launches for fn in fns]
+    metrics = make_align_step(model, hp)(state, bs, bt, 0)
+    torch.cuda.synchronize()
+    assert [fn.launches - n for fn, n in zip(fns, before)] == [1, 1, 2, 2, 2]
     assert all(np.isfinite(float(v)) for v in metrics.values())
     assert state.step == 1

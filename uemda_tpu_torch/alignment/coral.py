@@ -10,6 +10,8 @@ them to XLA -- in full f32: ``Precision.HIGHEST`` there, PyTorch's default
 
 import torch
 
+from uemda_tpu_torch.utils.runtime import require_full_f32
+
 
 def _covariance(x: torch.Tensor) -> torch.Tensor:
     n = x.shape[0]
@@ -19,13 +21,7 @@ def _covariance(x: torch.Tensor) -> torch.Tensor:
 
 def coral_loss(source: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """source/target: (N, K) flattened per-pixel features."""
-    if torch.get_float32_matmul_precision() != "highest":
-        # the products and their gradients would round through TF32
-        raise RuntimeError(
-            "coral_loss needs full-f32 matmuls (Precision.HIGHEST in the JAX "
-            "package); TF32 is on: torch.get_float32_matmul_precision() is "
-            f"{torch.get_float32_matmul_precision()!r}, PyTorch's default is "
-            "'highest'")
+    require_full_f32("coral_loss")
     d = source.shape[1]
     diff = _covariance(source.float()) - _covariance(target.float())
     return (diff * diff).sum() / (4.0 * d * d)

@@ -2,9 +2,9 @@
 
 The port's copy of ``uemda_tpu/datasets/augment.py``. The host ships raw
 uint8 tiles; on the device every sample is cropped and normalized by the K9
-kernel (``ops/crop.py``), its label cropped at the same origin, and then
-both go through the same D4 op. That order is exact: the per-channel
-normalize commutes with flips and rot90.
+kernel (``ops/crop.py``), its label and superpixel map cropped at the same
+origin, and then all go through the same D4 op. That order is exact: the
+per-channel normalize commutes with flips and rot90.
 
 Two pipelines, as the reference's:
   * source (``"oneof"``): RandomCrop + OneOf[hflip, vflip, rot90(k ~ U{0..3})]
@@ -95,18 +95,20 @@ def _d4(a: torch.Tensor, d4, mode: str, dims: Tuple[int, int]) -> torch.Tensor:
 def augment_batch(batch: Dict[str, torch.Tensor], crop_hw, mean, std,
                   draws: AugDraws) -> Dict[str, torch.Tensor]:
     """``batch``: ``image`` (B, H, W, 3) uint8 or f32 and optionally
-    ``label`` (B, H, W), on one device. Returns ``image`` as the normalized
-    (B, 3, th, tw) f32 channels_last crop (K9) and ``label`` cropped at the
-    same origins, both through the same D4 op per sample."""
+    ``label`` and ``sup`` (B, H, W), on one device. Returns ``image`` as
+    the normalized (B, 3, th, tw) f32 channels_last crop (K9) and ``label``
+    and ``sup`` cropped at the same origins, all through the same D4 op per
+    sample (``augment.py:100-121``)."""
     th, tw = int(crop_hw[0]), int(crop_hw[1])
     image = crop_normalize(batch["image"], draws.offsets, (th, tw), mean, std)
     d4 = draws.d4.tolist()
     out = {"image": torch.stack([_d4(image[i], d4[i], draws.mode, (1, 2))
                                  for i in range(len(d4))])
            .contiguous(memory_format=torch.channels_last)}
-    if "label" in batch:
-        lab = batch["label"]
-        out["label"] = torch.stack([
-            _d4(lab[i, y:y + th, x:x + tw], d4[i], draws.mode, (0, 1))
-            for i, (y, x) in enumerate(draws.offsets.tolist())])
+    for key in ("label", "sup"):
+        if key in batch:
+            m = batch[key]
+            out[key] = torch.stack([
+                _d4(m[i, y:y + th, x:x + tw], d4[i], draws.mode, (0, 1))
+                for i, (y, x) in enumerate(draws.offsets.tolist())])
     return out

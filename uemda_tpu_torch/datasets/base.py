@@ -19,18 +19,22 @@ from uemda_tpu_torch.datasets.io import (
     mask_path_for,
     read_image,
     read_mask,
+    read_sup,
+    sup_path_for,
 )
 from uemda_tpu_torch.datasets.meta import DatasetMeta
 
 
 @dataclasses.dataclass
 class SegDataset:
-    """A split on disk: images and, when ``mask_dir`` is set, hard masks."""
+    """A split on disk: images, hard masks when ``mask_dir`` is set, and
+    superpixel maps (``sup``) with ``read_sup``."""
 
     meta: DatasetMeta
     image_dir: object  # str or list[str]
     mask_dir: Optional[str] = None
     cache: Optional[RamCache] = None
+    read_sup: bool = False
 
     def __post_init__(self):
         self.image_paths = list_images(self.image_dir)
@@ -51,6 +55,8 @@ class SegDataset:
                 mask_path_for(path, self.mask_dir),
                 lambda p: read_mask(p, meta.offset, meta.num_classes,
                                     meta.ignore_label))
+        if self.read_sup:
+            out["sup"] = self.cache.get(sup_path_for(path), read_sup)
         return out
 
     def batch(self, indices) -> Dict[str, np.ndarray]:
@@ -60,18 +66,23 @@ class SegDataset:
 
 @dataclasses.dataclass
 class ArrayDataset:
-    """An in-memory split: uint8 images (N, H, W, 3), int32 labels (N, H, W)."""
+    """An in-memory split: uint8 images (N, H, W, 3), int32 labels
+    (N, H, W) and, optionally, int32 superpixel maps (N, H, W)."""
 
     meta: DatasetMeta
     images: np.ndarray
     labels: np.ndarray
+    sup: Optional[np.ndarray] = None
 
     def __len__(self):
         return len(self.images)
 
     def batch(self, indices) -> Dict[str, np.ndarray]:
         idx = np.asarray(indices, np.int64)
-        return {"image": self.images[idx], "label": self.labels[idx]}
+        out = {"image": self.images[idx], "label": self.labels[idx]}
+        if self.sup is not None:
+            out["sup"] = self.sup[idx]
+        return out
 
 
 def infinite_batches(dataset, batch_size: int, seed: int = 0,

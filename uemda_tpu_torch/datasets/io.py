@@ -1,8 +1,10 @@
 """Host-side dataset IO: file pairing and decoding.
 
-The port's copy of the eval part of ``uemda_tpu/datasets/io.py`` (reference
+The port's copy of ``uemda_tpu/datasets/io.py`` up to stage 2 (reference
 ``uemda/datasets/basedata.py:28-119``): images are ``*.png``/``*.tif`` under
-``image_dir``; hard masks pair by identical filename under ``mask_dir``.
+``image_dir``; hard masks pair by identical filename under ``mask_dir``;
+superpixel maps (uint16 ``.tif``) live next to the masks in the
+``_sup_shrink`` directory (``basedata.py:62-64``).
 PIL is imported inside the readers only, so hosts without it (the GPU
 machine) can import the package and use in-memory datasets.
 """
@@ -24,6 +26,16 @@ def list_images(image_dir) -> List[str]:
         paths += _glob.glob(os.path.join(d, "*.png"))
     paths.sort()
     return paths
+
+
+def sup_path_for(image_path: str) -> str:
+    """Superpixel map path by directory substitution (basedata.py:62-64):
+    ``img_dir`` -> ``ann_dir`` (``images_png`` -> ``masks_png``) +
+    ``_sup_shrink``, the image's stem + ``.tif``."""
+    d, fname = os.path.split(image_path)
+    sup_dir = d.replace("img_dir", "ann_dir").replace("images_png",
+                                                      "masks_png")
+    return os.path.join(sup_dir + "_sup_shrink", fname.split(".")[0] + ".tif")
 
 
 def mask_path_for(image_path: str, mask_dir: str) -> str:
@@ -51,6 +63,14 @@ def read_mask(path: str, offset: int, num_classes: int, ignore_label: int = -1):
     arr = arr + offset
     arr[arr >= num_classes] = ignore_label
     return arr
+
+
+def read_sup(path: str) -> np.ndarray:
+    """(H, W) int32 superpixel id map (a uint16 tif)."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im).astype(np.int32)
 
 
 class RamCache:

@@ -106,3 +106,30 @@ def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     if isinstance(sd, dict) and "state_dict" in sd:
         sd = sd["state_dict"]
     return {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
+
+
+def aligner_from_jax(aligner, device=None):
+    """The JAX package's ``AlignerState`` (or any object with its fields:
+    ``prototypes``, ``data_sum``, ``data_cnt`` as arrays, ``decay``,
+    ``ignore_label``) -> the port's, f32 on ``device`` (None: the card)."""
+    from uemda_tpu_torch.alignment.prototypes import AlignerState
+    from uemda_tpu_torch.utils.runtime import resolve_device
+
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(dev)
+
+    return AlignerState(prototypes=t(aligner.prototypes),
+                        data_sum=t(aligner.data_sum),
+                        data_cnt=t(aligner.data_cnt),
+                        decay=float(aligner.decay),
+                        ignore_label=int(aligner.ignore_label))
+
+
+def load_prototypes(path: str) -> torch.Tensor:
+    """(C, K) f32 prototypes on the CPU from a ``.pth``/``.pt`` holding the
+    tensor (as the reference and ``on_best`` save them) or a ``.npy``."""
+    if path.endswith(".npy"):
+        return torch.from_numpy(np.load(path).astype(np.float32))
+    return torch.load(path, map_location="cpu", weights_only=True).float()

@@ -1,0 +1,110 @@
+"""Stage 2: prototype contrastive alignment with online label refinement,
+on the GPU.
+
+Twin of ``tools/train_align_uem.py`` (reference
+``tools/train_align_uem.py:62-217``)::
+
+    python -m uemda_tpu_torch.tools.train_align_uem --config-path 2urban \\
+        --ckpt-model log/src/Urban_best.pth --ckpt-proto log/src/prototypes.pth \\
+        --align-domain 1 --refine-label 1 --refine-mode all
+
+Loads the stage-1 model and the prototypes (``.pth`` or ``.npy``); each
+step EMA-updates the prototypes from the source batch, refines the target's
+online soft label through the views of ``--refine-mode`` (the superpixel
+view reads the ``_sup_shrink`` maps), mines hard pseudo labels and adds PCL
+on both domains. Evaluates every ``EVAL_EVERY`` steps and at the end, and
+keeps ``<snapshot_dir>/align/<target>_best.pth`` and
+``prototypes_best.pth``. ``--device`` defaults to the card; ``--device cpu``
+runs the plain versions. Not ported yet, and refused: ``--ls
+OhemCrossEntropy``, ``--bcs 1``, ``--accum-steps`` > 1, ``--resume``.
+"""
+
+import argparse
+import logging
+import os
+
+
+from uemda_tpu_torch.config import load_config
+from uemda_tpu_torch.models.port import load_checkpoint, load_prototypes
+from uemda_tpu_torch.tools.eval import str2bool
+from uemda_tpu_torch.train.loop import (
+    build_model,
+    build_state,
+    default_hparams,
+    make_eval_hook,
+    make_source_iter,
+    make_target_iter,
+    run_training_loop,
+)
+from uemda_tpu_torch.train.steps import make_align_step
+from uemda_tpu_torch.utils.runtime import resolve_device
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Train alignment (stage 2).")
+    parser.add_argument("--config-path", type=str, default="2vaihingen")
+    parser.add_argument("--ckpt-model", type=str, required=True)
+    parser.add_argument("--ckpt-proto", type=str, required=True)
+    parser.add_argument("--align-domain", type=str2bool, default=0)
+    parser.add_argument("--gen", type=str2bool, default=1,
+                        help="accepted for reference-CLI parity; stage 2's "
+                             "supervision is online")
+    parser.add_argument("--refine-label", type=str2bool, default=1)
+    parser.add_argument("--refine-mode", type=str, default="all",
+                        choices=["s", "p", "n", "l", "all"])
+    parser.add_argument("--refine-temp", type=float, default=2.0)
+    parser.add_argument("--ls", type=str, default="CrossEntropy",
+                        choices=["CrossEntropy", "OhemCrossEntropy"])
+    parser.add_argument("--bcs", type=str2bool, default=0)
+    parser.add_argument("--class-temp", type=float, default=2.0)
+    parser.add_argument("--pcl-temp", type=float, default=8.0)
+    parser.add_argument("--steps", type=int, default=None)
+    parser.add_argument("--seed", type=int, default=2333)
+    parser.add_argument("--accum-steps", type=int, default=1)
+    parser.add_argument("--resume", type=str, default="")
+    parser.add_argument("--device", type=str, default=None,
+                        help="default: the card (cuda)")
+    args = parser.parse_args(argv)
+
+    if args.ls == "OhemCrossEntropy":
+        raise NotImplementedError("--ls OhemCrossEntropy: OHEM is not ported "
+                                  "yet (ROADMAP.md queue A)")
+    if args.bcs:
+        raise NotImplementedError("--bcs 1: class balancing is not ported yet "
+                                  "(ROADMAP.md queue A)")
+    if args.accum_steps > 1:
+        raise NotImplementedError("--accum-steps > 1: gradient accumulation "
+                                  "is not ported yet (ROADMAP.md queue A)")
+    if args.resume:
+        raise NotImplementedError("--resume: resume is not ported yet "
+                                  "(ROADMAP.md queue A)")
+    device = resolve_device(args.device)
+    cfg = load_config(args.config_path, snapshot_postfix="/align")
+    run_dir = cfg.snapshot_dir
+    os.makedirs(run_dir, exist_ok=True)
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    logger = logging.getLogger("uemda_tpu_torch.train_align_uem")
+    logger.info(f"args: {vars(args)}")
+
+    stop_steps = args.steps or cfg.stage2_steps
+    model = build_model(cfg, device=device)
+    model.load_state_dict(load_checkpoint(args.ckpt_model))
+    state = build_state(model, cfg, stop_steps,
+                        prototypes=load_prototypes(args.ckpt_proto))
+    hp = default_hparams(
+        cfg, align_domain=bool(args.align_domain),
+        refine=bool(args.refine_label), refine_mode=args.refine_mode,
+        refine_temp=args.refine_temp, pcl_temp=args.pcl_temp,
+        compute_dtype="bfloat16" if device.type == "cuda" else "float32")
+    step_fn = make_align_step(model, hp)
+    src_iter, _ = make_source_iter(cfg)
+    need_sup = hp.refine and hp.refine_mode in ("all", "s")
+    tgt_iter, _ = make_target_iter(cfg, read_sup=need_sup)
+    eval_fn, on_best = make_eval_hook(cfg, run_dir, logger=logger)
+    return run_training_loop(state, step_fn, src_iter, tgt_iter, stop_steps,
+                             logger, eval_every=cfg.eval_every,
+                             eval_fn=eval_fn, on_best=on_best, seed=args.seed)
+
+
+if __name__ == "__main__":
+    main()

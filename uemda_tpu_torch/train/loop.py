@@ -1,15 +1,16 @@
-"""The stage-1 trainer: model and state construction, the data
+"""The trainers of stages 1 and 2: model and state construction, the data
 streams, and a minimal step loop with periodic evaluation and
 best-checkpoint tracking.
 
 The port's copy of ``build_model``, ``build_state``, ``default_hparams``,
-``make_source_iter`` and ``make_target_iter`` (``uemda_tpu/train/loop.py:
-44-116,615-663``), and a loop in the manner of ``_run_training_loop``
-(reference ``tools/train_src.py:108-165``): log every ``log_every`` steps,
-evaluate every ``eval_every`` steps and at the end through
-``infer/evaluate.py``, keep the best checkpoint as a ``.pth`` under the
-reference's key names. Resume, the run-dir lock, the hang watchdog and
-several steps per call are not ported yet (ROADMAP.md queue A).
+``_max_segments_for``, ``make_source_iter`` and ``make_target_iter``
+(``uemda_tpu/train/loop.py:44-116,615-675``), and a loop in the manner of
+``_run_training_loop`` (reference ``tools/train_src.py:108-165``): log
+every ``log_every`` steps, evaluate every ``eval_every`` steps and at the
+end through ``infer/evaluate.py``, keep the best checkpoint as a ``.pth``
+under the reference's key names, and the prototypes beside it. Resume,
+the run-dir lock, the hang watchdog and several steps per call are not
+ported yet (ROADMAP.md queue A).
 """
 
 import copy
@@ -22,6 +23,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from uemda_tpu_torch.alignment.prototypes import init_aligner
 from uemda_tpu_torch.config import PairConfig
 from uemda_tpu_torch.datasets.base import SegDataset, infinite_batches
 from uemda_tpu_torch.infer.evaluate import evaluate_dataset
@@ -56,15 +58,23 @@ def build_model(cfg: PairConfig, device=None,
 
 
 def build_state(model: DeeplabV2, cfg: PairConfig, stop_steps: int,
-                freeze_at: int = 0, accum_steps: int = 1) -> TrainState:
+                freeze_at: int = 0, accum_steps: int = 1, prototypes=None,
+                feat_channels: Optional[int] = None) -> TrainState:
     """SGD over the model's parameters with the poly-warmup schedule over
-    ``stop_steps`` and, for ``freeze_at > 0``, the stage freeze mask."""
+    ``stop_steps`` and, for ``freeze_at > 0``, the stage freeze mask; the
+    prototype aligner starts from ``prototypes`` ((C, K), else zeros; K is
+    ``feat_channels``, by default the model's ``inchannels``) on the
+    model's device."""
     schedule = poly_warmup_schedule(cfg.learning_rate, stop_steps, cfg.power)
     named = list(model.named_parameters())
     mask = freeze_mask(named, freeze_at) if freeze_at > 0 else None
     opt = SGD(named, schedule, cfg.momentum, cfg.weight_decay, clip_norm=32.0,
               trainable=mask, accum_steps=accum_steps)
-    return TrainState(step=0, model=model, opt=opt)
+    aligner = init_aligner(cfg.class_num,
+                           feat_channels or model.config.inchannels,
+                           ignore_label=cfg.ignore_label,
+                           prototypes=prototypes, device=named[0][1].device)
+    return TrainState(step=0, model=model, opt=opt, aligner=aligner)
 
 
 def default_hparams(cfg: PairConfig, **overrides) -> StageHParams:
@@ -76,9 +86,23 @@ def default_hparams(cfg: PairConfig, **overrides) -> StageHParams:
         src_std=cfg.source.std,
         tgt_mean=cfg.target.mean,
         tgt_std=cfg.target.std,
+        cutoff_top=cfg.cutoff_top,
+        cutoff_low=cfg.cutoff_low,
+        max_segments=max_segments_for(cfg),
     )
     base.update(overrides)
     return StageHParams(**base)
+
+
+def max_segments_for(cfg: PairConfig) -> int:
+    """The static bound on superpixel ids + 1 (``loop.py:666-675``): LSC at
+    region size 16 gives at most (h/16)(w/16) ids and one boundary id,
+    with 32 of slack. The ids are numbered over the whole image before the
+    crop, so the bound comes from the larger of image and crop: 4128 for
+    LoveDA's 1024^2 tiles, 1056 for 512^2 ISPRS tiles."""
+    h = max(cfg.crop[0], cfg.meta.size[0])
+    w = max(cfg.crop[1], cfg.meta.size[1])
+    return (h // 16) * (w // 16) + 32
 
 
 def make_source_iter(cfg: PairConfig, seed: int = 0):
@@ -87,9 +111,11 @@ def make_source_iter(cfg: PairConfig, seed: int = 0):
     return infinite_batches(ds, cfg.source.batch_size, seed=seed), ds
 
 
-def make_target_iter(cfg: PairConfig, seed: int = 1):
-    """The unlabelled target stream (images only)."""
-    ds = SegDataset(cfg.meta, list(cfg.target.image_dir), None)
+def make_target_iter(cfg: PairConfig, seed: int = 1, read_sup: bool = False):
+    """The unlabelled target stream: images and, with ``read_sup``, their
+    superpixel maps."""
+    ds = SegDataset(cfg.meta, list(cfg.target.image_dir), None,
+                    read_sup=read_sup)
     return infinite_batches(ds, cfg.target.batch_size, seed=seed), ds
 
 
@@ -135,6 +161,9 @@ def make_eval_hook(cfg: PairConfig, run_dir: Optional[str], dataset=None,
             os.makedirs(run_dir, exist_ok=True)
             torch.save(state.model.state_dict(),
                        os.path.join(run_dir, f"{cfg.target_set}_best.pth"))
+            if state.aligner is not None:
+                torch.save(state.aligner.prototypes.cpu(),
+                           os.path.join(run_dir, "prototypes_best.pth"))
 
     return eval_fn, on_best
 

@@ -1,16 +1,18 @@
-"""The stage-1 train step: supervised CE on both heads + optional CORAL.
+"""The train steps of stage 1, ``init_prototypes`` and stage 2.
 
 The port's copy of ``StageHParams``, ``_forward_train``, the CE branch of
-``_source_loss_terms`` and ``make_src_step`` (``uemda_tpu/train/steps.py:
-52-164``; reference ``tools/train_src.py:108-149``).
+``_source_loss_terms``, ``make_src_step``, ``make_init_proto_step`` and
+``make_align_step`` (``uemda_tpu/train/steps.py:52-255``; reference
+``tools/train_src.py:108-149``, ``tools/init_prototypes.py:101-111``,
+``tools/train_align_uem.py:136-187``).
 
 Mixed precision as in the JAX package: the f32 master parameters are cast
 to ``compute_dtype`` (bf16 by default) for the forward -- a differentiable
 cast, so the gradients reach the masters in f32 as through JAX's ``_cast``
-(``steps.py:83-103``) -- while BatchNorm and instance-norm statistics and
-the losses stay f32. With CORAL, the target forward runs on the BatchNorm
-running statistics the source forward has just updated, and each forward
-takes its own dropout draw.
+(``steps.py:83-103``) -- while BatchNorm and instance-norm statistics, the
+losses and the prototype algebra stay f32. A second forward in one step
+runs on the BatchNorm running statistics the first has just updated, and
+each forward takes its own dropout draw.
 
 Randomness is explicit. A step's draws come from two generators seeded by
 (run seed, step index) -- a CPU one for the augmentation (crop origins and
@@ -28,7 +30,17 @@ import torch
 
 from uemda_tpu_torch.alignment.coral import align_domain
 from uemda_tpu_torch.alignment.losses import cross_entropy_loss, loss_calc
+from uemda_tpu_torch.alignment.pcl import prototype_contrastive_loss
+from uemda_tpu_torch.alignment.prototypes import (
+    label_refine,
+    update_avg,
+    update_prototype,
+)
 from uemda_tpu_torch.datasets.augment import AugDraws, augment_batch, draw_augment
+from uemda_tpu_torch.ops.insnorm import instance_norm
+from uemda_tpu_torch.ops.labels import downscale_label
+from uemda_tpu_torch.ops.pseudo import pseudo_selection
+from uemda_tpu_torch.ops.resize import upsample_logits
 from uemda_tpu_torch.train.state import TrainState
 
 
@@ -44,7 +56,15 @@ class StageHParams:
     align_domain: bool = False
     source_loss: str = "ce"  # 'ce' | 'ohem' (not ported yet)
     balance_source: bool = False  # not ported yet
+    refine: bool = True
+    refine_mode: str = "all"
+    refine_temp: float = 2.0
+    cutoff_top: float = 0.8
+    cutoff_low: float = 0.6
+    pcl_temp: float = 8.0
+    max_segments: int = 2048
     compute_dtype: str = "bfloat16"
+    scale_factor: int = 16  # feature stride (output_stride)
 
 
 @dataclasses.dataclass
@@ -94,11 +114,31 @@ def forward_train(model, params, images: torch.Tensor, generator,
     return tuple(t.float() for t in out)
 
 
-class SrcStep:
-    """Stage-1 step. ``batch_s``: {'image': (B, H, W, 3) uint8 or f32,
-    'label': (B, H, W) int} and ``batch_t``: {'image': ...} on the model's
-    device. ``step(state, batch_s, batch_t, seed)`` updates ``state`` in
-    place and returns the metrics as f32 device scalars."""
+def forward_features(model, images: torch.Tensor, dtype: torch.dtype
+                     ) -> torch.Tensor:
+    """The train-mode feature map ``init_prototypes`` reads, in f32: the
+    encoder on batch statistics, then the instance norm (K1). The heads do
+    not touch the feature, so they are not run. The JAX step throws the
+    forward's new BatchNorm statistics away (``steps.py:174-180``); a
+    PyTorch train-mode BatchNorm writes them in place even under
+    ``no_grad``, so the encoder runs on scratch copies of its buffers and
+    the model's own stay as they were."""
+    enc = model.encoder
+    params = cast_params(enc, dtype) or dict(enc.named_parameters())
+    scratch = {n: b.clone() for n, b in enc.named_buffers()}
+    x = images.to(dtype).contiguous(memory_format=torch.channels_last)
+    feat = torch.func.functional_call(enc, {**params, **scratch}, (x,))[-1]
+    if model.config.is_ins_norm:
+        feat = instance_norm(feat)
+    return feat.float()
+
+
+class _Step:
+    """What the stage steps share: the hparams checks, the step's draws and
+    augmentation, the compute copy of the masters, the backward and the
+    update. A subclass computes the losses (:meth:`losses`)."""
+
+    needs_target = True
 
     def __init__(self, model, hp: StageHParams):
         if hp.source_loss != "ce":
@@ -112,16 +152,21 @@ class SrcStep:
         cfg = model.config
         if not cfg.multi_layer or cfg.cascade:
             raise NotImplementedError(
-                "the stage-1 step takes the dual-head model, as the JAX "
-                "package's make_src_step")
+                "the train steps take the dual-head model, as the JAX "
+                "package's make_src_step and make_align_step")
         self.model = model
         self.hp = hp
         self.dtype = getattr(torch, hp.compute_dtype)
 
+    def losses(self, state, bs, bt, params, dev_gen, draws
+               ) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
     def __call__(self, state: TrainState, batch_s, batch_t, seed: int,
                  draws: Optional[StepDraws] = None) -> Dict[str, torch.Tensor]:
-        """Forward(s), losses, backward and the update. The masters' ``.grad``
-        keep this step's gradients afterwards."""
+        """Forwards, losses, backward and the update. The masters' ``.grad``
+        keep this step's gradients afterwards. Returns the metrics as f32
+        device scalars."""
         hp, model = self.hp, self.model
         host_gen, dev_gen = step_generators(seed, state.step,
                                             batch_s["image"].device)
@@ -132,31 +177,147 @@ class SrcStep:
                                     hp.crop, "oneof")
 
             draws = StepDraws(draw(batch_s),
-                              draw(batch_t) if hp.align_domain else None)
+                              draw(batch_t) if self.needs_target else None)
         model.train()
         model.zero_grad(set_to_none=True)
         bs = augment_batch(batch_s, hp.crop, hp.src_mean, hp.src_std,
                            draws.aug_s)
-        if hp.align_domain:
+        bt = None
+        if self.needs_target:
             bt = augment_batch(batch_t, hp.crop, hp.tgt_mean, hp.tgt_std,
                                draws.aug_t)
         params = cast_params(model, self.dtype)
-        p1, p2, feat_s = forward_train(model, params, bs["image"], dev_gen,
-                                       draws.drop_s)
+        metrics = self.losses(state, bs, bt, params, dev_gen, draws)
+        metrics["loss"].backward()
+        state.apply_gradients()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def _seg_and_domain(self, p1, p2, label, feat_s, feat_t):
+        hp = self.hp
         loss_seg = loss_calc(
-            [p1, p2], bs["label"],
+            [p1, p2], label,
             lambda lg, lb: cross_entropy_loss(lg, lb, hp.ignore_label))
         loss_dom = torch.zeros((), device=loss_seg.device)
         if hp.align_domain:
+            loss_dom = align_domain(feat_s, feat_t)
+        return loss_seg, loss_dom
+
+
+class SrcStep(_Step):
+    """Stage-1 step. ``batch_s``: {'image': (B, H, W, 3) uint8 or f32,
+    'label': (B, H, W) int} and ``batch_t``: {'image': ...} on the model's
+    device. ``step(state, batch_s, batch_t, seed)`` updates ``state`` in
+    place and returns the metrics."""
+
+    @property
+    def needs_target(self):
+        return self.hp.align_domain
+
+    def losses(self, state, bs, bt, params, dev_gen, draws):
+        model = self.model
+        p1, p2, feat_s = forward_train(model, params, bs["image"], dev_gen,
+                                       draws.drop_s)
+        feat_t = None
+        if self.hp.align_domain:
             _, _, feat_t = forward_train(model, params, bt["image"], dev_gen,
                                          draws.drop_t)
-            loss_dom = align_domain(feat_s, feat_t)
-        loss = loss_seg + loss_dom
-        loss.backward()
-        state.apply_gradients()
-        return {"loss": loss.detach(), "loss_seg": loss_seg.detach(),
-                "loss_domain": loss_dom.detach()}
+        loss_seg, loss_dom = self._seg_and_domain(p1, p2, bs["label"], feat_s,
+                                                  feat_t)
+        return {"loss": loss_seg + loss_dom, "loss_seg": loss_seg,
+                "loss_domain": loss_dom}
+
+
+class AlignStep(_Step):
+    """Stage-2 step (``steps.py:185-255``). ``batch_s``: {'image', 'label'};
+    ``batch_t``: {'image'} and, for the superpixel view, {'sup': (B, H, W)
+    int ids}: the target's supervision is online, from its own forward.
+
+    Order, as the JAX step: source forward; the prototypes' EMA update from
+    the source features and labels; target forward (on the BatchNorm
+    statistics the source forward just wrote); the target's soft label, the
+    mean of both heads' softmax at the crop size, refined by the *updated*
+    prototypes and the views of ``refine_mode``; pseudo selection and its
+    16x downscale; CE + CORAL + PCL on both domains against the updated
+    prototypes."""
+
+    def __init__(self, model, hp: StageHParams):
+        super().__init__(model, hp)
+        if hp.refine and hp.refine_mode not in ("all", "p", "l", "s", "n"):
+            raise ValueError(f"unknown refine_mode {hp.refine_mode!r}")
+
+    def losses(self, state, bs, bt, params, dev_gen, draws):
+        hp, model = self.hp, self.model
+        p1, p2, feat_s = forward_train(model, params, bs["image"], dev_gen,
+                                       draws.drop_s)
+        aligner, label_s_down = update_prototype(
+            state.aligner, feat_s, bs["label"], hp.class_num, hp.scale_factor)
+        t1, t2, feat_t = forward_train(model, params, bt["image"], dev_gen,
+                                       draws.drop_t)
+        with torch.no_grad():
+            soft = (torch.softmax(upsample_logits(t1, hp.crop), dim=1)
+                    + torch.softmax(upsample_logits(t2, hp.crop), dim=1)) * 0.5
+            if hp.refine:
+                soft = label_refine(aligner, soft, feat_t, [t1, t2],
+                                    sup=bt.get("sup"), mode=hp.refine_mode,
+                                    temp=hp.refine_temp,
+                                    max_segments=hp.max_segments)
+            label_t_hard = pseudo_selection(soft, hp.cutoff_top, hp.cutoff_low,
+                                            hp.ignore_label)
+            label_t_down = downscale_label(label_t_hard, hp.scale_factor,
+                                           hp.class_num, hp.ignore_label)
+        loss_seg, loss_dom = self._seg_and_domain(p1, p2, bs["label"], feat_s,
+                                                  feat_t)
+        loss_align = 0.5 * (
+            prototype_contrastive_loss(aligner.prototypes, feat_s,
+                                       label_s_down, hp.pcl_temp,
+                                       hp.ignore_label)
+            + prototype_contrastive_loss(aligner.prototypes, feat_t,
+                                         label_t_down, hp.pcl_temp,
+                                         hp.ignore_label))
+        state.aligner = aligner
+        return {"loss": loss_seg + loss_dom + loss_align, "loss_seg": loss_seg,
+                "loss_align": loss_align, "loss_domain": loss_dom}
+
+
+class InitProtoStep:
+    """The ``init_prototypes`` accumulation pass (``steps.py:167-182``):
+    augment a source batch, take the train-mode feature map without moving
+    the BatchNorm statistics (:func:`forward_features`), and add its
+    per-class sums and counts to ``state.aligner``. ``index`` numbers the
+    batch: its augmentation draws come from (seed, index)."""
+
+    def __init__(self, model, hp: StageHParams):
+        if model.config.cascade or not model.config.multi_layer:
+            raise NotImplementedError(
+                "init_prototypes takes the dual-head model's feature, as the "
+                "JAX package's make_init_proto_step")
+        self.model = model
+        self.hp = hp
+        self.dtype = getattr(torch, hp.compute_dtype)
+
+    def __call__(self, state: TrainState, batch_s, seed: int, index: int = 0,
+                 draws: Optional[AugDraws] = None) -> None:
+        hp = self.hp
+        if draws is None:
+            image = batch_s["image"]
+            host_gen, _ = step_generators(seed, index, torch.device("cpu"))
+            draws = draw_augment(host_gen, image.shape[0], image.shape[1:3],
+                                 hp.crop, "oneof")
+        self.model.train()
+        bs = augment_batch(batch_s, hp.crop, hp.src_mean, hp.src_std, draws)
+        with torch.no_grad():
+            feat = forward_features(self.model, bs["image"], self.dtype)
+        state.aligner = update_avg(state.aligner, feat, bs["label"],
+                                   hp.class_num, hp.scale_factor)
 
 
 def make_src_step(model, hp: StageHParams) -> SrcStep:
     return SrcStep(model, hp)
+
+
+def make_align_step(model, hp: StageHParams) -> AlignStep:
+    return AlignStep(model, hp)
+
+
+def make_init_proto_step(model, hp: StageHParams) -> InitProtoStep:
+    return InitProtoStep(model, hp)

@@ -3,6 +3,8 @@
 Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 ``RuntimeError`` when CUDA is missing. The CPU runs only when the caller asks
 for it (``device="cpu"``), as the tests do -- nothing falls back to it.
+Also the check that f32 matrix products run in full f32, where the JAX
+package pins ``Precision.HIGHEST``.
 """
 
 import torch
@@ -17,3 +19,15 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise RuntimeError(f"unsupported device {dev}")
     return dev
+
+
+def require_full_f32(what: str) -> None:
+    """Raise unless f32 matmuls run in full f32 (PyTorch's default, TF32 off):
+    ``what`` pins ``Precision.HIGHEST`` in the JAX package, and its products
+    (and their gradients) would otherwise round through TF32."""
+    if torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError(
+            f"{what} needs full-f32 matmuls (Precision.HIGHEST in the JAX "
+            "package); TF32 is on: torch.get_float32_matmul_precision() is "
+            f"{torch.get_float32_matmul_precision()!r}, PyTorch's default is "
+            "'highest'")
