@@ -6,8 +6,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100::
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``uemda_tpu_torch/kernels/csrc``,
-holds each against its plain PyTorch version at the shapes of the two main
-paths, and drives both (flagship ResNet-50 OS16 dual-PPM model, random
+holds each against its plain PyTorch version at the shapes of the main
+paths, and drives them (flagship ResNet-50 OS16 dual-PPM model, random
 weights from a seed):
 
 * serving: the standard eval forward, the fused-stem fast path and slide +
@@ -15,9 +15,15 @@ weights from a seed):
 * stage-1 training (``[train]``): one f32 step on the card against the same
   step on the CPU, then 30 bf16 steps with CORAL at the 2urban geometry
   (synthetic 1024^2 LoveDA tiles cropped to 512^2 by the K9 kernel, batch 8)
-  through ``run_training_loop``, ending in an evaluation.
+  through ``run_training_loop``, ending in an evaluation;
+* ``init_prototypes`` and stage 2 (``[align]``) on the model stage 1 left:
+  an f32 step against the CPU, then 30 flagship steps with refine 'all';
+* ``init_prototypes`` again and stage 3 (``[ssl]``) on the model stage 2
+  left: an f32 step against the CPU, then the pseudo-label sweep of the
+  target tiles (slide + 8-view TTA, bf16) and 30 flagship UVEM steps, each
+  mining its soft label once with the K8 kernel.
 
-It times kernels, forwards and steps with CUDA events, profiles both paths,
+It times kernels, forwards and steps with CUDA events, profiles the paths,
 and prints one line per phase. Any failed check prints FAIL and exits
 nonzero. The second-to-last line is the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -507,6 +513,273 @@ def align_phase(dev, ctx):
     return counts, state
 
 
+def soft_labels(labels, nc, seed):
+    """(N, H, W) labels -> (N, H, W, nc) fp16 soft labels, as the sweep
+    stores them, peaked on the label by a confidence drawn per 16-pixel
+    block, so that they hold selected and ambiguous pixels, and entropies in
+    all three UVEM branches: a random-init model's own labels select nothing
+    at the default cutoffs, and a step whose target loss is 0 shows nothing
+    of K8."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    n, h, w = labels.shape
+    conf = np.kron(r.choice([0.5, 2.0, 4.0, 8.0], (n, h // 16, w // 16)),
+                   np.ones((16, 16)))[..., None]
+    logit = r.normal(size=(n, h, w, nc)) + conf * np.eye(nc)[labels.clip(0)]
+    p = np.exp(logit - logit.max(-1, keepdims=True))
+    return (p / p.sum(-1, keepdims=True)).astype(np.float16)
+
+
+def ssl_phase(dev, ctx):
+    """Pipeline steps 4 and 5: ``init_prototypes`` on the model stage 2
+    left, the pseudo-label sweep and the stage-3 path. (a) One f32 stage-3
+    step on the card against the same step on the CPU's plain path. (b) At
+    the flagship: the prototype pass, the sweep of the 16 target tiles
+    (slide at 512^2, 8-view TTA, bf16, in RAM), 30 bf16 stage-3 steps
+    (UVEM, refine 'all') through ``run_training_loop`` and an evaluation,
+    every launch count set to 0 just before the prototype pass and read
+    just after the evaluation; returns those counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from uemda_tpu_torch.datasets.augment import draw_augment
+    from uemda_tpu_torch.datasets.base import ArrayDataset, infinite_batches
+    from uemda_tpu_torch.datasets.meta import LoveDA, NORM_STATS
+    from uemda_tpu_torch.datasets.synthetic import synthetic_split
+    from uemda_tpu_torch.infer.pseudo_gen import generate_pseudo_labels
+    from uemda_tpu_torch.ops.pseudo import pseudo_selection
+    from uemda_tpu_torch.tools.init_prototypes import init_prototypes
+    from uemda_tpu_torch.train.loop import (
+        batch_to_device,
+        build_model,
+        build_state,
+        default_hparams,
+        make_eval_hook,
+        run_training_loop,
+    )
+    from uemda_tpu_torch.train.steps import (
+        StepDraws,
+        make_init_proto_step,
+        make_ssl_step,
+    )
+
+    cfg = ctx["cfg"]
+    nc = cfg.class_num
+
+    # (a) f32, TF32 off: ResNet-50 OS16 dual PPM at 128^2, batch 2, UVEM
+    # with refine 'all' and the target class balance; stage 1's draw (model
+    # seed 0, data seeds 1, 2), the target's superpixel maps, stored soft
+    # labels peaked on its labels, random prototypes, the same on both
+    # devices, at step 1 of a 100-step schedule
+    small = dataclasses.replace(cfg, crop=(128, 128))
+    g = torch.Generator().manual_seed(1)
+    cpu_model = build_model(small, device="cpu",
+                            generator=torch.Generator().manual_seed(0))
+    gpu_model = build_model(small, device=dev,
+                            generator=torch.Generator().manual_seed(0))
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    hp32 = default_hparams(small, refine=True, refine_mode="all",
+                           balance_target=True, compute_dtype="float32")
+    data = synthetic_split(LoveDA, n=4, hw=160, seed=2, with_sup=True)
+    bs = {"image": data.images[:2], "label": data.labels[:2]}
+    bt = {"image": data.images[2:], "sup": data.sup[2:],
+          "prob": soft_labels(data.labels[2:], nc, seed=1)}
+    drop = [{h: torch.rand(2, 512, 8, 8, generator=g) < 0.9
+             for h in ("layer5", "layer6")} for _ in range(2)]
+    draws = StepDraws(draw_augment(g, 2, (160, 160), small.crop),
+                      draw_augment(g, 2, (160, 160), small.crop, "compose"),
+                      *drop)
+    proto = torch.randn(nc, cpu_model.config.inchannels, generator=g)
+    out = {}
+    for name, model, d in (("cpu", cpu_model, "cpu"), ("gpu", gpu_model, dev)):
+        state = build_state(model, small, 100, prototypes=proto)
+        state.step = state.opt.count = 1
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        metrics = make_ssl_step(model, hp32)(
+            state, batch_to_device(bs, d), batch_to_device(bt, d), 0,
+            draws=draws)
+        out[name] = (
+            {k: float(v) for k, v in metrics.items()},
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            {n: (p.detach() - before[n]).cpu()
+             for n, p in model.named_parameters()},
+            state.aligner.prototypes.cpu(), state.balance_t.freq.cpu())
+    (m_c, g_c, u_c, p_c, f_c), (m_g, g_g, u_g, p_g, f_g) = \
+        out["cpu"], out["gpu"]
+    for k in ("loss", "loss_source", "loss_target"):
+        rel = abs(m_g[k] - m_c[k]) / max(abs(m_c[k]), 1e-30)
+        if not rel <= 1e-4:  # f32 sums in other orders, as stages 1 and 2
+            fail(f"f32 stage-3 step {k}: card {m_g[k]} vs CPU {m_c[k]} "
+                 f"(rel {rel:.3g})")
+    if not (m_c["loss_target"] > 0 and m_c["selected"] > 0
+            and m_c["trained"] > 0):
+        fail(f"f32 stage-3 step: the target loss selected or trained no "
+             f"pixel ({m_c}); the check would show nothing of K8")
+    for k in ("selected", "trained"):  # a pixel at a threshold may flip
+        if not abs(m_g[k] - m_c[k]) <= 1e-3:
+            fail(f"f32 stage-3 step {k}: card {m_g[k]} vs CPU {m_c[k]}")
+
+    def rel_max(a, b):
+        num = max(float((a[n] - b[n]).abs().max()) for n in a)
+        return num / max(float(b[n].abs().max()) for n in b)
+
+    e_g, e_u = rel_max(g_g, g_c), rel_max(u_g, u_c)
+    e_p = float((p_g - p_c).abs().max()) / float(p_c.abs().max())
+    e_f = float(((f_g - f_c).abs() / f_c.abs()).max())
+    if not (e_g <= 2e-2 and e_u <= 2e-2 and e_p <= 1e-5 and e_f <= 1e-6):
+        fail(f"f32 stage-3 step: gradients {e_g:.3g}, updates {e_u:.3g} of "
+             f"max |g| (limit 2e-2); prototypes {e_p:.3g} of max |p| (limit "
+             f"1e-5); class-balance frequencies {e_f:.3g} relative (limit "
+             "1e-6)")
+    phase("ssl", f"f32 stage-3 step on the card vs the CPU plain path "
+          f"(ResNet-50 OS16, 128^2, batch 2, UVEM, refine 'all', target "
+          f"class balance, step 1): {json.dumps({k: [m_g[k], m_c[k]] for k in m_c})}; "
+          f"gradients max abs err / max |g| {e_g:.3g}, updates {e_u:.3g}; "
+          f"prototypes {e_p:.3g} of max |p|; frequencies {e_f:.3g}")
+    del cpu_model, gpu_model, out, g_c, g_g, u_c, u_g
+
+    # (b) the chain's steps 4 and 5 at the flagship: init_prototypes over
+    # the 16 source tiles on the stage-2 model, the sweep of the 16 target
+    # tiles, 30 stage-3 steps with the schedule's horizon at 30, evaluation
+    steps, batch = 30, BATCH
+    model = ctx["model"]
+    hp = default_hparams(cfg, refine=True, refine_mode="all")
+    eval_fn, _ = make_eval_hook(cfg, None, dataset=ctx["val"])
+    tgt = ctx["tgt"]
+    st = NORM_STATS["LoveDA"]
+    src_it = infinite_batches(ctx["src"], batch, seed=20)
+    losses, events = [], []
+
+    def on_step(i, metrics):
+        losses.append(metrics)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    logger = logging.getLogger("chip_smoke.ssl")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in WRAPPERS:
+        fn.launches = 0
+    t0 = time.time()
+    state = build_state(model, cfg, steps)
+    n_proto = init_prototypes(state, make_init_proto_step(model, hp),
+                              ctx["src"], batch, 2333, dev)
+    torch.cuda.synchronize()
+    t_proto = time.time() - t0
+    proto0 = state.aligner.prototypes.clone()
+    cnt = state.aligner.data_cnt.cpu().numpy().ravel()
+    if not (torch.isfinite(proto0).all() and cnt.sum() > 0):
+        fail(f"init_prototypes (stage 2's model): counts {cnt}")
+    peak_proto = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    sweep = generate_pseudo_labels(
+        model, tgt, st["mean"], st["std"], tile=(TILE, TILE), tta=True,
+        batch_size=min(4, batch), cutoff_top=cfg.cutoff_top,
+        cutoff_low=cfg.cutoff_low, compute_dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    t_sweep = time.time() - t0
+    peak_sweep = torch.cuda.max_memory_allocated() / 2**30
+    names = [tgt.filename(i) for i in range(len(tgt))]
+    prob = np.stack([sweep[n] for n in names])
+    if prob.shape != (len(tgt), 2 * TILE, 2 * TILE, nc) \
+            or prob.dtype != np.float16 or not np.isfinite(prob).all():
+        fail(f"pseudo-label sweep: {prob.shape} {prob.dtype}, finite "
+             f"{bool(np.isfinite(prob).all())}")
+    s_err = float(np.abs(prob.astype(np.float32).sum(-1) - 1).max())
+    if s_err > 2e-2:  # bf16 views averaged, one fp16 rounding per class
+        fail(f"pseudo-label sweep: probabilities sum to 1 +- {s_err}")
+    with torch.no_grad():  # a reading of the sweep, on the card
+        sel = float(np.mean([
+            float((pseudo_selection(torch.from_numpy(prob[i:i + 1]).to(dev)
+                                    .permute(0, 3, 1, 2).float(),
+                                    cfg.cutoff_top, cfg.cutoff_low) >= 0)
+                  .float().mean()) for i in range(len(prob))]))
+    n_views = len(tgt) * 9 * 8  # 3 x 3 windows of 512^2 per 1024^2 tile
+    phase("ssl", f"init_prototypes on the stage-2 model: {n_proto} batches "
+          f"in {t_proto:.2f} s; pseudo-label sweep of {len(tgt)} target "
+          f"tiles of {2 * TILE}^2 (slide at {TILE}^2, 8-view TTA, bf16, in "
+          f"RAM as fp16: {prob.nbytes / 2**20:.1f} MiB) in {t_sweep:.3f} s: "
+          f"{len(tgt) / t_sweep:.3f} tiles/s, {n_views / t_sweep:.2f} window "
+          f"views of {TILE}^2 /s; share of pixels selected at the default "
+          f"cutoffs {sel:.5f}; max |sum - 1| {s_err:.3g}; peak memory "
+          f"{peak_proto:.2f} GiB (init_prototypes), {peak_sweep:.2f} GiB "
+          f"(sweep, {min(4, batch) * 72} window views a forward)")
+
+    target = ArrayDataset(LoveDA, tgt.images, sup=tgt.sup, prob=prob)
+    tgt_it = infinite_batches(target, batch, seed=21)
+    step_fn = make_ssl_step(model, hp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    best = run_training_loop(state, step_fn, src_it, tgt_it, steps, logger,
+                             eval_every=steps, log_every=10, eval_fn=eval_fn,
+                             seed=2333, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = {fn.__name__: fn.launches for fn in WRAPPERS}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss = [{k: float(v) for k, v in m.items()} for m in losses]
+    if len(loss) != steps or not all(np.isfinite(list(m.values())).all()
+                                     for m in loss):
+        fail(f"flagship stage 3: {len(loss)} steps, losses {loss}")
+    moved = float((state.aligner.prototypes - proto0).abs().max())
+    if not (torch.isfinite(state.aligner.prototypes).all() and moved > 0):
+        fail(f"flagship stage 3: prototypes moved {moved}")
+    if counts["uvem_mine"] != steps:
+        fail(f"uvem_mine launched {counts['uvem_mine']} times in {steps} "
+             "stage-3 steps (once per step)")
+    for name in ("segment_max", "segment_gather", "instance_norm",
+                 "instance_norm_backward", "crop_normalize",
+                 "tail_upsample_softmax_mean"):
+        if counts[name] <= 0:
+            fail(f"{name} was not launched on the stage-3 path")
+    w0 = 5
+    ms_step = events[w0 - 1].elapsed_time(events[-1]) / (steps - w0)
+    phase("ssl", f"flagship stage 3 (ResNet-50 OS16 dual PPM, 2urban, batch "
+          f"{batch} per domain, bf16, UVEM m {hp.uvem_m} t {hp.uvem_t} gamma "
+          f"{hp.uvem_g}, refine 'all', max_segments {hp.max_segments}) "
+          f"{steps} steps + evaluation in {wall:.2f} s; loss "
+          f"{loss[0]['loss']:.5g} -> {loss[-1]['loss']:.5g} (source "
+          f"{loss[0]['loss_source']:.5g} -> {loss[-1]['loss_source']:.5g}, "
+          f"target {loss[0]['loss_target']:.5g} -> "
+          f"{loss[-1]['loss_target']:.5g}); prototypes moved {moved:.4g}; "
+          f"mIoU {best['miou']:.5f}")
+    for key in ("loss", "loss_source", "loss_target", "selected", "trained",
+                "w_mean"):
+        phase("ssl", f"{key} by step: " + json.dumps(
+            [round(m[key], 6) for m in loss]))
+    phase("ssl", f"steps {w0 + 1}-{steps}: {ms_step:.3f} ms/step by CUDA "
+          f"events, {batch / ms_step * 1e3:.2f} source images/s; peak memory "
+          f"{peak:.2f} GiB")
+    phase("launches", f"stage-3 path (init_prototypes + sweep + {steps} "
+          f"steps + evaluation): {json.dumps(counts)}")
+    # the host's share of a step: assembling each domain's batch from the
+    # in-memory split (numpy) and its pinned upload, timed on their own
+    for what, it in (("source", src_it), ("target", tgt_it)):
+        t_np = t_up = 0.0
+        for _ in range(5):
+            t0 = time.perf_counter()
+            host = next(it)
+            t1 = time.perf_counter()
+            batch_to_device(host, dev)
+            torch.cuda.synchronize()
+            t_np += t1 - t0
+            t_up += time.perf_counter() - t1
+        nbytes = sum(a.nbytes for a in host.values())
+        phase("ssl", f"host data, {what} batch ({nbytes / 2**20:.1f} MiB: "
+              f"{', '.join(f'{k} {a.dtype}' for k, a in host.items())}): "
+              f"{t_np / 5 * 1e3:.3f} ms to assemble, {t_up / 5 * 1e3:.3f} ms "
+              "to pin and upload")
+    profile_steps(f"stage-3 step (bf16, batch {batch}, UVEM, refine 'all')",
+                  step_fn, state, src_it, tgt_it, dev, ms_step)
+    return counts
+
+
 def main():
     import torch
 
@@ -532,6 +805,8 @@ def main():
         instance_norm_forward_plain,
         instance_norm_plain,
     )
+    from uemda_tpu_torch.ops.mine import uvem_mine, uvem_mine_plain
+    from uemda_tpu_torch.ops.pseudo import class_thresholds
     from uemda_tpu_torch.ops.segment import (
         segment_gather,
         segment_gather_plain,
@@ -550,7 +825,7 @@ def main():
 
     WRAPPERS[:] = [instance_norm, instance_norm_backward, crop_normalize,
                    stem_pool, tail_upsample_softmax_mean, segment_max,
-                   segment_sum, segment_gather]
+                   segment_sum, segment_gather, uvem_mine]
     t_start = time.time()
     dev = torch.device("cuda")
     CL = torch.channels_last
@@ -677,6 +952,95 @@ def main():
             phase("kernel", f"crop_normalize {dn} {tuple(xc.shape)} -> "
                   f"{tuple(got.shape)}: max abs err {e:.3g} (exact)")
     inputs["crop"] = raw["uint8"]
+    # K9 with the stage-3 clamp (the ISPRS target Normalize), exactly, at the
+    # training shape, on statistics that push part of every tile past 1.0
+    st_v = NORM_STATS["Vaihingen"]
+    xc, off = raw["uint8"]
+    got = crop_normalize(xc, off, (TILE, TILE), st_v["mean"], st_v["std"],
+                         clamp=True)
+    ref = crop_normalize_plain(xc, off, (TILE, TILE), st_v["mean"],
+                               st_v["std"], clamp=True)
+    torch.cuda.synchronize()
+    e = check_close("crop_normalize clamp", got, ref, 0.0, 0.0)
+    clamped = float((got == 1.0).float().mean())
+    if not (float(got.max()) == 1.0 and clamped > 0):
+        fail(f"crop_normalize clamp: max {float(got.max())}, share at 1.0 "
+             f"{clamped}")
+    phase("kernel", f"crop_normalize uint8 clamp {tuple(xc.shape)} -> "
+          f"{tuple(got.shape)}: max abs err {e:.3g} (exact), share capped at "
+          f"1.0 {clamped:.4f}")
+
+    # K8 against its plain version: the flagship stage-3 shape (8, 7,
+    # 512^2) in the channels_last memory the refined soft label arrives in
+    # and as NCHW planes, an odd (2, 6, 37, 53), the degenerate (m, t)
+    # pairs and a NaN planted in one class. Softmax inputs at logit scales
+    # drawn per pixel put the entropies in all three branches and the
+    # selection at one class and none; several classes pass only below the
+    # default cutoffs (two probabilities cannot both exceed 0.6), so one
+    # flagship case lowers them to (0.4, 0.3). Labels exact; u rtol 1e-6,
+    # w rtol 1e-5, atol 1e-7 (tests/test_pallas_mine_crop.py:26-28)
+    def mine_input(shape):
+        b, c, h, w = shape
+        scale = torch.tensor([0.3, 2.0, 8.0])[
+            torch.randint(0, 3, (b, 1, h, w), generator=g)]
+        return torch.softmax(randn(b, c, h, w) * scale, 1).to(dev)
+
+    p_flag = mine_input((BATCH, 7, TILE, TILE))
+    p_odd = mine_input((2, 6, 37, 53))
+    p_nan = p_odd.clone()
+    p_nan[1, 3, 5, 6] = float("nan")
+    p_cl = p_flag.contiguous(memory_format=CL)
+    mine_cases = [  # (case, probabilities, (m, t), (cutoff_top, cutoff_low))
+        ("flagship channels_last", p_cl, (0.2, 0.7), (0.8, 0.6)),
+        ("flagship NCHW", p_flag, (0.2, 0.7), (0.8, 0.6)),
+        ("flagship low cutoffs", p_cl, (0.2, 0.7), (0.4, 0.3)),
+        ("odd", p_odd, (0.2, 0.7), (0.8, 0.6)),
+        ("odd m=0", p_odd, (0.0, 0.5), (0.8, 0.6)),
+        ("odd m>=t", p_odd, (0.6, 0.5), (0.8, 0.6)),
+        ("odd NaN", p_nan, (0.2, 0.7), (0.8, 0.6)),
+    ]
+    seen = dict.fromkeys(("u<=m", "m<u<t", "u>=t", "one class", "none",
+                          "several"), 0.0)
+    for case, pm, (m_, t_), (top, low) in mine_cases:
+        got = uvem_mine(pm, top, low, m_, t_, 4.0)
+        ref = uvem_mine_plain(pm, top, low, m_, t_, 4.0)
+        torch.cuda.synchronize()
+        if not torch.equal(got[0], ref[0]):
+            fail(f"uvem_mine {case}: labels differ at "
+                 f"{int((got[0] != ref[0]).sum())} pixels")
+        if not torch.equal(torch.isnan(got[2]), torch.isnan(ref[2])):
+            fail(f"uvem_mine {case}: NaN entropies differ")
+        e_u = check_close(f"uvem_mine {case} u", torch.nan_to_num(got[2]),
+                          torch.nan_to_num(ref[2]), 1e-7, 1e-6)
+        e_w = check_close(f"uvem_mine {case} w", got[1], ref[1], 1e-7, 1e-5)
+        u, lab = ref[2], ref[0]
+        p32 = pm.float()
+        n_over = (p32 > class_thresholds(p32, top, low)).sum(1)
+        shares = {
+            "u<=m": float((u <= m_).float().mean()),
+            "m<u<t": float(((u > m_) & (u < t_)).float().mean()),
+            "u>=t": float((u >= t_).float().mean()),
+            "one class": float((n_over == 1).float().mean()),
+            "none": float((n_over == 0).float().mean()),
+            "several": float((n_over > 1).float().mean()),
+            "bit-equal u": float((got[2] == ref[2]).float().mean()),
+            "bit-equal w": float((got[1] == ref[1]).float().mean()),
+        }
+        for k in seen:
+            seen[k] = max(seen[k], shares[k])
+        if case == "flagship channels_last":
+            errs[("uvem_mine", "float32")] = max(e_u, e_w)
+            inputs["mine"] = pm
+        if case == "odd NaN" and not (bool(torch.isnan(got[2][1, 5, 6]))
+                                      and not bool((lab[1] == 3).any())):
+            fail("uvem_mine NaN: the pixel's u is not NaN, or its class "
+                 "was selected")
+        phase("kernel", f"uvem_mine {case} {tuple(pm.shape)} m {m_} t {t_} "
+              f"cutoffs ({top}, {low}): labels equal, max abs err u "
+              f"{e_u:.3g} (rtol 1e-6), w {e_w:.3g} (rtol 1e-5); shares "
+              + json.dumps({k: round(v, 5) for k, v in shares.items()}))
+    if not all(v > 0 for v in seen.values()):
+        fail(f"uvem_mine checks miss a branch or a selection case: {seen}")
 
     # K5, K6, K7 against their plain versions at the 2urban stage-2 shape:
     # 8 crops of 512^2 from 1024^2 grid-superpixel maps (16-pixel cells,
@@ -841,7 +1205,12 @@ def main():
     #    step against the CPU, then the flagship chain with its own counts
     align_launches, astate = align_phase(dev, ctx)
 
-    # 8. timing (bf16, the serving and training dtype; K9 on uint8 tiles,
+    # 8. init_prototypes and stage 3 on the model stage 2 left: the f32 step
+    #    against the CPU, then the sweep and the flagship steps with their
+    #    own counts
+    ssl_launches = ssl_phase(dev, ctx)
+
+    # 9. timing (bf16, the serving and training dtype; K9 on uint8 tiles,
     #    K5-K7 on f32 probabilities), CUDA events after warm-up
     xi, xs, ws, bs, xt = inputs["bfloat16"]
     xb, dyb, mb, rb = inputs["bwd"]
@@ -851,6 +1220,7 @@ def main():
     xr = xb.detach().requires_grad_()
     yr = F.instance_norm(xr, eps=1e-5)   # the library yardstick's graph
     crop_args = (xc, offc, (TILE, TILE), st_l["mean"], st_l["std"])
+    p_mine = inputs["mine"]
     # K5-K7 at the 2urban stage-2 shape; the library yardsticks take the
     # int64 indices they need, made here once
     sv, sid, _, stab = inputs["segment"]
@@ -892,6 +1262,10 @@ def main():
             lambda: segment_gather(stab, sid),
             lambda: segment_gather_plain(stab, sid),
             lambda: torch.gather(stab, 1, sidx)),
+        # the wrapper: the class-max reduction (outside the kernel, as in
+        # XLA outside the Pallas body) and K8; no one library call mines
+        "uvem_mine": (
+            lambda: uvem_mine(p_mine), lambda: uvem_mine_plain(p_mine), None),
     }
     # bytes each function must move (inputs read once, outputs written once)
     # and the operations it does, from this run's shapes, each with the peak
@@ -927,6 +1301,13 @@ def main():
                         sv.numel(), PEAK_FLOPS["float32"]),
         "segment_gather": (4 * sid.numel() + 4 * stab.numel() + 4 * sv.numel(),
                            0, PEAK_FLOPS["float32"]),
+        # K8 reads the f32 probabilities and writes the int32 label and the
+        # f32 w and u; per value a log, a multiply, an add and a compare,
+        # per pixel ~16 ops of the parabola and one pow (counted as 1 op
+        # each: the bytes bound it by far)
+        "uvem_mine": (4 * p_mine.numel() + 3 * 4 * p_mine[:, 0].numel(),
+                      4 * p_mine.numel() + 17 * p_mine[:, 0].numel(),
+                      PEAK_FLOPS["float32"]),
     }
     meta = {
         "instance_norm": ("uemda_tpu_torch/kernels/csrc/insnorm.cu",
@@ -950,6 +1331,8 @@ def main():
         "segment_gather": ("uemda_tpu_torch/kernels/csrc/segment.cu",
                            "uemda_tpu/ops/pallas_kernels.py:143",
                            "segment_gather"),
+        "uvem_mine": ("uemda_tpu_torch/kernels/csrc/mine.cu",
+                      "uemda_tpu/ops/pallas_kernels.py:235", "uvem_mine"),
     }
     record = []
     for name, (k_fn, plain_fn, lib_fn) in timed.items():
@@ -964,15 +1347,17 @@ def main():
         bound = max(t_bytes, t_ops)
         src, rep, fn_name = meta[name]
         dn = ("uint8" if name == "crop_normalize" else "float32"
-              if name.startswith("segment") else "bfloat16")
+              if name.startswith("segment") or name == "uvem_mine"
+              else "bfloat16")
         n_serve = launches.get(fn_name, 0)
         n_train = train_launches[fn_name]
         n_align = align_launches[fn_name]
+        n_ssl = ssl_launches[fn_name]
         record.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": n_serve + n_train + n_align,
+            "launches": n_serve + n_train + n_align + n_ssl,
             "launches_serve": n_serve, "launches_train": n_train,
-            "launches_align": n_align,
+            "launches_align": n_align, "launches_ssl": n_ssl,
             "max_abs_err": errs[(name, dn)], "ms": ms,
             "ms_with_host": host_ms,
             "plain_ms": plain_ms, "bound_ms": bound,

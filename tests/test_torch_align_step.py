@@ -5,6 +5,7 @@ refine mode 'all', and the ``init_prototypes`` and ``train_align_uem``
 twins end to end on synthetic PNGs and ``.tif`` superpixel maps."""
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -241,7 +242,8 @@ def test_stage2_clis_on_the_cpu(tmp_path):
     steps, CORAL, refine 'all' reading the .tif superpixel maps and the
     prototypes from a .npy copy) with --device cpu: finite prototypes over
     every full batch, an evaluation, and the best model and prototypes
-    saved under <snapshot>/align; the flags not ported yet raise."""
+    saved under <snapshot>/align, with best.json; the flags not ported yet
+    raise."""
     from uemda_tpu_torch.models.port import load_prototypes
     from uemda_tpu_torch.tools import init_prototypes, train_align_uem, train_src
 
@@ -268,8 +270,9 @@ def test_stage2_clis_on_the_cpu(tmp_path):
     saved = torch.load(run / "prototypes_best.pth", weights_only=True)
     assert saved.shape == (6, 512) and not torch.equal(saved, p)
     assert (run / "Vaihingen_best.pth").exists()
-    for flags in (["--ls", "OhemCrossEntropy"], ["--bcs", "1"],
-                  ["--accum-steps", "2"], ["--resume", "auto"]):
+    assert json.loads((run / "best.json").read_text())["step"] == 2
+    for flags in (["--ls", "OhemCrossEntropy"], ["--accum-steps", "2"],
+                  ["--resume", "auto"]):
         with pytest.raises(NotImplementedError):
             train_align_uem.main(common + flags)
 

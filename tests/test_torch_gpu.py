@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, against their plain versions: the
 odd shapes, both dtypes and both instance-norm routes (forward and
 backward) that chip_smoke.py's shapes do not reach, the crop kernel's
-vector and element routes, both routes of the segment kernels, training
+vector and element routes (with and without the clamp), both routes of the
+segment kernels, the mining kernel in every layout and branch, training
 steps that go through the kernels, and the card as the entry points'
 default.
 
@@ -26,6 +27,7 @@ from uemda_tpu_torch.ops.insnorm import (
     instance_norm_forward_plain,
     instance_norm_plain,
 )
+from uemda_tpu_torch.ops.mine import uvem_mine, uvem_mine_plain
 from uemda_tpu_torch.ops.segment import (
     segment_gather,
     segment_gather_plain,
@@ -398,5 +400,131 @@ def test_align_step_goes_through_the_kernels(dev):
     metrics = make_align_step(model, hp)(state, bs, bt, 0)
     torch.cuda.synchronize()
     assert [fn.launches - n for fn, n in zip(fns, before)] == [1, 1, 2, 2, 2]
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert state.step == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("case", [
+    ((2, 100, 90), (40, 36), [(0, 0), (60, 54)]),
+    ((2, 96, 96), (32, 32), [(16, 16), (7, 13)]),
+])
+def test_crop_normalize_clamp_kernel(dev, dtype, case):
+    """K9 with the stage-3 clamp against its plain version, exactly, on
+    means and deviations that push about half the values past 1.0."""
+    (b, h, w), crop, offs = case
+    r = np.random.default_rng(21)
+    x = torch.from_numpy(r.integers(0, 256, (b, h, w, 3)).astype(np.uint8)) \
+        .to(dev, dtype)
+    off = torch.tensor(offs, dtype=torch.int32)
+    mean, std = (100.0, 90.0, 80.0), (30.0, 25.0, 20.0)
+    n = crop_normalize.launches
+    got = crop_normalize(x, off, crop, mean, std, clamp=True)
+    assert crop_normalize.launches == n + 1
+    ref = crop_normalize_plain(x, off, crop, mean, std, clamp=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert float(got.max()) == 1.0 and float((got == 1.0).float().mean()) > 0.2
+
+
+def _mine_inputs(shape, seed, dev):
+    """Soft labels whose entropies fall in all three UVEM branches and
+    whose selection gives one class, none and several; exact zeros."""
+    b, c, h, w = shape
+    r = np.random.default_rng(seed)
+    scale = r.choice([0.3, 2.0, 8.0], size=(b, 1, h, w))
+    logit = r.normal(size=shape) * scale
+    p = np.exp(logit - logit.max(1, keepdims=True))
+    p /= p.sum(1, keepdims=True)
+    p[0, :, 0, 0] = np.eye(c)[0]
+    return torch.from_numpy(p.astype(np.float32)).to(dev)
+
+
+def _mine_close(got, ref):
+    """Labels equal; u rtol 1e-6 / atol 1e-7 and w rtol 1e-5 / atol 1e-7
+    (tests/test_pallas_mine_crop.py:26-28), NaN where the other is NaN."""
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0])
+    for a, b, rtol in ((got[2], ref[2], 1e-6), (got[1], ref[1], 1e-5)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=rtol, atol=1e-7)
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last", "rot90", "fp16"])
+@pytest.mark.parametrize("shape", [(2, 6, 37, 53), (3, 7, 64, 64),
+                                   (1, 19, 9, 300)])
+def test_uvem_mine_kernel(dev, layout, shape):
+    """K8 against its plain version: contiguous planes, channels_last
+    memory, a rotated view (read through its strides, no copy) and fp16
+    input (cast to f32 first); odd sizes and more classes."""
+    p = _mine_inputs(shape, 31, dev)
+    if layout == "channels_last":
+        p = p.contiguous(memory_format=CL)
+    elif layout == "rot90":
+        p = torch.rot90(p.contiguous(memory_format=CL), 1, (2, 3))
+    elif layout == "fp16":
+        p = p.half()
+    n = uvem_mine.launches
+    got = uvem_mine(p, 0.8, 0.6, 0.2, 0.7, 4.0)
+    assert uvem_mine.launches == n + 1
+    assert [t.dtype for t in got] == [torch.int32, torch.float32, torch.float32]
+    ref = uvem_mine_plain(p, 0.8, 0.6, 0.2, 0.7, 4.0)
+    _mine_close(got, ref)
+    lab = got[0].cpu()
+    assert (lab == -1).any() and (lab >= 0).any()
+
+
+@pytest.mark.parametrize("m,t", [(0.2, 0.7), (0.0, 0.5), (0.6, 0.5)])
+def test_uvem_mine_kernel_branches_and_nan(dev, m, t):
+    """The degenerate (m, t) pairs and a NaN probability: its pixel's u is
+    NaN with the right branch's weight, and no pixel of that sample selects
+    its class (the class max is NaN)."""
+    p = _mine_inputs((2, 7, 40, 48), 32, dev)
+    p[1, 3, 5, 6] = float("nan")
+    got = uvem_mine(p, 0.8, 0.6, m, t, 4.0)
+    _mine_close(got, uvem_mine_plain(p, 0.8, 0.6, m, t, 4.0))
+    assert torch.isnan(got[2][1, 5, 6]) and not (got[0][1] == 3).any()
+
+
+def test_uvem_mine_refuses_what_it_does_not_take(dev):
+    p = _mine_inputs((1, 6, 8, 8), 33, dev)
+    with pytest.raises(TypeError):
+        uvem_mine(p.double())
+    with pytest.raises(ValueError, match="4 dims"):
+        uvem_mine(p[0])
+    with pytest.raises(ValueError, match="empty"):
+        uvem_mine(p[:, :, :0])
+
+
+def test_ssl_step_goes_through_the_kernels(dev):
+    """One bf16 stage-3 step (UVEM, refine 'all', the ISPRS clamp) on a
+    CUDA resnet18 model launches K8 once, K5 and K7 once each, K9 twice and
+    the K1 forward and backward twice each, with finite losses."""
+    import dataclasses
+
+    from uemda_tpu_torch.config import PRESETS
+    from uemda_tpu_torch.train.loop import build_model, build_state, default_hparams
+    from uemda_tpu_torch.train.steps import make_ssl_step
+
+    cfg = dataclasses.replace(PRESETS["2vaihingen"], model="resnet18",
+                              crop=(64, 64))
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    r = np.random.default_rng(1)
+    sup, _ = _grid_sup(2, 80, 80, 16, seed=2)
+    prob = _mine_inputs((2, 6, 80, 80), 34, "cpu").permute(0, 2, 3, 1)
+    bs = {"image": torch.from_numpy(r.integers(0, 256, (2, 80, 80, 3)).astype(np.uint8)).to(dev),
+          "label": torch.from_numpy(r.integers(-1, 6, (2, 80, 80)).astype(np.int32)).to(dev)}
+    bt = {"image": torch.from_numpy(r.integers(0, 256, (2, 80, 80, 3)).astype(np.uint8)).to(dev),
+          "sup": torch.from_numpy(sup.astype(np.int32)).to(dev),
+          "prob": prob.contiguous().half().to(dev)}
+    hp = default_hparams(cfg, balance_source=True, balance_target=True)
+    assert hp.clamp_target
+    state = build_state(model, cfg, 10, prototypes=torch.randn(6, 512))
+    fns = (uvem_mine, segment_max, segment_gather, crop_normalize,
+           instance_norm, instance_norm_backward)
+    before = [fn.launches for fn in fns]
+    metrics = make_ssl_step(model, hp)(state, bs, bt, 0)
+    torch.cuda.synchronize()
+    assert [fn.launches - n for fn, n in zip(fns, before)] == [1, 1, 1, 2, 2, 2]
     assert all(np.isfinite(float(v)) for v in metrics.values())
     assert state.step == 1

@@ -14,6 +14,7 @@ from uemda_tpu_torch.infer.evaluate import evaluate_dataset
 from uemda_tpu_torch.models import DeeplabV2, DeeplabV2Config
 from uemda_tpu_torch.ops.crop import crop_normalize
 from uemda_tpu_torch.ops.insnorm import instance_norm, instance_norm_backward
+from uemda_tpu_torch.ops.mine import uvem_mine
 from uemda_tpu_torch.ops.segment import segment_gather, segment_max, segment_sum
 from uemda_tpu_torch.ops.stem import stem_pool
 from uemda_tpu_torch.ops.tail import tail_upsample_softmax_mean
@@ -99,16 +100,24 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(monkeypatch):
             evaluate_dataset(None, None, (0, 0, 0), (1, 1, 1), device=device)
     from uemda_tpu_torch.alignment.prototypes import init_aligner
     from uemda_tpu_torch.tools import eval as eval_cli
-    from uemda_tpu_torch.tools import init_prototypes, train_align_uem, train_src
+    from uemda_tpu_torch.infer.pseudo_gen import generate_pseudo_labels
+    from uemda_tpu_torch.tools import (
+        init_prototypes,
+        train_align_uem,
+        train_src,
+        train_ssl_uem,
+    )
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         eval_cli.build_model(eval_cli.load_config("2vaihingen"), "cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_src.main(["--config-path", "2vaihingen", "--steps", "1"])
     ckpt = ["--ckpt-model", "m.pth", "--ckpt-proto", "p.pth"]
-    for cli in (init_prototypes, train_align_uem):
+    for cli in (init_prototypes, train_align_uem, train_ssl_uem):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(["--config-path", "2urban"] + ckpt)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        generate_pseudo_labels(None, None, (0, 0, 0), (1, 1, 1))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_aligner(7)
     assert resolve_device("cpu") == torch.device("cpu")
@@ -120,7 +129,7 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     refused by every kernel wrapper, not computed by its plain version."""
     fns = (instance_norm, instance_norm_backward, stem_pool,
            tail_upsample_softmax_mean, crop_normalize, segment_max,
-           segment_sum, segment_gather)
+           segment_sum, segment_gather, uvem_mine)
     before = [fn.launches for fn in fns]
     x = torch.empty(1, 32, 4, 4, device="meta").contiguous(
         memory_format=torch.channels_last)
@@ -149,4 +158,6 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
             seg(val, ids, 4)
     with pytest.raises(RuntimeError, match="CUDA or CPU"):
         segment_gather(torch.empty(1, 4, 7, device="meta"), ids)
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        uvem_mine(torch.empty(1, 7, 4, 4, device="meta"))
     assert [fn.launches for fn in fns] == before

@@ -10,7 +10,9 @@ Two pipelines, as the reference's:
   * source (``"oneof"``): RandomCrop + OneOf[hflip, vflip, rot90(k ~ U{0..3})]
     with p = 0.75 + Normalize (``configs/ToVaihingen.py:44-55``);
   * ``"compose"``: RandomCrop + hflip(0.5) + vflip(0.5) + rot90(k=1, 0.5)
-    (``uemda/aug/augmentation.py:112-122``).
+    (``uemda/aug/augmentation.py:112-122``), stage 3's target pipeline, which
+    also carries the soft label and, on the ISPRS configs, caps the
+    normalized image at 1.0 (``clamp``, fused into K9).
 
 Every draw comes from an explicit CPU ``torch.Generator``
 (:func:`draw_augment`); :func:`augment_batch` applies given draws, so tests
@@ -93,19 +95,23 @@ def _d4(a: torch.Tensor, d4, mode: str, dims: Tuple[int, int]) -> torch.Tensor:
 
 
 def augment_batch(batch: Dict[str, torch.Tensor], crop_hw, mean, std,
-                  draws: AugDraws) -> Dict[str, torch.Tensor]:
+                  draws: AugDraws, clamp: bool = False
+                  ) -> Dict[str, torch.Tensor]:
     """``batch``: ``image`` (B, H, W, 3) uint8 or f32 and optionally
-    ``label`` and ``sup`` (B, H, W), on one device. Returns ``image`` as
-    the normalized (B, 3, th, tw) f32 channels_last crop (K9) and ``label``
-    and ``sup`` cropped at the same origins, all through the same D4 op per
-    sample (``augment.py:100-121``)."""
+    ``label`` and ``sup`` (B, H, W) and ``prob`` (B, H, W, C), on one
+    device. Returns ``image`` as the normalized (B, 3, th, tw) f32
+    channels_last crop (K9; with ``clamp`` capped at 1.0) and the others
+    cropped at the same origins, all through the same D4 op per sample
+    (``augment.py:100-121``); ``prob`` keeps its dtype and its (B, th, tw,
+    C) layout."""
     th, tw = int(crop_hw[0]), int(crop_hw[1])
-    image = crop_normalize(batch["image"], draws.offsets, (th, tw), mean, std)
+    image = crop_normalize(batch["image"], draws.offsets, (th, tw), mean, std,
+                           clamp)
     d4 = draws.d4.tolist()
     out = {"image": torch.stack([_d4(image[i], d4[i], draws.mode, (1, 2))
                                  for i in range(len(d4))])
            .contiguous(memory_format=torch.channels_last)}
-    for key in ("label", "sup"):
+    for key in ("label", "sup", "prob"):
         if key in batch:
             m = batch[key]
             out[key] = torch.stack([

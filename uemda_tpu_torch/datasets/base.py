@@ -1,14 +1,16 @@
 """Dataset objects (host side).
 
 The port's copy of ``uemda_tpu/datasets/base.py``: a split of images with
-hard masks read from disk (:class:`SegDataset`), an in-memory split of
-arrays (:class:`ArrayDataset`), the shuffled training stream
+hard masks or stage 3's soft pseudo labels read from disk
+(:class:`SegDataset`), an in-memory split of arrays (:class:`ArrayDataset`),
+the shuffled training stream
 (:func:`infinite_batches`) and the eval-order batch iterator
 (SequentialSampler, reference ``daLoader.py``). The host only reads and
 stacks raw uint8 tiles; augmentation runs on the device.
 """
 
 import dataclasses
+import os
 from typing import Dict, Iterator, Optional
 
 import numpy as np
@@ -19,6 +21,7 @@ from uemda_tpu_torch.datasets.io import (
     mask_path_for,
     read_image,
     read_mask,
+    read_prob,
     read_sup,
     sup_path_for,
 )
@@ -27,16 +30,21 @@ from uemda_tpu_torch.datasets.meta import DatasetMeta
 
 @dataclasses.dataclass
 class SegDataset:
-    """A split on disk: images, hard masks when ``mask_dir`` is set, and
-    superpixel maps (``sup``) with ``read_sup``."""
+    """A split on disk: images; with ``mask_dir``, hard masks
+    (``label_type="id"``) or the soft labels the pseudo-label sweep wrote
+    there (``"prob"``: ``prob``, (H, W, C) fp16); superpixel maps (``sup``)
+    with ``read_sup``."""
 
     meta: DatasetMeta
     image_dir: object  # str or list[str]
     mask_dir: Optional[str] = None
     cache: Optional[RamCache] = None
     read_sup: bool = False
+    label_type: str = "id"  # 'id' | 'prob' | 'none'
 
     def __post_init__(self):
+        if self.label_type not in ("id", "prob", "none"):
+            raise ValueError(f"unknown label_type {self.label_type!r}")
         self.image_paths = list_images(self.image_dir)
         if not self.image_paths:
             raise FileNotFoundError(f"no images under {self.image_dir}")
@@ -46,15 +54,21 @@ class SegDataset:
     def __len__(self):
         return len(self.image_paths)
 
+    def filename(self, idx: int) -> str:
+        return os.path.basename(self.image_paths[idx])
+
     def item(self, idx: int) -> Dict[str, np.ndarray]:
         path = self.image_paths[idx]
         out = {"image": self.cache.get(path, read_image)}
-        if self.mask_dir:
+        if self.mask_dir and self.label_type == "id":
             meta = self.meta
             out["label"] = self.cache.get(
                 mask_path_for(path, self.mask_dir),
                 lambda p: read_mask(p, meta.offset, meta.num_classes,
                                     meta.ignore_label))
+        elif self.mask_dir and self.label_type == "prob":
+            out["prob"] = self.cache.get(mask_path_for(path, self.mask_dir),
+                                         read_prob)
         if self.read_sup:
             out["sup"] = self.cache.get(sup_path_for(path), read_sup)
         return out
@@ -66,22 +80,30 @@ class SegDataset:
 
 @dataclasses.dataclass
 class ArrayDataset:
-    """An in-memory split: uint8 images (N, H, W, 3), int32 labels
-    (N, H, W) and, optionally, int32 superpixel maps (N, H, W)."""
+    """An in-memory split: uint8 images (N, H, W, 3) and, optionally, int32
+    labels (N, H, W), int32 superpixel maps (N, H, W) and stage 3's soft
+    labels (N, H, W, C). Sample i is named ``tile_<i>.png``, as
+    ``make_synthetic_dataset`` names its files."""
 
     meta: DatasetMeta
     images: np.ndarray
-    labels: np.ndarray
+    labels: Optional[np.ndarray] = None
     sup: Optional[np.ndarray] = None
+    prob: Optional[np.ndarray] = None
 
     def __len__(self):
         return len(self.images)
 
+    def filename(self, idx: int) -> str:
+        return f"tile_{idx:03d}.png"
+
     def batch(self, indices) -> Dict[str, np.ndarray]:
         idx = np.asarray(indices, np.int64)
-        out = {"image": self.images[idx], "label": self.labels[idx]}
-        if self.sup is not None:
-            out["sup"] = self.sup[idx]
+        out = {"image": self.images[idx]}
+        for key, arr in (("label", self.labels), ("sup", self.sup),
+                         ("prob", self.prob)):
+            if arr is not None:
+                out[key] = arr[idx]
         return out
 
 

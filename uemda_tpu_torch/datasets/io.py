@@ -1,10 +1,12 @@
 """Host-side dataset IO: file pairing and decoding.
 
-The port's copy of ``uemda_tpu/datasets/io.py`` up to stage 2 (reference
+The port's copy of ``uemda_tpu/datasets/io.py`` (reference
 ``uemda/datasets/basedata.py:28-119``): images are ``*.png``/``*.tif`` under
 ``image_dir``; hard masks pair by identical filename under ``mask_dir``;
 superpixel maps (uint16 ``.tif``) live next to the masks in the
-``_sup_shrink`` directory (``basedata.py:62-64``).
+``_sup_shrink`` directory (``basedata.py:62-64``); stage 3's soft pseudo
+labels are ``<filename>.npy`` files of (H, W, C) fp16, or the reference's
+``.pt`` (C, H, W) tensors.
 PIL is imported inside the readers only, so hosts without it (the GPU
 machine) can import the package and use in-memory datasets.
 """
@@ -71,6 +73,32 @@ def read_sup(path: str) -> np.ndarray:
 
     with Image.open(path) as im:
         return np.asarray(im).astype(np.int32)
+
+
+def read_prob(path_base: str) -> np.ndarray:
+    """(H, W, C) soft label from ``<path_base>.npy`` (HWC) or the reference's
+    ``<path_base>.pt`` (CHW, ``basedata.py:87``). The values stay in the
+    file's float type on the host -- fp16 for the ``.npy`` files -- and are
+    cast to f32 on the device (exact: every fp16 value is an f32 value),
+    which halves host memory and the upload against the JAX package's
+    host-side f32 cast."""
+    if os.path.exists(path_base + ".npy"):
+        arr = np.load(path_base + ".npy")
+    elif os.path.exists(path_base + ".pt"):
+        import torch
+
+        t = torch.load(path_base + ".pt", map_location="cpu")
+        arr = t.numpy().transpose(1, 2, 0)
+    else:
+        raise FileNotFoundError(path_base + ".{npy,pt}")
+    if arr.dtype not in (np.float16, np.float32):
+        arr = arr.astype(np.float32)
+    return np.ascontiguousarray(arr)
+
+
+def save_prob(path_base: str, prob_hwc: np.ndarray) -> None:
+    """Write ``<path_base>.npy`` as (H, W, C) fp16."""
+    np.save(path_base + ".npy", np.asarray(prob_hwc).astype(np.float16))
 
 
 class RamCache:

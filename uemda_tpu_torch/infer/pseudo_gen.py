@@ -1,0 +1,104 @@
+"""Pseudo-label generation: the stage-3 sweep over the target split.
+
+The port's copy of ``uemda_tpu/infer/pseudo_gen.py`` (reference
+``gener_target_pseudo``, ``uemda/gast/pseudo_generation.py:96-155``): every
+target image goes through the batched slide + 8-view TTA predictor
+(``infer/slide.py``) in the compute dtype, and its (H, W, C) probabilities
+come back as fp16 in host RAM and/or as ``<out_dir>/<filename>.npy`` files,
+which ``SegDataset(label_type="prob")`` reads for stage 3. The fp16 cast
+happens on the card, so half the bytes cross to the host.
+
+``fastpath=True`` folds the model into the serving fast path
+(``infer/fastpath.py:build_fastpath``, exact math, the K2 stem). Where the
+JAX package logs and falls back to the standard forward when the fold is
+unusable (an odd tile side), the port raises: a sweep never runs another
+path than the one asked for. ``color_dir`` writes the mined hard labels
+(K8's strict-threshold selection, ``ops/mine.py``) as palette PNGs, as the
+reference's ``_color`` directory. The multi-host sweep waits for the port's
+data parallelism (ROADMAP.md queue A item 9).
+"""
+
+import copy
+import os
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from uemda_tpu_torch.datasets.augment import normalize
+from uemda_tpu_torch.datasets.base import sequential_batches
+from uemda_tpu_torch.datasets.io import save_prob
+from uemda_tpu_torch.infer.fastpath import build_fastpath
+from uemda_tpu_torch.infer.slide import make_predictor
+from uemda_tpu_torch.ops.mine import uvem_mine
+from uemda_tpu_torch.utils.runtime import resolve_device
+
+
+@torch.no_grad()
+def generate_pseudo_labels(
+    model,
+    dataset,
+    mean,
+    std,
+    out_dir: Optional[str] = None,
+    tile: Tuple[int, int] = (512, 512),
+    tta: bool = True,
+    batch_size: int = 4,
+    cutoff_top: float = 0.8,
+    cutoff_low: float = 0.6,
+    color_dir: Optional[str] = None,
+    keep_in_memory: bool = True,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    device=None,
+    logger=None,
+    fastpath: bool = False,
+) -> Dict[str, np.ndarray]:
+    """``model``: the trained ``DeeplabV2`` on ``device`` (left as it is:
+    the sweep runs an eval-mode copy in ``compute_dtype``, or its folded
+    fast path). ``dataset``: anything with ``meta``, ``__len__``,
+    ``filename(i)`` and ``batch(indices)`` giving uint8 (B, H, W, 3) images.
+    Returns {filename: (H, W, C) fp16} when ``keep_in_memory``, and writes
+    ``<out_dir>/<filename>.npy`` when ``out_dir`` is set."""
+    device = resolve_device(device)
+    if fastpath:
+        if tile[0] % 2 or tile[1] % 2:
+            raise ValueError(
+                f"pseudo-label fast path: the space-to-depth stem needs even "
+                f"tile sides, got {tuple(tile)}; run without the fast path")
+        net = build_fastpath(model, dtype=compute_dtype)
+    else:
+        net = copy.deepcopy(model).eval().to(compute_dtype)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+    viz = None
+    if color_dir:
+        from uemda_tpu_torch.utils.viz import VisualizeSegmm
+
+        viz = VisualizeSegmm(color_dir, dataset.meta.palette)
+    predictor, hw = None, None
+    result: Dict[str, np.ndarray] = {}
+    for indices, batch in sequential_batches(dataset, batch_size):
+        images = torch.from_numpy(np.ascontiguousarray(batch["image"])) \
+            .to(device).permute(0, 3, 1, 2)
+        if predictor is None or tuple(images.shape[2:]) != hw:
+            hw = tuple(images.shape[2:])
+            predictor = make_predictor(net, tile, hw, tta=tta,
+                                       compute_dtype=compute_dtype)
+        probs = predictor(normalize(images, mean, std))      # (n, C, H, W)
+        host = probs.permute(0, 2, 3, 1).to(torch.float16).cpu().numpy()
+        hard = None
+        if viz is not None:
+            hard = uvem_mine(probs, cutoff_top, cutoff_low,
+                             ignore_label=dataset.meta.ignore_label)[0].cpu()
+        for j, idx in enumerate(indices):
+            fname = dataset.filename(idx)
+            if keep_in_memory:
+                result[fname] = host[j]
+            if out_dir:
+                save_prob(os.path.join(out_dir, fname), host[j])
+            if viz is not None:
+                viz(hard[j].numpy(), fname.replace(".tif", ".png"))
+    if logger is not None:
+        logger.info(f"pseudo labels generated for {len(dataset)} images"
+                    + (f" -> {out_dir}" if out_dir else " (in memory)"))
+    return result

@@ -22,13 +22,13 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
-SOURCES = ("insnorm", "stem", "tail", "crop", "segment")
+SOURCES = ("insnorm", "stem", "tail", "crop", "segment", "mine")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -116,9 +116,10 @@ def stream_of(t: torch.Tensor) -> int:
 
 def check_cuda_input(t: torch.Tensor, name: str, ndim: int = 4,
                      dtypes=(torch.float32, torch.bfloat16),
-                     channels_last: bool = True) -> None:
+                     channels_last: Optional[bool] = True) -> None:
     """Raise unless ``t`` is what a kernel takes: on the card, of a
-    supported dtype and rank, laid out channels_last (else contiguous)."""
+    supported dtype and rank, laid out channels_last (False: contiguous;
+    None: any layout, for a kernel that reads through the strides)."""
     if t.device.type != "cuda":
         raise RuntimeError(f"{name}: expected a CUDA or CPU tensor, got "
                            f"{t.device}")
@@ -130,10 +131,11 @@ def check_cuda_input(t: torch.Tensor, name: str, ndim: int = 4,
         raise ValueError(f"{name}: the kernel needs a channels_last tensor "
                          "(NHWC in memory); call "
                          ".contiguous(memory_format=torch.channels_last)")
-    if not channels_last and not t.is_contiguous():
+    if channels_last is False and not t.is_contiguous():
         raise ValueError(f"{name}: the kernel needs a contiguous tensor")
 
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 F = ctypes.c_float

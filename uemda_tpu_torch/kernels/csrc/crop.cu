@@ -3,7 +3,9 @@
 // Replaces uemda_tpu/ops/pallas_kernels.py:crop_normalize_pallas
 // (_crop_norm_kernel): from (B, H, W, 3) raw images (uint8, as the loader
 // ships them, or f32) and (B, 2) int32 (y, x) offsets, writes the
-// (B, th, tw, 3) f32 tile (x - mean[c]) * inv_std[c], inv_std = 1/std in f32.
+// (B, th, tw, 3) f32 tile (x - mean[c]) * inv_std[c], inv_std = 1/std in f32,
+// and with `clamp` min(that, 1.0): the stage-3 target Normalize of the ISPRS
+// configs (uemda_tpu/datasets/augment.py:25-31), fused into the epilogue.
 // The (B, th, tw, 3) output is the NHWC memory of the channels_last
 // (B, 3, th, tw) tensor the model takes.
 //
@@ -49,7 +51,7 @@ __global__ void __launch_bounds__(kThreads)
 crop_normalize_kernel(const T* __restrict__ img, const Origins off,
                       float* __restrict__ out, int H, int W, int th, int tw,
                       float m0, float m1, float m2, float s0, float s1,
-                      float s2) {
+                      float s2, bool clamp) {
   constexpr int V = 16 / sizeof(T);  // elements in one 16-byte load
   const int r = blockIdx.x;
   const int b = blockIdx.y;
@@ -71,6 +73,7 @@ crop_normalize_kernel(const T* __restrict__ img, const Origins off,
       for (int j = 0; j < V; ++j) {
         const int c = (v * V + j) % 3;
         o[j] = (to_f32(e[j]) - pick(c, m0, m1, m2)) * pick(c, s0, s1, s2);
+        if (clamp) o[j] = fminf(o[j], 1.0f);
       }
 #pragma unroll
       for (int j = 0; j < V / 4; ++j)
@@ -80,7 +83,8 @@ crop_normalize_kernel(const T* __restrict__ img, const Origins off,
   } else {
     for (int i = threadIdx.x; i < n; i += kThreads) {
       const int c = i % 3;
-      dst[i] = (to_f32(src[i]) - pick(c, m0, m1, m2)) * pick(c, s0, s1, s2);
+      const float o = (to_f32(src[i]) - pick(c, m0, m1, m2)) * pick(c, s0, s1, s2);
+      dst[i] = clamp ? fminf(o, 1.0f) : o;
     }
   }
 }
@@ -90,11 +94,11 @@ crop_normalize_kernel(const T* __restrict__ img, const Origins off,
 // img: (B, H, W, 3) contiguous uint8 (is_u8) or f32 on the device;
 // off: (B, 2) int32 in HOST memory, each window inside the image (the
 // wrapper checks), copied into the launch's parameters; out: (B, th, tw, 3)
-// f32 contiguous on the device.
+// f32 contiguous on the device; clamp != 0 caps every output at 1.0.
 extern "C" int uemda_crop_normalize(const void* img, const int* off, void* out,
                                     int B, int H, int W, int th, int tw,
                                     int is_u8, float m0, float m1, float m2,
-                                    float s0, float s1, float s2,
+                                    float s0, float s1, float s2, int clamp,
                                     void* stream) {
   if (B <= 0 || B > kMaxBatch || th <= 0 || tw <= 0 || th > H || tw > W)
     return cudaErrorInvalidValue;
@@ -106,10 +110,10 @@ extern "C" int uemda_crop_normalize(const void* img, const int* off, void* out,
   if (is_u8)
     crop_normalize_kernel<unsigned char><<<grid, kThreads, 0, s>>>(
         static_cast<const unsigned char*>(img), o, dst, H, W, th, tw, m0, m1,
-        m2, s0, s1, s2);
+        m2, s0, s1, s2, clamp != 0);
   else
     crop_normalize_kernel<float><<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(img), o, dst, H, W, th, tw, m0, m1, m2, s0,
-        s1, s2);
+        s1, s2, clamp != 0);
   return cudaGetLastError();
 }

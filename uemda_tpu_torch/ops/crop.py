@@ -5,7 +5,9 @@ Port of ``uemda_tpu/ops/pallas_kernels.py:crop_normalize_pallas``: from
 (B, H, W, 3) raw images (uint8 as the loader ships them, or f32) and (B, 2)
 int32 (y, x) window origins, the (th, tw) window of every sample as
 ``(x - mean) * (1 / std)`` in f32, with ``1 / std`` taken in f32 as
-``pallas_kernels.py:356`` takes it. The result is handed on as the
+``pallas_kernels.py:356`` takes it, and with ``clamp`` capped at 1.0 (the
+stage-3 target Normalize of the ISPRS configs, ``uemda_tpu/datasets/
+augment.py:25-31``). The result is handed on as the
 (B, 3, th, tw) channels_last tensor the model takes (its memory is the
 (B, th, tw, 3) tile). The kernel is ``uemda_tpu_torch/kernels/csrc/crop.cu``.
 """
@@ -51,26 +53,30 @@ def check_offsets(offsets, image_hw, crop_hw) -> np.ndarray:
 
 
 def crop_normalize_plain(images: torch.Tensor, offsets: torch.Tensor,
-                         crop_hw, mean, std) -> torch.Tensor:
+                         crop_hw, mean, std, clamp: bool = False
+                         ) -> torch.Tensor:
     """Slice each window, cast to f32, subtract the mean, multiply by the
-    f32 reciprocal of std; (B, 3, th, tw) channels_last."""
+    f32 reciprocal of std (then, with ``clamp``, cap at 1.0); (B, 3, th, tw)
+    channels_last."""
     th, tw = int(crop_hw[0]), int(crop_hw[1])
     off = check_offsets(offsets, images.shape[1:3], (th, tw))
     m, inv = (torch.from_numpy(t).to(images.device) for t in _stats(mean, std))
     tiles = torch.stack([images[i, y:y + th, x:x + tw]
                          for i, (y, x) in enumerate(off.tolist())])
     out = (tiles.float() - m) * inv
+    if clamp:
+        out = torch.clamp(out, max=1.0)
     return out.permute(0, 3, 1, 2)
 
 
 def crop_normalize(images: torch.Tensor, offsets: torch.Tensor, crop_hw,
-                   mean, std) -> torch.Tensor:
+                   mean, std, clamp: bool = False) -> torch.Tensor:
     """(B, H, W, 3) uint8 or f32 images and (B, 2) integer offsets (on any
     device; checked on the host) -> (B, 3, th, tw) f32 channels_last. A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel, with
     the origins in its launch parameters (no host-to-device copy)."""
     if images.device.type == "cpu":
-        return crop_normalize_plain(images, offsets, crop_hw, mean, std)
+        return crop_normalize_plain(images, offsets, crop_hw, mean, std, clamp)
     kernels.check_cuda_input(images, "crop_normalize images",
                              dtypes=(torch.uint8, torch.float32),
                              channels_last=False)
@@ -92,11 +98,11 @@ def crop_normalize(images: torch.Tensor, offsets: torch.Tensor, crop_hw,
     m, inv = _stats(mean, std)
     fn = kernels.function("crop", "uemda_crop_normalize",
                           [kernels.P, kernels.P, kernels.P] + [kernels.I] * 6
-                          + [kernels.F] * 6 + [kernels.P])
+                          + [kernels.F] * 6 + [kernels.I, kernels.P])
     with torch.cuda.device(images.device):
         err = fn(images.data_ptr(), off.ctypes.data, out.data_ptr(), b, h, w,
                  th, tw, int(images.dtype == torch.uint8), *m.tolist(),
-                 *inv.tolist(), kernels.stream_of(images))
+                 *inv.tolist(), int(clamp), kernels.stream_of(images))
     kernels.check_launch("crop", "uemda_crop_normalize", err)
     crop_normalize.launches += 1
     return out.permute(0, 3, 1, 2)

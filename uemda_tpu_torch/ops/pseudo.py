@@ -11,9 +11,10 @@ labels come back (B, H, W) int32. Exact: comparisons on f32 values.
 import torch
 
 
-def _thresholds(probs: torch.Tensor, cutoff_top: float, cutoff_low: float
-                ) -> torch.Tensor:
-    """(B, C, 1, 1) f32 max(cutoff_top * class max, cutoff_low)."""
+def class_thresholds(probs: torch.Tensor, cutoff_top: float,
+                     cutoff_low: float) -> torch.Tensor:
+    """(B, C, 1, 1) f32 max(cutoff_top * class max, cutoff_low): the same
+    operations for the plain selection and for K8 (``ops/mine.py``)."""
     class_max = probs.amax(dim=(2, 3), keepdim=True)
     return torch.clamp(class_max * cutoff_top, min=cutoff_low)
 
@@ -25,7 +26,7 @@ def pseudo_selection(probs: torch.Tensor, cutoff_top: float = 0.8,
     its threshold (``pseudo_generation.py:83``), ignore where none or
     several are."""
     probs = probs.float()
-    over = probs > _thresholds(probs, cutoff_top, cutoff_low)
+    over = probs > class_thresholds(probs, cutoff_top, cutoff_low)
     label = over.to(torch.uint8).argmax(dim=1).to(torch.int32)
     one = over.sum(dim=1) == 1
     return torch.where(one, label, torch.full_like(label, ignore_label))
@@ -38,7 +39,7 @@ def pseudo_selection_threshold(probs: torch.Tensor, cutoff_top: float = 0.8,
     (pseudo_generation.py:24-56): the argmax class, ignore where its
     probability falls below that class's threshold."""
     probs = probs.float()
-    thresh = _thresholds(probs, cutoff_top, cutoff_low)
+    thresh = class_thresholds(probs, cutoff_top, cutoff_low)
     top, label = probs.max(dim=1)
     pix_thresh = torch.gather(thresh.expand_as(probs), 1, label[:, None])[:, 0]
     label = label.to(torch.int32)

@@ -14,9 +14,10 @@ online soft label through the views of ``--refine-mode`` (the superpixel
 view reads the ``_sup_shrink`` maps), mines hard pseudo labels and adds PCL
 on both domains. Evaluates every ``EVAL_EVERY`` steps and at the end, and
 keeps ``<snapshot_dir>/align/<target>_best.pth`` and
-``prototypes_best.pth``. ``--device`` defaults to the card; ``--device cpu``
-runs the plain versions. Not ported yet, and refused: ``--ls
-OhemCrossEntropy``, ``--bcs 1``, ``--accum-steps`` > 1, ``--resume``.
+``prototypes_best.pth``. ``--bcs 1`` weights the source CE by the EMA class
+balance (temperature ``--class-temp``). ``--device`` defaults to the card;
+``--device cpu`` runs the plain versions. Not ported yet, and refused:
+``--ls OhemCrossEntropy``, ``--accum-steps`` > 1, ``--resume``.
 """
 
 import argparse
@@ -69,9 +70,6 @@ def main(argv=None):
     if args.ls == "OhemCrossEntropy":
         raise NotImplementedError("--ls OhemCrossEntropy: OHEM is not ported "
                                   "yet (ROADMAP.md queue A)")
-    if args.bcs:
-        raise NotImplementedError("--bcs 1: class balancing is not ported yet "
-                                  "(ROADMAP.md queue A)")
     if args.accum_steps > 1:
         raise NotImplementedError("--accum-steps > 1: gradient accumulation "
                                   "is not ported yet (ROADMAP.md queue A)")
@@ -90,9 +88,11 @@ def main(argv=None):
     model = build_model(cfg, device=device)
     model.load_state_dict(load_checkpoint(args.ckpt_model))
     state = build_state(model, cfg, stop_steps,
-                        prototypes=load_prototypes(args.ckpt_proto))
+                        prototypes=load_prototypes(args.ckpt_proto),
+                        balance_temp=args.class_temp)
     hp = default_hparams(
         cfg, align_domain=bool(args.align_domain),
+        balance_source=bool(args.bcs),
         refine=bool(args.refine_label), refine_mode=args.refine_mode,
         refine_temp=args.refine_temp, pcl_temp=args.pcl_temp,
         compute_dtype="bfloat16" if device.type == "cuda" else "float32")

@@ -11,9 +11,10 @@ the first stage/20 steps) and cadence: log every 50 steps, evaluate every
 ``EVAL_EVERY`` steps and at the end with ``infer/evaluate.py``, keep
 ``<snapshot_dir>/src/<target>_best.pth`` (the model's state dict under the
 reference's key names, which ``uemda_tpu_torch.tools.eval`` loads).
-``--device`` defaults to the card; ``--device cpu`` runs the plain
-versions. The reference's OHEM (``--ls``), class balance (``--bcs``) and
-``--pretrained`` come with later slices.
+``--bcs 1`` weights the source CE by the EMA class balance (temperature
+``--class-temp``). ``--device`` defaults to the card; ``--device cpu`` runs
+the plain versions. The reference's OHEM (``--ls``) and ``--pretrained``
+come with later slices.
 """
 
 import argparse
@@ -41,6 +42,9 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description="Train on source (stage 1).")
     parser.add_argument("--config-path", type=str, default="2vaihingen")
     parser.add_argument("--align-domain", type=str2bool, default=0)
+    parser.add_argument("--bcs", type=str2bool, default=0,
+                        help="class balance for source")
+    parser.add_argument("--class-temp", type=float, default=2.0)
     parser.add_argument("--steps", type=int, default=None,
                         help="override STAGE1_STEPS")
     parser.add_argument("--seed", type=int, default=2333)
@@ -58,12 +62,13 @@ def main(argv=None):
 
     hp = default_hparams(
         cfg, align_domain=bool(args.align_domain),
+        balance_source=bool(args.bcs),
         compute_dtype="bfloat16" if device.type == "cuda" else "float32")
     stop_steps = args.steps or cfg.stage1_steps
     model = build_model(cfg, device=device,
                         generator=torch.Generator().manual_seed(args.seed))
     step_fn = make_src_step(model, hp)
-    state = build_state(model, cfg, stop_steps)
+    state = build_state(model, cfg, stop_steps, balance_temp=args.class_temp)
     src_iter, _ = make_source_iter(cfg)
     tgt_iter = make_target_iter(cfg)[0] if hp.align_domain else None
     eval_fn, on_best = make_eval_hook(cfg, run_dir, logger=logger)

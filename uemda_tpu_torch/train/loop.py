@@ -1,4 +1,4 @@
-"""The trainers of stages 1 and 2: model and state construction, the data
+"""The trainers of stages 1-3: model and state construction, the data
 streams, and a minimal step loop with periodic evaluation and
 best-checkpoint tracking.
 
@@ -8,13 +8,16 @@ The port's copy of ``build_model``, ``build_state``, ``default_hparams``,
 ``_run_training_loop`` (reference ``tools/train_src.py:108-165``): log
 every ``log_every`` steps, evaluate every ``eval_every`` steps and at the
 end through ``infer/evaluate.py``, keep the best checkpoint as a ``.pth``
-under the reference's key names, and the prototypes beside it. Resume,
+under the reference's key names, the prototypes beside it and ``best.json``
+(``{"miou", "step"}``, as ``uemda_tpu/train/loop.py:382-397``), which the
+pipeline's regression check reads. Resume,
 the run-dir lock, the hang watchdog and several steps per call are not
 ported yet (ROADMAP.md queue A).
 """
 
 import copy
 import dataclasses
+import json
 import logging
 import os
 import time
@@ -23,6 +26,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from uemda_tpu_torch.alignment.balance import init_class_balance
 from uemda_tpu_torch.alignment.prototypes import init_aligner
 from uemda_tpu_torch.config import PairConfig
 from uemda_tpu_torch.datasets.base import SegDataset, infinite_batches
@@ -59,22 +63,29 @@ def build_model(cfg: PairConfig, device=None,
 
 def build_state(model: DeeplabV2, cfg: PairConfig, stop_steps: int,
                 freeze_at: int = 0, accum_steps: int = 1, prototypes=None,
-                feat_channels: Optional[int] = None) -> TrainState:
+                feat_channels: Optional[int] = None,
+                balance_temp: float = 2.0) -> TrainState:
     """SGD over the model's parameters with the poly-warmup schedule over
     ``stop_steps`` and, for ``freeze_at > 0``, the stage freeze mask; the
     prototype aligner starts from ``prototypes`` ((C, K), else zeros; K is
-    ``feat_channels``, by default the model's ``inchannels``) on the
+    ``feat_channels``, by default the model's ``inchannels``) and both
+    class balances from uniform frequencies (EMA decay 0.99, temperature
+    ``balance_temp``, ``uemda_tpu/train/state.py:62-63``), all on the
     model's device."""
     schedule = poly_warmup_schedule(cfg.learning_rate, stop_steps, cfg.power)
     named = list(model.named_parameters())
     mask = freeze_mask(named, freeze_at) if freeze_at > 0 else None
     opt = SGD(named, schedule, cfg.momentum, cfg.weight_decay, clip_norm=32.0,
               trainable=mask, accum_steps=accum_steps)
+    dev = named[0][1].device
     aligner = init_aligner(cfg.class_num,
                            feat_channels or model.config.inchannels,
                            ignore_label=cfg.ignore_label,
-                           prototypes=prototypes, device=named[0][1].device)
-    return TrainState(step=0, model=model, opt=opt, aligner=aligner)
+                           prototypes=prototypes, device=dev)
+    return TrainState(
+        step=0, model=model, opt=opt, aligner=aligner,
+        balance_s=init_class_balance(cfg.class_num, 0.99, balance_temp, dev),
+        balance_t=init_class_balance(cfg.class_num, 0.99, balance_temp, dev))
 
 
 def default_hparams(cfg: PairConfig, **overrides) -> StageHParams:
@@ -89,6 +100,7 @@ def default_hparams(cfg: PairConfig, **overrides) -> StageHParams:
         cutoff_top=cfg.cutoff_top,
         cutoff_low=cfg.cutoff_low,
         max_segments=max_segments_for(cfg),
+        clamp_target=cfg.clamp_target,
     )
     base.update(overrides)
     return StageHParams(**base)
@@ -111,11 +123,14 @@ def make_source_iter(cfg: PairConfig, seed: int = 0):
     return infinite_batches(ds, cfg.source.batch_size, seed=seed), ds
 
 
-def make_target_iter(cfg: PairConfig, seed: int = 1, read_sup: bool = False):
-    """The unlabelled target stream: images and, with ``read_sup``, their
-    superpixel maps."""
-    ds = SegDataset(cfg.meta, list(cfg.target.image_dir), None,
-                    read_sup=read_sup)
+def make_target_iter(cfg: PairConfig, seed: int = 1, read_sup: bool = False,
+                     prob_dir: Optional[str] = None):
+    """The unlabelled target stream: images, with ``read_sup`` their
+    superpixel maps, and with ``prob_dir`` the soft pseudo labels stage 3's
+    sweep wrote there."""
+    ds = SegDataset(cfg.meta, list(cfg.target.image_dir), prob_dir,
+                    read_sup=read_sup,
+                    label_type="prob" if prob_dir else "none")
     return infinite_batches(ds, cfg.target.batch_size, seed=seed), ds
 
 
@@ -139,7 +154,8 @@ def make_eval_hook(cfg: PairConfig, run_dir: Optional[str], dataset=None,
     """Evaluation on the val split (or ``dataset``) through
     ``evaluate_dataset``, on an eval-mode copy of the model in bf16 on the
     card (f32 on the CPU); ``on_best`` saves ``<target>_best.pth`` (the
-    model's state dict, reference key names) under ``run_dir``."""
+    model's state dict, reference key names), ``prototypes_best.pth`` and
+    ``best.json`` under ``run_dir``."""
     split = cfg.val
     if dataset is None:
         dataset = SegDataset(cfg.meta, list(split.image_dir),
@@ -164,6 +180,8 @@ def make_eval_hook(cfg: PairConfig, run_dir: Optional[str], dataset=None,
             if state.aligner is not None:
                 torch.save(state.aligner.prototypes.cpu(),
                            os.path.join(run_dir, "prototypes_best.pth"))
+            with open(os.path.join(run_dir, "best.json"), "w") as f:
+                json.dump({"miou": float(miou), "step": int(step)}, f)
 
     return eval_fn, on_best
 

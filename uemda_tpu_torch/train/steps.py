@@ -1,10 +1,12 @@
-"""The train steps of stage 1, ``init_prototypes`` and stage 2.
+"""The train steps of stage 1, ``init_prototypes``, stage 2 and stage 3.
 
 The port's copy of ``StageHParams``, ``_forward_train``, the CE branch of
-``_source_loss_terms``, ``make_src_step``, ``make_init_proto_step`` and
-``make_align_step`` (``uemda_tpu/train/steps.py:52-255``; reference
-``tools/train_src.py:108-149``, ``tools/init_prototypes.py:101-111``,
-``tools/train_align_uem.py:136-187``).
+``_source_loss_terms`` (with the class balance), the UVEM, CE and 'none'
+branches of ``_target_loss``, ``make_src_step``, ``make_init_proto_step``,
+``make_align_step`` and ``make_ssl_step`` (``uemda_tpu/train/steps.py:
+52-379``; reference ``tools/train_src.py:108-149``,
+``tools/init_prototypes.py:101-111``, ``tools/train_align_uem.py:136-187``,
+``tools/train_ssl_uem.py:171-235``).
 
 Mixed precision as in the JAX package: the f32 master parameters are cast
 to ``compute_dtype`` (bf16 by default) for the forward -- a differentiable
@@ -28,8 +30,13 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from uemda_tpu_torch.alignment.balance import class_balance_weight
 from uemda_tpu_torch.alignment.coral import align_domain
-from uemda_tpu_torch.alignment.losses import cross_entropy_loss, loss_calc
+from uemda_tpu_torch.alignment.losses import (
+    cross_entropy_loss,
+    loss_calc,
+    uvem_loss,
+)
 from uemda_tpu_torch.alignment.pcl import prototype_contrastive_loss
 from uemda_tpu_torch.alignment.prototypes import (
     label_refine,
@@ -39,6 +46,7 @@ from uemda_tpu_torch.alignment.prototypes import (
 from uemda_tpu_torch.datasets.augment import AugDraws, augment_batch, draw_augment
 from uemda_tpu_torch.ops.insnorm import instance_norm
 from uemda_tpu_torch.ops.labels import downscale_label
+from uemda_tpu_torch.ops.mine import uvem_mine
 from uemda_tpu_torch.ops.pseudo import pseudo_selection
 from uemda_tpu_torch.ops.resize import upsample_logits
 from uemda_tpu_torch.train.state import TrainState
@@ -55,14 +63,22 @@ class StageHParams:
     tgt_std: Tuple[float, float, float] = (1.0, 1.0, 1.0)
     align_domain: bool = False
     source_loss: str = "ce"  # 'ce' | 'ohem' (not ported yet)
-    balance_source: bool = False  # not ported yet
+    balance_source: bool = False
     refine: bool = True
     refine_mode: str = "all"
     refine_temp: float = 2.0
     cutoff_top: float = 0.8
     cutoff_low: float = 0.6
     pcl_temp: float = 8.0
+    # 'uvem' | 'ce' | 'none'; 'ups', 'ohem', 'focal', 'ghm', 'gdp' not ported
+    target_loss: str = "uvem"
+    balance_target: bool = False
+    uvem_m: float = 0.2
+    uvem_t: float = 0.7
+    uvem_g: float = 4.0
     max_segments: int = 2048
+    # the stage-3 target Normalize's clamp(max=1.0): ISPRS configs only
+    clamp_target: bool = False
     compute_dtype: str = "bfloat16"
     scale_factor: int = 16  # feature stride (output_stride)
 
@@ -135,19 +151,17 @@ def forward_features(model, images: torch.Tensor, dtype: torch.dtype
 
 class _Step:
     """What the stage steps share: the hparams checks, the step's draws and
-    augmentation, the compute copy of the masters, the backward and the
-    update. A subclass computes the losses (:meth:`losses`)."""
+    augmentation, the compute copy of the masters, the source loss, the
+    backward and the update. A subclass computes the losses
+    (:meth:`losses`); ``target_mode`` is its target pipeline's D4 mode."""
 
     needs_target = True
+    target_mode = "oneof"
 
     def __init__(self, model, hp: StageHParams):
         if hp.source_loss != "ce":
             raise NotImplementedError(
                 f"source_loss={hp.source_loss!r}: OHEM is not ported yet "
-                "(ROADMAP.md queue A)")
-        if hp.balance_source:
-            raise NotImplementedError(
-                "balance_source: class balancing is not ported yet "
                 "(ROADMAP.md queue A)")
         cfg = model.config
         if not cfg.multi_layer or cfg.cascade:
@@ -171,13 +185,14 @@ class _Step:
         host_gen, dev_gen = step_generators(seed, state.step,
                                             batch_s["image"].device)
         if draws is None:
-            def draw(batch):
+            def draw(batch, mode):
                 image = batch["image"]
                 return draw_augment(host_gen, image.shape[0], image.shape[1:3],
-                                    hp.crop, "oneof")
+                                    hp.crop, mode)
 
-            draws = StepDraws(draw(batch_s),
-                              draw(batch_t) if self.needs_target else None)
+            draws = StepDraws(
+                draw(batch_s, "oneof"),
+                draw(batch_t, self.target_mode) if self.needs_target else None)
         model.train()
         model.zero_grad(set_to_none=True)
         bs = augment_batch(batch_s, hp.crop, hp.src_mean, hp.src_std,
@@ -185,18 +200,32 @@ class _Step:
         bt = None
         if self.needs_target:
             bt = augment_batch(batch_t, hp.crop, hp.tgt_mean, hp.tgt_std,
-                               draws.aug_t)
+                               draws.aug_t,
+                               clamp=self.target_mode == "compose"
+                               and hp.clamp_target)
         params = cast_params(model, self.dtype)
         metrics = self.losses(state, bs, bt, params, dev_gen, draws)
         metrics["loss"].backward()
         state.apply_gradients()
         return {k: v.detach() for k, v in metrics.items()}
 
-    def _seg_and_domain(self, p1, p2, label, feat_s, feat_t):
+    def _source_loss(self, state, preds, label) -> torch.Tensor:
+        """CE over both heads (``_source_loss_terms``, ``steps.py:106-122``),
+        each pixel weighted by the class balance with ``balance_source``,
+        whose EMA moves first; the new balance goes into ``state``."""
         hp = self.hp
-        loss_seg = loss_calc(
-            [p1, p2], label,
-            lambda lg, lb: cross_entropy_loss(lg, lb, hp.ignore_label))
+        pixel_weight = None
+        if hp.balance_source:
+            pixel_weight, state.balance_s = class_balance_weight(
+                state.balance_s, label, hp.ignore_label)
+        return loss_calc(
+            preds, label,
+            lambda lg, lb: cross_entropy_loss(lg, lb, hp.ignore_label,
+                                              pixel_weight))
+
+    def _seg_and_domain(self, state, p1, p2, label, feat_s, feat_t):
+        hp = self.hp
+        loss_seg = self._source_loss(state, [p1, p2], label)
         loss_dom = torch.zeros((), device=loss_seg.device)
         if hp.align_domain:
             loss_dom = align_domain(feat_s, feat_t)
@@ -221,8 +250,8 @@ class SrcStep(_Step):
         if self.hp.align_domain:
             _, _, feat_t = forward_train(model, params, bt["image"], dev_gen,
                                          draws.drop_t)
-        loss_seg, loss_dom = self._seg_and_domain(p1, p2, bs["label"], feat_s,
-                                                  feat_t)
+        loss_seg, loss_dom = self._seg_and_domain(state, p1, p2, bs["label"],
+                                                  feat_s, feat_t)
         return {"loss": loss_seg + loss_dom, "loss_seg": loss_seg,
                 "loss_domain": loss_dom}
 
@@ -265,8 +294,8 @@ class AlignStep(_Step):
                                             hp.ignore_label)
             label_t_down = downscale_label(label_t_hard, hp.scale_factor,
                                            hp.class_num, hp.ignore_label)
-        loss_seg, loss_dom = self._seg_and_domain(p1, p2, bs["label"], feat_s,
-                                                  feat_t)
+        loss_seg, loss_dom = self._seg_and_domain(state, p1, p2, bs["label"],
+                                                  feat_s, feat_t)
         loss_align = 0.5 * (
             prototype_contrastive_loss(aligner.prototypes, feat_s,
                                        label_s_down, hp.pcl_temp,
@@ -277,6 +306,83 @@ class AlignStep(_Step):
         state.aligner = aligner
         return {"loss": loss_seg + loss_dom + loss_align, "loss_seg": loss_seg,
                 "loss_align": loss_align, "loss_domain": loss_dom}
+
+
+class SslStep(_Step):
+    """Stage-3 step (``steps.py:320-379``). ``batch_s``: {'image', 'label'};
+    ``batch_t``: {'image', 'prob': (B, H, W, C) stored soft labels (fp16 or
+    f32)} and, for the superpixel view, {'sup'}. The target pipeline is
+    ``"compose"``, with the clamp on the ISPRS configs.
+
+    Order, as the JAX step: source forward; target forward (on the
+    BatchNorm statistics the source forward just wrote); the stored soft
+    label, cropped and turned with the image, refined by the views of
+    ``refine_mode`` against the prototypes *before* this step's update;
+    one K8 pass (``ops/mine.py``) that gives the hard pseudo label and the
+    UVEM ``(w, u)`` both heads' losses read; the prototypes' EMA from the
+    source (``train_ssl_uem.py:216``); the source CE, then the target loss;
+    one backward and one update. No CORAL and no PCL. The metrics add the
+    shares of selected and of trained (u <= t) target pixels and the mean
+    UVEM weight."""
+
+    target_mode = "compose"
+
+    def __init__(self, model, hp: StageHParams):
+        super().__init__(model, hp)
+        if hp.target_loss not in ("uvem", "ce", "none"):
+            raise NotImplementedError(
+                f"target_loss={hp.target_loss!r}: the stage-3 loss zoo (UPS, "
+                "OHEM, focal, GHM, GDP) is not ported yet (ROADMAP.md queue A "
+                "item 8)")
+        if hp.refine and hp.refine_mode not in ("all", "p", "l", "s", "n"):
+            raise ValueError(f"unknown refine_mode {hp.refine_mode!r}")
+
+    def _target_loss(self, state, preds, label_hard, w, u) -> torch.Tensor:
+        """``_target_loss`` (``steps.py:258-317``) for 'uvem', 'ce' and
+        'none'; the target class balance weights 'uvem' and 'ce'."""
+        hp = self.hp
+        if hp.target_loss == "none":
+            return torch.zeros((), device=label_hard.device)
+        pixel_weight = None
+        if hp.balance_target:
+            pixel_weight, state.balance_t = class_balance_weight(
+                state.balance_t, label_hard, hp.ignore_label)
+        if hp.target_loss == "uvem":
+            fn = lambda lg, lb: uvem_loss(  # noqa: E731
+                lg, lb, m=hp.uvem_m, threshold=hp.uvem_t, gamma=hp.uvem_g,
+                ignore_label=hp.ignore_label, pixel_weight=pixel_weight,
+                w=w, u=u)
+        else:
+            fn = lambda lg, lb: cross_entropy_loss(  # noqa: E731
+                lg, lb, hp.ignore_label, pixel_weight)
+        return loss_calc(preds, label_hard, fn)
+
+    def losses(self, state, bs, bt, params, dev_gen, draws):
+        hp, model = self.hp, self.model
+        p1, p2, feat_s = forward_train(model, params, bs["image"], dev_gen,
+                                       draws.drop_s)
+        t1, t2, feat_t = forward_train(model, params, bt["image"], dev_gen,
+                                       draws.drop_t)
+        with torch.no_grad():
+            soft = bt["prob"].permute(0, 3, 1, 2).float()
+            if hp.refine:
+                soft = label_refine(state.aligner, soft, feat_t, [t1, t2],
+                                    sup=bt.get("sup"), mode=hp.refine_mode,
+                                    temp=hp.refine_temp,
+                                    max_segments=hp.max_segments)
+            label_t, w, u = uvem_mine(soft, hp.cutoff_top, hp.cutoff_low,
+                                      hp.uvem_m, hp.uvem_t, hp.uvem_g,
+                                      hp.ignore_label)
+        state.aligner, _ = update_prototype(state.aligner, feat_s, bs["label"],
+                                            hp.class_num, hp.scale_factor)
+        loss_src = self._source_loss(state, [p1, p2], bs["label"])
+        loss_tgt = self._target_loss(state, [t1, t2], label_t, w, u)
+        with torch.no_grad():
+            selected = (label_t != hp.ignore_label).float().mean()
+            trained = (u <= hp.uvem_t).float().mean()
+        return {"loss": loss_src + loss_tgt, "loss_source": loss_src,
+                "loss_target": loss_tgt, "selected": selected,
+                "trained": trained, "w_mean": w.mean()}
 
 
 class InitProtoStep:
@@ -317,6 +423,10 @@ def make_src_step(model, hp: StageHParams) -> SrcStep:
 
 def make_align_step(model, hp: StageHParams) -> AlignStep:
     return AlignStep(model, hp)
+
+
+def make_ssl_step(model, hp: StageHParams) -> SslStep:
+    return SslStep(model, hp)
 
 
 def make_init_proto_step(model, hp: StageHParams) -> InitProtoStep:
