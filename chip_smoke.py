@@ -12,6 +12,11 @@ weights from a seed):
 
 * serving: the standard eval forward, the fused-stem fast path and slide +
   8-view TTA evaluation;
+* ``[fused]`` the fast path with the identity bottlenecks of stages (1, 2)
+  and of all four stages in the K4 kernel, and a slide + 8-view TTA
+  evaluation through it; ``[int8]`` int8 serving: the dynamic int8 fast
+  path, the int8 fast path calibrated on every stage, and ``Int8Model`` on
+  the standard forward;
 * stage-1 training (``[train]``): one f32 step on the card against the same
   step on the CPU, then 30 bf16 steps with CORAL at the 2urban geometry
   (synthetic 1024^2 LoveDA tiles cropped to 512^2 by the K9 kernel, batch 8)
@@ -817,6 +822,10 @@ def main():
         segment_sum_plain,
         superpixel_expand,
     )
+    from uemda_tpu_torch.ops.resblock import (
+        bottleneck_identity,
+        bottleneck_identity_plain,
+    )
     from uemda_tpu_torch.ops.stem import stem_pool, stem_pool_plain
     from uemda_tpu_torch.ops.tail import (
         tail_upsample_softmax_mean,
@@ -825,8 +834,12 @@ def main():
 
     WRAPPERS[:] = [instance_norm, instance_norm_backward, crop_normalize,
                    stem_pool, tail_upsample_softmax_mean, segment_max,
-                   segment_sum, segment_gather, uvem_mine]
+                   segment_sum, segment_gather, uvem_mine, bottleneck_identity]
     t_start = time.time()
+    sections = []  # (name, start) of each part of the run, for the summary
+
+    def mark(name):
+        sections.append((name, time.time()))
     dev = torch.device("cuda")
     CL = torch.channels_last
 
@@ -841,6 +854,7 @@ def main():
     phase("card", f"{card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, devices {torch.cuda.device_count()}")
 
+    mark("build")
     # 2. build ----------------------------------------------------------
     t0 = time.time()
     logs = kernels.build()
@@ -853,6 +867,7 @@ def main():
               f"{max(regs, default=0)} registers a thread, {spill} bytes of "
               "spill stores")
 
+    mark("kernel checks")
     # 3. kernels against their plain versions, at the slice's shapes -----
     torch.backends.cudnn.allow_tf32 = False   # plain f32 side: full f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1112,6 +1127,62 @@ def main():
     phase("kernel", f"superpixel_expand ({BATCH}, {TILE}, {TILE}), S {n_seg}: "
           f"equal to the CPU plain path")
 
+    # K4 against its plain version: the flagship's four stage shapes (batch
+    # 8, 512^2 tiles, bf16; 1.6e-2 covers the 3x3's tap order, one bf16
+    # rounding, tests/test_pallas_resblock.py:71-80), f32 on the CUDA cores
+    # at two widths (1e-5), an odd shape, and dilation 2 on a 6x6 map (every
+    # tile on the edge). Weights at He scale, the residual branch at half the
+    # identity's, as in a trained ResNet
+    def block_args(shape, cmid, dt):
+        c = shape[1]
+
+        def t(*s_, scale=1.0, d=dt):
+            v = randn(*s_, scale=scale).to(dev, d)
+            return v.contiguous(memory_format=CL) if v.dim() == 4 else v
+
+        f32 = torch.float32
+        return (t(*shape), t(cmid, c, 1, 1, scale=c ** -0.5),
+                t(cmid, scale=0.1, d=f32),
+                t(cmid, cmid, 3, 3, scale=(9 * cmid) ** -0.5),
+                t(cmid, scale=0.1, d=f32),
+                t(c, cmid, 1, 1, scale=0.5 * cmid ** -0.5),
+                t(c, scale=0.1, d=f32))
+
+    k4_stages = {  # stage: ((B, C, H, W), Cmid, dilation, K4 blocks a forward)
+        "layer1": ((BATCH, 256, TILE // 4, TILE // 4), 64, 1, 2),
+        "layer2": ((BATCH, 512, TILE // 8, TILE // 8), 128, 1, 3),
+        "layer3": ((BATCH, 1024, TILE // 16, TILE // 16), 256, 1, 5),
+        "layer4": ((BATCH, 2048, TILE // 16, TILE // 16), 512, 2, 2),
+    }
+    k4_cases = {stage: (sh, cm, d, torch.bfloat16)
+                for stage, (sh, cm, d, _) in k4_stages.items()}
+    k4_cases.update({
+        "f32 layer1 width": ((2, 256, 32, 32), 64, 1, torch.float32),
+        "f32 layer4 width": ((2, 2048, 8, 8), 512, 2, torch.float32),
+        "odd f32": ((2, 64, 37, 53), 16, 1, torch.float32),
+        "odd bf16": ((2, 64, 37, 53), 16, 1, torch.bfloat16),
+        "dilation 2 on 6x6": ((BATCH, 2048, 6, 6), 512, 2, torch.bfloat16),
+    })
+    k4_tiles = {}
+    for case, (shape, cmid, dil, dt) in k4_cases.items():
+        dn = str(dt).split(".")[-1]
+        args = block_args(shape, cmid, dt)
+        got = bottleneck_identity(*args, dilation=dil)
+        k4_tiles[case] = bottleneck_identity.tile
+        ref = bottleneck_identity_plain(*args, dilation=dil)
+        torch.cuda.synchronize()
+        t_ = 1e-5 if dt == torch.float32 else 1.6e-2
+        e = check_close(f"bottleneck_identity {case}", got, ref, t_, t_)
+        if case in k4_stages:
+            errs[(f"bottleneck_identity_{case}", dn)] = e
+            inputs[case] = args
+        phase("kernel", f"bottleneck_identity {case} {shape} Cmid {cmid} "
+              f"dilation {dil} {dn}: tile {k4_tiles[case]}, max abs err "
+              f"{e:.3g} (atol = rtol = {t_}), "
+              f"{float((got == ref).float().mean()):.5f} of values bit-equal")
+        del got, ref
+
+    mark("f32 model checks")
     # 4. the flagship model, f32 on a small input, against the plain path
     #    on the CPU (a comparison: its launches are not the main path's)
     cfg = DeeplabV2Config.uemda_default(num_classes=NUM_CLASSES)
@@ -1132,7 +1203,24 @@ def main():
         fail(f"fast path f32 argmax agreement {agree32}")
     phase("model", f"f32 128x128 b2 vs CPU plain path: fast path max abs err "
           f"{e_fp:.3g}, standard {e_std:.3g}, argmax agreement {agree32:.5f}")
+    # the fused fast paths in f32 (TF32 off) against the unfused one on the
+    # card: atol 5e-5, rtol 1e-4 (tests/test_infer_fastpath.py:47)
+    from uemda_tpu_torch.infer.fastpath import FastpathModel
 
+    fp32 = build_fastpath(model, dtype=torch.float32)  # one fold, three metas
+    with torch.no_grad():
+        unf32 = fp32(xs_small.to(dev))
+        for stages in ((1, 2), (1, 2, 3, 4)):
+            fu32 = FastpathModel({**fp32.meta, "fused_stages": stages},
+                                 fp32.params)(xs_small.to(dev))
+            e = check_close(f"fused {stages} f32 fast path vs unfused", fu32,
+                            unf32, 5e-5, 1e-4)
+            phase("model", f"f32 128x128 b2: fast path with fused_stages "
+                  f"{stages} vs unfused: max abs err {e:.3g} (atol 5e-5, "
+                  "rtol 1e-4)")
+    del unf32, fu32
+
+    mark("serving")
     # 5. the main path: the serving entry points at the flagship's full
     #    width, bf16 -- one fused-stem fast-path forward, one standard eval
     #    forward, and slide + 8-view TTA evaluation of a synthetic IsprsDA
@@ -1160,7 +1248,7 @@ def main():
     # the f32 fast path on the same batch (TF32 off), a comparison made after
     # the main path's counts were read
     with torch.no_grad():
-        p_f32 = build_fastpath(model, dtype=torch.float32)(x_flag.float())
+        p_f32 = fp32(x_flag.float())
 
     for name, p in (("standard", p_std), ("fast path", p_fast)):
         if tuple(p.shape) != (BATCH, NUM_CLASSES, TILE, TILE) \
@@ -1197,19 +1285,142 @@ def main():
         if n <= 0:
             fail(f"{name} was not launched on the main path")
 
+    def gate(name, p, ref=None):
+        """Finite probabilities of the flagship shape summing to 1 (+-2e-2,
+        six bf16 roundings of values <= 1); against ``ref``, the mean abs
+        prob diff and the argmax agreement."""
+        if tuple(p.shape) != (BATCH, NUM_CLASSES, TILE, TILE) \
+                or not torch.isfinite(p.float()).all():
+            fail(f"{name}: output {tuple(p.shape)} not finite or misshaped")
+        s_err = float((p.float().sum(1) - 1).abs().max())
+        if s_err > 2e-2:
+            fail(f"{name}: probabilities sum to 1 +- {s_err}")
+        if ref is None:
+            return s_err, None, None
+        d_mean = float((p.float() - ref.float()).abs().mean())
+        agree = float((p.argmax(1) == ref.argmax(1)).float().mean())
+        return s_err, d_mean, agree
+
+    mark("fused serving")
+    # 5b. this slice's path: the fast path with the identity bottlenecks in
+    #     K4 -- fused_stages (1, 2), the set the JAX package's bench A/B
+    #     measures, and all four stages -- one forward each, then slide +
+    #     8-view TTA evaluation through the all-stage one. Counts are 0 just
+    #     before and read just after. Gate: the unfused bf16 fast path's
+    #     (mean abs prob diff < 0.03, argmax agreement >= 0.9)
+    fused = {stages: build_fastpath(model, dtype=torch.bfloat16,
+                                    fused_stages=stages)
+             for stages in ((1, 2), (1, 2, 3, 4))}
+    fwrappers = (instance_norm, stem_pool, tail_upsample_softmax_mean,
+                 bottleneck_identity)
+    for fn in fwrappers:
+        fn.launches = 0
+    k4_per_forward, p_fused = {}, {}
+    with torch.no_grad():
+        for stages, fm in fused.items():
+            n0 = bottleneck_identity.launches
+            p_fused[stages] = fm(x_flag)
+            k4_per_forward[stages] = bottleneck_identity.launches - n0
+    t0 = time.time()
+    _, miou_f = evaluate_dataset(
+        fused[(1, 2, 3, 4)], data, st["mean"], st["std"], tile=(TILE, TILE),
+        tta=True, batch_size=1, compute_dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    t_eval_f = time.time() - t0
+    fused_launches = {fn.__name__: fn.launches for fn in fwrappers}
+    for stages, n_want in (((1, 2), 5), ((1, 2, 3, 4), 12)):
+        if k4_per_forward[stages] != n_want:
+            fail(f"fused_stages {stages}: K4 launched "
+                 f"{k4_per_forward[stages]} times a forward, not {n_want}")
+        s_err, d_mean, agree = gate(f"fused {stages}", p_fused[stages], p_fast)
+        if d_mean >= 0.03 or agree < 0.9:
+            fail(f"fused {stages} vs unfused bf16 fast path: mean abs prob "
+                 f"diff {d_mean} (limit 0.03), argmax agreement {agree}")
+        phase("fused", f"fused_stages {stages} ({BATCH}, 3, {TILE}, {TILE}) "
+              f"bf16: {n_want} K4 launches a forward; vs the unfused fast "
+              f"path: max prob diff {max_err(p_fused[stages], p_fast):.4g}, "
+              f"mean {d_mean:.3g}, argmax agreement {agree:.5f}; max |sum - "
+              f"1| {s_err:.3g}")
+    if not (0.0 <= miou_f <= 1.0):
+        fail(f"evaluate_dataset through the fused fast path: mIoU {miou_f}")
+    phase("fused", f"2 synthetic IsprsDA images {2 * TILE}^2, 8-view TTA "
+          f"through fused_stages (1, 2, 3, 4): mIoU {miou_f:.5f} (unfused "
+          f"{miou:.5f}) in {t_eval_f:.2f} s")
+    phase("launches", f"fused path (two forwards + evaluation): "
+          f"{json.dumps(fused_launches)}")
+    for name, n in fused_launches.items():
+        if n <= 0:
+            fail(f"{name} was not launched on the fused path")
+    del p_fused
+
+    mark("int8 serving")
+    # 5c. int8 serving at the flagship's full width: the dynamic int8 fast
+    #     path (heads + stages 3, 4), the fast path calibrated on two random
+    #     batches with every stage in int8 (the JAX package's
+    #     fastpath_int8cal_all), and Int8Model on the bf16 standard forward.
+    #     Random weights: only finiteness and the sum to 1 gate; the diff to
+    #     the bf16 fast path is printed. Counts are 0 just before the builds.
+    from uemda_tpu_torch.infer.fastpath import _conv_int8, _quantize_w
+    from uemda_tpu_torch.infer.quant import Int8Model
+
+    for fn in WRAPPERS:
+        fn.launches = 0
+    calib = [randn(BATCH, 3, TILE, TILE).to(dev).contiguous(memory_format=CL)
+             for _ in range(2)]
+    int8_modes = {
+        "fastpath_int8": build_fastpath(model, dtype=torch.bfloat16, int8=True),
+        "fastpath_int8cal_all": build_fastpath(
+            model, dtype=torch.bfloat16, int8=True, int8_stages=(1, 2, 3, 4),
+            calibration_batches=calib),
+        "int8model": Int8Model(model_bf16),
+    }
+    del calib
+    with torch.no_grad():
+        for name, fm in int8_modes.items():
+            s_err, d_mean, agree = gate(name, fm(x_flag), p_fast)
+            phase("int8", f"{name} ({BATCH}, 3, {TILE}, {TILE}): max |sum - "
+                  f"1| {s_err:.3g}; vs the bf16 fast path: mean abs prob "
+                  f"diff {d_mean:.4g}, argmax agreement {agree:.5f} (random "
+                  "weights)")
+    int8_launches = {fn.__name__: fn.launches for fn in WRAPPERS}
+    phase("launches", f"int8 path (builds, calibration, three forwards): "
+          f"{json.dumps(int8_launches)}")
+    for name in ("instance_norm", "stem_pool", "tail_upsample_softmax_mean"):
+        if int8_launches[name] <= 0:
+            fail(f"{name} was not launched on the int8 path")
+    # one int8 conv on the card against the same call on the CPU: exact
+    # int32 sums, the same f32 epilogue, so equal
+    xq8 = randn(2, 256, 32, 32).contiguous(memory_format=CL)
+    wq8, sq8 = (torch.from_numpy(a) for a in
+                _quantize_w(randn(256, 256, 3, 3, scale=0.05).numpy()))
+    bq8 = randn(256)
+    with torch.no_grad():
+        c_cpu = _conv_int8(xq8, wq8, sq8, bq8, dilation=2)
+        c_gpu = _conv_int8(xq8.to(dev), wq8.to(dev), sq8.to(dev),
+                           bq8.to(dev), dilation=2).cpu()
+    if not torch.equal(c_cpu, c_gpu):
+        fail(f"_conv_int8 on the card differs from the CPU: max abs diff "
+             f"{max_err(c_gpu, c_cpu)}")
+    phase("int8", "_conv_int8 (2, 256, 32, 32) 3x3 dilation 2 on the card: "
+          "equal to the CPU")
+
+    mark("stage 1")
     # 6. the stage-1 training path: the f32 step against the CPU, then the
     #    flagship bf16 run with its own launch counts
     train_launches, ctx = train_phase(dev)
 
+    mark("stage 2")
     # 7. init_prototypes and stage 2 on the model stage 1 left: the f32
     #    step against the CPU, then the flagship chain with its own counts
     align_launches, astate = align_phase(dev, ctx)
 
+    mark("stage 3")
     # 8. init_prototypes and stage 3 on the model stage 2 left: the f32 step
     #    against the CPU, then the sweep and the flagship steps with their
     #    own counts
     ssl_launches = ssl_phase(dev, ctx)
 
+    mark("timing")
     # 9. timing (bf16, the serving and training dtype; K9 on uint8 tiles,
     #    K5-K7 on f32 probabilities), CUDA events after warm-up
     xi, xs, ws, bs, xt = inputs["bfloat16"]
@@ -1267,6 +1478,20 @@ def main():
         "uvem_mine": (
             lambda: uvem_mine(p_mine), lambda: uvem_mine_plain(p_mine), None),
     }
+    # K4 at the four flagship stage shapes; no one library call computes the
+    # block, so its yardstick is the unfused fast path's block on the same
+    # folded weights: three cuDNN convs (bias inside) and two adds
+    from uemda_tpu_torch.infer.fastpath import _block_forward
+
+    for stage, (_, _, dil, _) in k4_stages.items():
+        a4 = inputs[stage]
+        blk = {c: {"w": a4[1 + 2 * i], "b": a4[2 + 2 * i]}
+               for i, c in enumerate(("conv1", "conv2", "conv3"))}
+        timed[f"bottleneck_identity_{stage}"] = (
+            lambda a4=a4, dil=dil: bottleneck_identity(*a4, dilation=dil),
+            lambda a4=a4, dil=dil: bottleneck_identity_plain(*a4, dilation=dil),
+            lambda a4=a4, blk=blk, dil=dil: _block_forward(
+                a4[0], blk, {"block": "bottleneck", "groups": 1}, 1, dil))
     # bytes each function must move (inputs read once, outputs written once)
     # and the operations it does, from this run's shapes, each with the peak
     # rate of its type: the stem conv's multiply-adds could run on the bf16
@@ -1309,6 +1534,14 @@ def main():
                       4 * p_mine.numel() + 17 * p_mine[:, 0].numel(),
                       PEAK_FLOPS["float32"]),
     }
+    # K4 reads x, the three bf16 weights and the f32 biases and writes the
+    # output; 2 x (C*Cm + 9*Cm^2 + Cm*C) operations a pixel, bf16 tensor
+    # cores
+    for stage, ((b4, c4, h4, w4), cm4, _, _) in k4_stages.items():
+        n_w = 2 * c4 * cm4 + 9 * cm4 * cm4
+        work[f"bottleneck_identity_{stage}"] = (
+            2 * b4 * c4 * h4 * w4 * el + n_w * el + (2 * cm4 + c4) * 4,
+            2 * b4 * h4 * w4 * n_w, PEAK_FLOPS["bfloat16"])
     meta = {
         "instance_norm": ("uemda_tpu_torch/kernels/csrc/insnorm.cu",
                           "uemda_tpu/ops/pallas_insnorm.py:32", "instance_norm"),
@@ -1334,6 +1567,10 @@ def main():
         "uvem_mine": ("uemda_tpu_torch/kernels/csrc/mine.cu",
                       "uemda_tpu/ops/pallas_kernels.py:235", "uvem_mine"),
     }
+    for stage in k4_stages:
+        meta[f"bottleneck_identity_{stage}"] = (
+            "uemda_tpu_torch/kernels/csrc/resblock.cu",
+            "uemda_tpu/ops/pallas_resblock.py:165", "bottleneck_identity")
     record = []
     for name, (k_fn, plain_fn, lib_fn) in timed.items():
         with torch.no_grad():
@@ -1350,13 +1587,16 @@ def main():
               if name.startswith("segment") or name == "uvem_mine"
               else "bfloat16")
         n_serve = launches.get(fn_name, 0)
+        n_fused = fused_launches.get(fn_name, 0)
+        n_int8 = int8_launches[fn_name]
         n_train = train_launches[fn_name]
         n_align = align_launches[fn_name]
         n_ssl = ssl_launches[fn_name]
         record.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": n_serve + n_train + n_align + n_ssl,
-            "launches_serve": n_serve, "launches_train": n_train,
+            "launches": n_serve + n_fused + n_int8 + n_train + n_align + n_ssl,
+            "launches_serve": n_serve, "launches_fused": n_fused,
+            "launches_int8": n_int8, "launches_train": n_train,
             "launches_align": n_align, "launches_ssl": n_ssl,
             "max_abs_err": errs[(name, dn)], "ms": ms,
             "ms_with_host": host_ms,
@@ -1364,6 +1604,13 @@ def main():
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms,
         })
+        if fn_name == "bottleneck_identity":
+            stage = name.rsplit("_", 1)[1]
+            record[-1].update(shape=list(k4_stages[stage][0]),
+                              cmid=k4_stages[stage][1],
+                              dilation=k4_stages[stage][2],
+                              launches_per_forward=k4_stages[stage][3],
+                              tile=list(k4_tiles[stage]))
         lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         phase("time", f"{name} {dn}: kernel {ms:.4f} ms ({host_ms:.4f} ms "
               f"back to back with its wrapper's host work), plain "
@@ -1395,60 +1642,73 @@ def main():
 
     with torch.no_grad():
 
+        # serving modes in turns within this run: unfused, fused (1, 2),
+        # fused (1, 2, 3, 4), unfused again, at batch 8 and 32; then the
+        # int8 modes and the standard forward at batch 8
         fast_ms = {}
-        for b in (8, 16, 32):
+        serving = [("fast path", fast_bf16),
+                   ("fused (1, 2)", fused[(1, 2)]),
+                   ("fused (1, 2, 3, 4)", fused[(1, 2, 3, 4)]),
+                   ("fast path again", fast_bf16)]
+        for b in (BATCH, 32):
             xq = torch.randn(b, 3, TILE, TILE, device=dev,
                              dtype=torch.bfloat16).contiguous(memory_format=CL)
-            torch.cuda.reset_peak_memory_stats()
-            fast_ms[b] = ms = cuda_ms(lambda: fast_bf16(xq), iters=5, warmup=2)
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            phase("time", f"fast path bf16 batch {b}: {ms:.3f} ms/forward, "
-                  f"{b / ms * 1e3:.2f} tiles/s, peak memory {peak:.2f} GiB")
-        ms = cuda_ms(lambda: model_bf16(x_flag), iters=5, warmup=2)
-        phase("time", f"standard bf16 batch {BATCH}: {ms:.3f} ms/forward, "
-              f"{BATCH / ms * 1e3:.2f} tiles/s")
+            for mode, fm in serving:
+                torch.cuda.reset_peak_memory_stats()
+                fast_ms[(mode, b)] = ms = cuda_ms(lambda: fm(xq), iters=5,
+                                                  warmup=2)
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                phase("time", f"{mode} bf16 batch {b}: {ms:.3f} ms/forward, "
+                      f"{b / ms * 1e3:.2f} tiles/s, peak memory {peak:.2f} GiB")
+        del xq
+        for mode, fm in list(int8_modes.items()) + [("standard", model_bf16)]:
+            fast_ms[(mode, BATCH)] = ms = cuda_ms(lambda: fm(x_flag), iters=5,
+                                                  warmup=2)
+            phase("time", f"{mode} bf16 batch {BATCH}: {ms:.3f} ms/forward, "
+                  f"{BATCH / ms * 1e3:.2f} tiles/s")
 
-        # where the fast-path forward's device time goes (batch 8)
+        # where a forward's device time goes (batch 8): the unfused fast
+        # path, all stages fused, and int8 calibrated on every stage
         from torch.profiler import ProfilerActivity, profile
 
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(3):
-                fast_bf16(x_flag)
+        for mode, fm in (("fast path", fast_bf16),
+                         ("fused (1, 2, 3, 4)", fused[(1, 2, 3, 4)]),
+                         ("fastpath_int8cal_all",
+                          int8_modes["fastpath_int8cal_all"])):
             torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        events = prof.key_averages()
-        rows = [(e.key, e.self_device_time_total) for e in events
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.self_device_time_total > 0]
-        ops = [(e.key, e.self_device_time_total) for e in events
-               if e.device_type == torch.autograd.DeviceType.CPU
-               and e.self_device_time_total > 0]
-        total = sum(t for _, t in rows)
-        if total > 0:
-            rows.sort(key=lambda r: -r[1])
-            ops.sort(key=lambda r: -r[1])
-            dev_ms = total / 3e3
-            phase("profile", f"fast path bf16 batch {BATCH}, 3 forwards: "
-                  f"device time {dev_ms:.3f} ms/forward; idle share "
-                  f"{max(0.0, 1 - dev_ms / fast_ms[BATCH]):.3f} of the "
-                  f"event-timed back-to-back forward, "
-                  f"{max(0.0, 1 - total / wall_us):.3f} of the profiled wall "
-                  f"{wall_us / 3e3:.3f} ms/forward; by kernel:")
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    fm(x_flag)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            rows, ops, total = profile_rows(prof, 3)
+            if total <= 0:
+                phase("profile", f"{mode}: device time not measured "
+                      "(profiler saw none)")
+                continue
+            dev_ms = total / 1e3
+            phase("profile", f"{mode} bf16 batch {BATCH}, 3 forwards: device "
+                  f"time {dev_ms:.3f} ms/forward; idle share "
+                  f"{max(0.0, 1 - dev_ms / fast_ms[(mode, BATCH)]):.3f} of "
+                  f"the event-timed back-to-back forward, "
+                  f"{max(0.0, 1 - total * 3 / wall_us):.3f} of the profiled "
+                  f"wall {wall_us / 3e3:.3f} ms/forward; by kernel:")
             for key, t in rows[:12]:
                 phase("profile", f"  {t / total * 100:5.1f}%  "
-                      f"{t / 3e3:.4f} ms  {key[:150]}")
+                      f"{t / 1e3:.4f} ms  {key[:150]}")
             phase("profile", "by operator (device time of the kernels each "
                   "launched itself):")
             for key, t in ops[:10]:
                 phase("profile", f"  {t / total * 100:5.1f}%  "
-                      f"{t / 3e3:.4f} ms  {key}")
-        else:
-            phase("profile", "device time not measured (profiler saw none)")
+                      f"{t / 1e3:.4f} ms  {key}")
 
-    phase("done", f"{time.time() - t_start:.1f} s")
+    t_end = time.time()
+    spans = [(n, (sections[i + 1][1] if i + 1 < len(sections) else t_end) - t)
+             for i, (n, t) in enumerate(sections)]
+    phase("done", f"{t_end - t_start:.1f} s: " + ", ".join(
+        f"{n} {d:.1f} s" for n, d in spans))
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

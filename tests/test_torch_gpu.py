@@ -2,7 +2,9 @@
 odd shapes, both dtypes and both instance-norm routes (forward and
 backward) that chip_smoke.py's shapes do not reach, the crop kernel's
 vector and element routes (with and without the clamp), both routes of the
-segment kernels, the mining kernel in every layout and branch, training
+segment kernels, the mining kernel in every layout and branch, the fused
+bottleneck kernel in both dtypes at odd shapes and dilations, the int8 conv
+on the card against the CPU, the fused and int8 fast paths, training
 steps that go through the kernels, and the card as the entry points'
 default.
 
@@ -528,3 +530,130 @@ def test_ssl_step_goes_through_the_kernels(dev):
     assert [fn.launches - n for fn, n in zip(fns, before)] == [1, 1, 1, 2, 2, 2]
     assert all(np.isfinite(float(v)) for v in metrics.values())
     assert state.step == 1
+
+
+def _block_args(shape, cmid, dtype, seed, dev):
+    """x (B, C, H, W) channels_last and a block's folded weights (OIHW,
+    channels_last) at He scale, the residual branch at half the identity's
+    scale, as in a trained ResNet; f32 biases."""
+    b, c, h, w = shape
+    r = np.random.default_rng(seed)
+
+    def t(a, dt):
+        v = torch.from_numpy(a.astype(np.float32)).to(dev, dt)
+        return v.contiguous(memory_format=CL) if v.dim() == 4 else v
+
+    return (t(r.normal(size=shape), dtype),
+            t(r.normal(size=(cmid, c, 1, 1)) / np.sqrt(c), dtype),
+            t(r.normal(size=(cmid,)) * 0.1, torch.float32),
+            t(r.normal(size=(cmid, cmid, 3, 3)) / np.sqrt(9 * cmid), dtype),
+            t(r.normal(size=(cmid,)) * 0.1, torch.float32),
+            t(r.normal(size=(c, cmid, 1, 1)) * 0.5 / np.sqrt(cmid), dtype),
+            t(r.normal(size=(c,)) * 0.1, torch.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cmid,dil", [
+    ((2, 64, 37, 53), 16, 1), ((2, 64, 37, 53), 16, 2), ((2, 256, 20, 24), 64, 1),
+    ((8, 256, 96, 96), 64, 1), ((1, 512, 6, 6), 128, 2), ((1, 2048, 6, 6), 512, 2),
+    ((1, 1024, 9, 7), 256, 4)])
+def test_bottleneck_identity_kernel(dev, dtype, shape, cmid, dil):
+    """K4 against its plain version: sides that are not multiples of a tile,
+    dilations 1, 2 and 4 (a dilation-2 tile on a 6x6 map is all edge), the
+    flagship's widths, a grid of 288 blocks (bf16 runs two a SM); f32 on the
+    CUDA cores at 1e-5, bf16 at 1.6e-2 (the 3x3's tap order, one bf16
+    rounding)."""
+    from uemda_tpu_torch.ops.resblock import (
+        bottleneck_identity,
+        bottleneck_identity_plain,
+    )
+
+    args = _block_args(shape, cmid, dtype, 40 + dil, dev)
+    n = bottleneck_identity.launches
+    got = bottleneck_identity(*args, dilation=dil)
+    assert bottleneck_identity.launches == n + 1
+    assert got.is_contiguous(memory_format=CL)
+    _close(got, bottleneck_identity_plain(*args, dilation=dil), dtype)
+
+
+def test_bottleneck_identity_refuses_what_it_does_not_take(dev):
+    from uemda_tpu_torch.ops.resblock import bottleneck_identity
+
+    x, w1, b1, w2, b2, w3, b3 = _block_args((1, 64, 8, 8), 16, torch.bfloat16,
+                                            1, dev)
+    with pytest.raises(TypeError):
+        bottleneck_identity(x, w1.float(), b1, w2, b2, w3, b3)
+    with pytest.raises(ValueError, match="channels_last"):
+        bottleneck_identity(x.contiguous(), w1, b1, w2, b2, w3, b3)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        bottleneck_identity(x, w1[:8], b1[:8],
+                            w2[:8, :8].contiguous(memory_format=CL), b2[:8],
+                            w3[:, :8].contiguous(memory_format=CL), b3)
+    with pytest.raises(ValueError, match="Cin == Cout"):
+        bottleneck_identity(x, w1, b1, w2, b2, w3[:32], b3[:32])
+
+
+@pytest.mark.parametrize("stride,dilation,static", [
+    (1, 1, False), (2, 1, False), (1, 2, True)])
+def test_conv_int8_on_the_card_equals_the_cpu(dev, stride, dilation, static):
+    """The int8 conv (cuBLASLt's int8 GEMM through torch._int_mm) on the
+    card against the same call on the CPU: int32 sums are exact, so equal;
+    also a 1x1 with N = 6 and M = 8 rows (padded for the card)."""
+    from uemda_tpu_torch.infer.fastpath import _conv_int8, _quantize_w
+
+    r = np.random.default_rng(5)
+    x = torch.from_numpy(r.normal(size=(2, 64, 19, 23)).astype(np.float32))
+    wq, s = _quantize_w(r.normal(size=(96, 64, 3, 3)).astype(np.float32) * 0.1)
+    b = torch.from_numpy(r.normal(size=(96,)).astype(np.float32))
+    a = torch.tensor(2.0 / 127.0) if static else None
+    args = (torch.from_numpy(wq), torch.from_numpy(s), b)
+    cpu = _conv_int8(x.contiguous(memory_format=CL), *args, stride=stride,
+                     dilation=dilation, a=a)
+    gpu = _conv_int8(x.to(dev).contiguous(memory_format=CL),
+                     *(t.to(dev) for t in args), stride=stride,
+                     dilation=dilation, a=None if a is None else a.to(dev))
+    assert torch.equal(gpu.cpu(), cpu)
+    wq1, s1 = _quantize_w(r.normal(size=(6, 64, 1, 1)).astype(np.float32))
+    x1 = x[:, :, :2, :2].contiguous(memory_format=CL)
+    args1 = (torch.from_numpy(wq1), torch.from_numpy(s1), b[:6])
+    assert torch.equal(_conv_int8(x1.to(dev), *(t.to(dev) for t in args1)).cpu(),
+                       _conv_int8(x1, *args1))
+
+
+def test_fused_and_int8_fastpaths(dev):
+    """ResNet-50 OS16 at 64x64: fused_stages (1, 2) and (1, 2, 3, 4) launch
+    K4 5 and 12 times a forward and match the unfused fast path in f32 (TF32
+    off) at atol 5e-5, rtol 1e-4; the bf16 int8 fast path (dynamic, and
+    calibrated on every stage) and Int8Model on the f32 model give finite
+    probabilities that sum to 1 within 2e-2."""
+    from uemda_tpu_torch.infer.fastpath import build_fastpath
+    from uemda_tpu_torch.infer.quant import Int8Model
+    from uemda_tpu_torch.ops.resblock import bottleneck_identity
+
+    model = DeeplabV2(DeeplabV2Config.uemda_default(6),
+                      generator=torch.Generator().manual_seed(0))
+    x = _randn((2, 3, 64, 64), 9, dev, torch.float32) \
+        .contiguous(memory_format=CL)
+    with torch.no_grad():
+        ref = build_fastpath(model, dtype=torch.float32)(x)
+        for stages, n_k4 in (((1, 2), 5), ((1, 2, 3, 4), 12)):
+            fast = build_fastpath(model, dtype=torch.float32,
+                                  fused_stages=stages)
+            n = bottleneck_identity.launches
+            got = fast(x)
+            assert bottleneck_identity.launches == n + n_k4
+            torch.cuda.synchronize()
+            np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                       atol=5e-5, rtol=1e-4)
+        xb = x.to(torch.bfloat16)
+        for fast, xin in (
+                (build_fastpath(model, dtype=torch.bfloat16, int8=True), xb),
+                (build_fastpath(model, dtype=torch.bfloat16, int8=True,
+                                int8_stages=(1, 2, 3, 4),
+                                calibration_batches=[x, x * 0.5]), xb),
+                (Int8Model(model), x)):
+            p = fast(xin)
+            torch.cuda.synchronize()
+            assert torch.isfinite(p.float()).all()
+            np.testing.assert_allclose(p.float().sum(1).cpu().numpy(), 1.0,
+                                       atol=2e-2)

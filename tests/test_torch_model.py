@@ -201,17 +201,13 @@ def test_serving_path_goes_through_every_kernel_wrapper():
 
 
 def test_later_slices_raise():
-    """int8 serving, fused_stages, the stage-1 step's OHEM and gradient
-    accumulation, ResNeXt and v1c stems, odd fast-path sizes: each raises
-    instead of running something else. (Class balance is ported.)"""
+    """The stage-1 step's OHEM and gradient accumulation, ResNeXt and v1c
+    stems, odd fast-path sizes: each raises instead of running something
+    else. (Class balance, int8 serving and fused_stages are ported.)"""
     from uemda_tpu_torch.train.optim import SGD
     from uemda_tpu_torch.train.steps import StageHParams, make_src_step
 
     tmodel = _models("resnet18-single", 64)[2]
-    with pytest.raises(NotImplementedError):
-        build_fastpath(tmodel, dtype=torch.float32, int8=True)
-    with pytest.raises(NotImplementedError):
-        make_serving_fn(tmodel, dtype=torch.float32, fused_stages=(1,))
     dual = DeeplabV2(DeeplabV2Config.uemda_default(6, resnet_type="resnet18"),
                      device="cpu")
     with pytest.raises(NotImplementedError):

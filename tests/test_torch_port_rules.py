@@ -15,6 +15,7 @@ from uemda_tpu_torch.models import DeeplabV2, DeeplabV2Config
 from uemda_tpu_torch.ops.crop import crop_normalize
 from uemda_tpu_torch.ops.insnorm import instance_norm, instance_norm_backward
 from uemda_tpu_torch.ops.mine import uvem_mine
+from uemda_tpu_torch.ops.resblock import bottleneck_identity
 from uemda_tpu_torch.ops.segment import segment_gather, segment_max, segment_sum
 from uemda_tpu_torch.ops.stem import stem_pool
 from uemda_tpu_torch.ops.tail import tail_upsample_softmax_mean
@@ -129,7 +130,7 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     refused by every kernel wrapper, not computed by its plain version."""
     fns = (instance_norm, instance_norm_backward, stem_pool,
            tail_upsample_softmax_mean, crop_normalize, segment_max,
-           segment_sum, segment_gather, uvem_mine)
+           segment_sum, segment_gather, uvem_mine, bottleneck_identity)
     before = [fn.launches for fn in fns]
     x = torch.empty(1, 32, 4, 4, device="meta").contiguous(
         memory_format=torch.channels_last)
@@ -160,4 +161,11 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
         segment_gather(torch.empty(1, 4, 7, device="meta"), ids)
     with pytest.raises(RuntimeError, match="CUDA or CPU"):
         uvem_mine(torch.empty(1, 7, 4, 4, device="meta"))
+    wm = torch.empty(16, 32, 1, 1, device="meta")
+    w2 = torch.empty(16, 16, 3, 3, device="meta").contiguous(
+        memory_format=torch.channels_last)
+    bm = torch.empty(16, device="meta")
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        bottleneck_identity(x, wm, bm, w2, bm, wm.reshape(32, 16, 1, 1),
+                            torch.empty(32, device="meta"))
     assert [fn.launches for fn in fns] == before

@@ -7,7 +7,7 @@ device, and only the final matrix crosses to the host. IsprsDA drops class 0
 from the means (``eval.py:16-17``).
 """
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -17,6 +17,30 @@ from uemda_tpu_torch.datasets.base import sequential_batches
 from uemda_tpu_torch.infer.slide import make_predictor
 from uemda_tpu_torch.ops.metrics import PixelMetricSummary, confusion_matrix
 from uemda_tpu_torch.utils.runtime import resolve_device
+
+
+def collect_calib_batches(dataset, batch_size, mean, std, n,
+                          tile: Optional[Tuple[int, int]] = None, device=None):
+    """The first ``n`` normalized batches, (B, 3, th, tw) f32 on ``device``,
+    for int8 activation-scale calibration
+    (``infer.fastpath.calibrate_act_scales``), cropped to ``tile`` with even
+    sides: serving runs tile-sized forwards through the slide predictor, so
+    calibration sees the same shapes. Reads the plain sequential reader."""
+    if n <= 0:
+        return []
+    device = resolve_device(device)
+    out = []
+    for _, batch in sequential_batches(dataset, batch_size):
+        images = np.asarray(batch["image"])  # uint8; normalize casts on device
+        if tile is not None:
+            th = min(tile[0], images.shape[1]) // 2 * 2
+            tw = min(tile[1], images.shape[2]) // 2 * 2
+            images = images[:, :th, :tw]
+        img = torch.from_numpy(np.ascontiguousarray(images)).to(device)
+        out.append(normalize(img.permute(0, 3, 1, 2), mean, std))
+        if len(out) >= n:
+            break
+    return out
 
 
 def evaluate_dataset(

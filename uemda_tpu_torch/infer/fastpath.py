@@ -18,9 +18,15 @@ input resolution, reference ``Encoder.py:152-155``) from folded weights:
   the tiny pooled maps followed by one separable-upsample GEMM
   (:func:`_ppm_pooled_heads`) -- no full-resolution pooled map exists.
 * Instance norm is the K1 kernel and the eval tail the K3 kernel.
-
-int8 serving, activation calibration and the fused residual blocks
-(``fused_stages``) come in later slices and raise ``NotImplementedError``.
+* **Fused identity blocks** (``fused_stages``, opt-in): the blocks of the
+  listed stages that keep their width run in the K4 kernel
+  (:func:`_fusable`, ``ops/resblock.py``), which keeps the block's
+  intermediates on chip.
+* **int8 serving** (opt-in): the heads' feature-side GEMM and the 3x3s of
+  ``int8_stages`` hold per-out-channel int8 weights (:func:`_quantize_w`)
+  and run as int8 x int8 -> int32 products (:func:`_conv_int8`, through
+  ``torch._int_mm``) with a dynamic per-tensor activation scale, or the
+  static one :func:`calibrate_act_scales` embeds.
 """
 
 import functools
@@ -37,6 +43,7 @@ from uemda_tpu_torch.models.resnet import (
     stage_plan,
 )
 from uemda_tpu_torch.ops.insnorm import instance_norm
+from uemda_tpu_torch.ops.resblock import bottleneck_identity
 from uemda_tpu_torch.ops.resize import (
     _interp_matrix,
     adaptive_avg_pool_multi,
@@ -143,13 +150,117 @@ def _space_to_depth(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, 4 * c, h // 2, w // 2).contiguous(memory_format=CL)
 
 
-def _conv(x, p, stride=1, dilation=1):
+def _conv(x, p, stride=1, dilation=1, groups=1):
     """SAME conv on folded params {'w' OIHW, 'b' f32}; the bias is added in
     the activation dtype."""
     w = p["w"].to(x.dtype)
     b = p["b"].to(x.dtype)
     return F.conv2d(x, w, b, stride, dilation * (w.shape[-1] - 1) // 2,
-                    dilation)
+                    dilation, groups)
+
+
+def _quantize_sym(x: torch.Tensor, dims, floor: float = 1e-12):
+    """Symmetric abs-max int8 quantization over ``dims``, as
+    ``uemda_tpu/infer/quant.py:_quantize_sym``: scale = max(amax, floor) /
+    127, q = clip(round-half-even(x / scale), -127, 127). Returns (q int8,
+    scale f32 with ``dims`` kept)."""
+    amax = x.abs().amax(dim=dims, keepdim=True)
+    scale = torch.clamp(amax, min=floor) / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _quantize_w(w: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-out-channel symmetric int8 quantization of a folded OIHW weight
+    (f32): (q int8 OIHW, scale f32 (O,))."""
+    q, s = _quantize_sym(torch.from_numpy(np.asarray(w, np.float32)), (1, 2, 3))
+    return q.numpy(), s.reshape(-1).numpy()
+
+
+def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 (M, K) @ int8 (K, N) -> int32 (M, N) through ``torch._int_mm``
+    (cuBLASLt on the card). K and N are padded to multiples of 8 and M to
+    more than 16 with zeros, which the card's int8 GEMM needs; zeros add
+    nothing to an integer sum, so this is exact."""
+    m, k = a.shape
+    n = b.shape[1]
+    pk, pn, pm = -k % 8, -n % 8, max(0, 17 - m)
+    if pk or pm:
+        a = F.pad(a, (0, pk, 0, pm))
+    bt = b.t()
+    if pk or pn:
+        bt = F.pad(bt, (0, pk, 0, pn))
+    out = torch._int_mm(a.contiguous(), bt.contiguous().t())
+    return out[:m, :n]
+
+
+def int8_conv2d(xq: torch.Tensor, wq: torch.Tensor, stride=(1, 1),
+                padding=(0, 0), dilation=(1, 1), groups: int = 1
+                ) -> torch.Tensor:
+    """Exact int8 conv: xq (B, C, H, W) int8, wq (O, C/groups, kh, kw) int8
+    -> int32 (B, O, Ho, Wo) in channels_last memory, as an int8 im2col of
+    the zero-padded input times the weight matrix, one product a group."""
+    bsz, c, h, w = xq.shape
+    o, cg, kh, kw = wq.shape
+    (sh, sw), (ph, pw), (dh, dw) = stride, padding, dilation
+    ho = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+    wo = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+    xp = F.pad(xq, (pw, pw, ph, ph)) if ph or pw else xq
+    xn = xp.permute(0, 2, 3, 1)                       # (B, Hp, Wp, C)
+    taps = [xn[:, ky * dh:ky * dh + sh * (ho - 1) + 1:sh,
+               kx * dw:kx * dw + sw * (wo - 1) + 1:sw]
+            for ky in range(kh) for kx in range(kw)]  # each (B, Ho, Wo, C)
+    cols = taps[0].unsqueeze(3) if len(taps) == 1 else torch.stack(taps, 3)
+    og = o // groups
+    outs = []
+    for gi in range(groups):
+        a = cols[..., gi * cg:(gi + 1) * cg].reshape(bsz * ho * wo, kh * kw * cg)
+        wg = wq[gi * og:(gi + 1) * og].permute(0, 2, 3, 1).reshape(og, -1)
+        outs.append(_int_mm(a, wg.t()))
+    acc = outs[0] if groups == 1 else torch.cat(outs, dim=1)
+    return acc.reshape(bsz, ho, wo, o).permute(0, 3, 1, 2)
+
+
+# Collector for activation-scale calibration: lists appended in forward-visit
+# order with each dynamic int8 site's amax and its weight shape, set only
+# during a calibration forward (:func:`_amax_visit`). The shapes let
+# calibration check the visit order against the params walk.
+_AMAX_COLLECTOR: Optional[list] = None
+_SIG_COLLECTOR: Optional[list] = None
+_LAST_VISIT_SIGS: Optional[list] = None
+
+
+def _conv_int8(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
+               b: torch.Tensor, stride=1, dilation=1, groups=1,
+               a: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int8 x int8 -> int32 SAME conv; the dequantized epilogue returns
+    x's dtype. The activation scale is the dynamic per-tensor
+    ``max(amax, 1e-8) / 127``, or the static calibrated ``a``. In JAX's
+    order: ``round(x / a)`` (a division, round-half-even), clamp to +-127,
+    then ``(acc * (a * w_scale)) + b`` in f32, cast to x's dtype."""
+    k = wq.shape[-1]
+    p = dilation * (k - 1) // 2
+    x32 = x.float()
+    if a is None:
+        amax = x32.abs().amax()
+        if _AMAX_COLLECTOR is not None:
+            _AMAX_COLLECTOR.append(amax)
+            _SIG_COLLECTOR.append(tuple(wq.shape))
+        a = torch.clamp(amax, min=1e-8) / 127.0
+    xq = torch.clamp(torch.round(x32 / a), -127, 127).to(torch.int8)
+    acc = int8_conv2d(xq, wq, (stride, stride), (p, p), (dilation, dilation),
+                      groups)
+    y = acc.float() * (a * w_scale).view(1, -1, 1, 1) + b.view(1, -1, 1, 1)
+    return y.to(x.dtype)
+
+
+def _conv_any(x, p: Dict[str, Any], **kw):
+    """Dispatch on the params entry: {'w', 'b'} -> a conv in the serving
+    dtype; {'wq', 's', 'b'} -> the int8 conv (with the static activation
+    scale 'a' once calibrated)."""
+    if "wq" in p:
+        return _conv_int8(x, p["wq"], p["s"], p["b"], a=p.get("a"), **kw)
+    return _conv(x, p, **kw)
 
 
 def build_serving_params(
@@ -162,20 +273,20 @@ def build_serving_params(
 ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Fold the eval-mode ``model`` into the serving layout on the model's
     device. Returns ``(meta, params)``: static metadata and the folded
-    weights in ``dtype`` (channels_last) with f32 biases."""
-    if heads_int8 or int8_stages:
-        raise NotImplementedError("int8 serving is not ported yet "
-                                  "(ROADMAP.md queue A)")
-    if fused_stages:
-        raise NotImplementedError("fused_stages needs the K4 "
-                                  "bottleneck_identity kernel, not ported "
-                                  "yet (ROADMAP.md queue A)")
+    weights in ``dtype`` (channels_last) with f32 biases. ``heads_int8``
+    quantizes the heads' feature-side conv (the stacked PPM ``last_feat``
+    3x3, or the ASPP convs); ``int8_stages`` the 3x3s of those backbone
+    stages (their 1x1s and downsamples stay in ``dtype``);
+    ``fused_stages`` sends those stages' identity blocks to K4."""
     cfg = model.config
-    block_cls, layers, _, _, _ = RESNET_SPECS[cfg.backbone.resnet_type]
+    block_cls, layers, groups, _, _ = RESNET_SPECS[cfg.backbone.resnet_type]
     dev = next(model.parameters()).device
     enc = model.encoder.resnet
     meta = {
         "block": "basic" if block_cls is BasicBlock else "bottleneck",
+        "groups": groups,
+        # stages whose identity bottleneck blocks run in the K4 kernel
+        "fused_stages": tuple(fused_stages),
         "output_stride": cfg.backbone.output_stride,
         "is_ins_norm": cfg.is_ins_norm,
         "pool_scales": tuple(cfg.ppm.pool_scales),
@@ -190,6 +301,12 @@ def build_serving_params(
                     device=dev, dtype=dtype).contiguous(memory_format=CL),
                 "b": torch.from_numpy(np.asarray(b, np.float32)).to(dev)}
 
+    def put_q(w, b):
+        q, sc = _quantize_w(w)
+        return {"wq": torch.from_numpy(q).to(dev),
+                "s": torch.from_numpy(sc).to(dev),
+                "b": torch.from_numpy(np.asarray(b, np.float32)).to(dev)}
+
     out: Dict[str, Any] = {}
     w, b = _fold(enc.conv1, enc.bn1)
     w2 = _s2d_stem_kernel(w.transpose(2, 3, 1, 0))        # HWIO (4,4,12,64)
@@ -198,12 +315,16 @@ def build_serving_params(
 
     n_stages = 4 if cfg.backbone.include_conv5 else 3
     for li in range(n_stages):
+        # int8 only on the compute-bound 3x3s of the listed stages
+        q33 = (li + 1) in int8_stages
         blocks = []
         for blk_m in getattr(enc, f"layer{li + 1}"):
             names = ("1", "2") + (("3",) if block_cls is not BasicBlock else ())
-            blk = {f"conv{n}": put(*_fold(getattr(blk_m, f"conv{n}"),
-                                          getattr(blk_m, f"bn{n}")))
-                   for n in names}
+            blk = {}
+            for n in names:
+                w, b = _fold(getattr(blk_m, f"conv{n}"), getattr(blk_m, f"bn{n}"))
+                blk[f"conv{n}"] = (put_q if q33 and w.shape[-1] == 3
+                                   else put)(w, b)
             if blk_m.downsample is not None:
                 blk["ds"] = put(*_fold(blk_m.downsample[0], blk_m.downsample[1]))
             blocks.append(blk)
@@ -224,9 +345,11 @@ def build_serving_params(
     def build_group(names):
         heads = [getattr(model, n) for n in names]
         g: Dict[str, Any] = {}
+        mk_head = put_q if heads_int8 else put
         if not cfg.use_ppm:
             g["aspp"] = [
-                put(np.concatenate([_np(h.conv2d_list[i].weight) for h in heads]),
+                mk_head(
+                    np.concatenate([_np(h.conv2d_list[i].weight) for h in heads]),
                     np.concatenate([_np(h.conv2d_list[i].bias) for h in heads]))
                 for i in range(len(cfg.aspp_dilations))
             ]
@@ -239,8 +362,8 @@ def build_serving_params(
         g["ppm_scales"] = scales
         lasts = [_fold(h.conv_last[0], h.conv_last[1]) for h in heads]
         fc = lasts[0][0].shape[1] - 512 * len(cfg.ppm.pool_scales)  # feat ch
-        g["last_feat"] = put(np.concatenate([w[:, :fc] for w, _ in lasts]),
-                             np.concatenate([b for _, b in lasts]))
+        g["last_feat"] = mk_head(np.concatenate([w[:, :fc] for w, _ in lasts]),
+                                 np.concatenate([b for _, b in lasts]))
         # pooled part of each head's concat conv, tap-packed: (O, I, ty, tx)
         # -> (I, ty, tx, O) -> (512, 9*O), column (ty*3+tx)*O + o
         g["pool_taps"] = [
@@ -264,25 +387,56 @@ def _block_forward(x, blk, meta, stride, dilation, dilation2=None):
     conv2's full stage dilate."""
     identity = x
     if meta["block"] == "basic":
-        y = F.relu(_conv(x, blk["conv1"], stride=stride, dilation=dilation))
-        y = _conv(y, blk["conv2"],
-                  dilation=dilation if dilation2 is None else dilation2)
+        y = F.relu(_conv_any(x, blk["conv1"], stride=stride, dilation=dilation))
+        y = _conv_any(y, blk["conv2"],
+                      dilation=dilation if dilation2 is None else dilation2)
     else:
-        y = F.relu(_conv(x, blk["conv1"]))
-        y = F.relu(_conv(y, blk["conv2"], stride=stride, dilation=dilation))
-        y = _conv(y, blk["conv3"])
+        y = F.relu(_conv_any(x, blk["conv1"]))
+        y = F.relu(_conv_any(y, blk["conv2"], stride=stride, dilation=dilation,
+                             groups=meta["groups"]))
+        y = _conv_any(y, blk["conv3"])
     if "ds" in blk:
-        identity = _conv(x, blk["ds"], stride=stride)
+        identity = _conv_any(x, blk["ds"], stride=stride)
     return F.relu(y + identity)
 
 
-def _stage_forward(x, blocks, meta, stride, dilate, s2b: bool):
+def _fusable(blk, meta, dilate) -> bool:
+    """An identity bottleneck the K4 kernel takes: stride 1 (blocks 1+ of a
+    stage always are), no grouped conv, no downsample branch, entries in
+    the serving dtype (not int8), a 3x3 middle conv; dilated stages fuse
+    too."""
+    return (
+        meta["block"] == "bottleneck"
+        and dilate >= 1
+        and meta["groups"] == 1
+        and "ds" not in blk
+        and all("w" in blk[c] for c in ("conv1", "conv2", "conv3"))
+        and tuple(blk["conv2"]["w"].shape[-2:]) == (3, 3)
+    )
+
+
+def _stage_forward(x, blocks, meta, stride, dilate, s2b: bool, li: int = -1):
     """First block dilation dilate//2, later blocks dilate (``stage_plan``);
-    with ``s2b`` and dilate 2, blocks 1+ run on the 2x2 space-to-batch
-    phases as dense 3x3s (exact)."""
+    ``li`` (the 1-based stage number) in ``meta['fused_stages']`` sends
+    blocks 1+ that :func:`_fusable` admits to K4, the others to
+    :func:`_block_forward`; otherwise, with ``s2b`` and dilate 2, blocks 1+
+    run on the 2x2 space-to-batch phases as dense 3x3s (exact)."""
     x = _block_forward(x, blocks[0], meta, stride, max(dilate // 2, 1),
                        dilation2=dilate)
     rest = blocks[1:]
+    if rest and li in meta["fused_stages"]:
+        for blk in rest:
+            if _fusable(blk, meta, dilate):
+                # weights in x's dtype, as _conv casts them (an f32
+                # calibration batch through a bf16 model)
+                w1, w2, w3 = (blk[c]["w"].to(x.dtype)
+                              for c in ("conv1", "conv2", "conv3"))
+                x = bottleneck_identity(
+                    x, w1, blk["conv1"]["b"], w2, blk["conv2"]["b"],
+                    w3, blk["conv3"]["b"], dilation=dilate)
+            else:
+                x = _block_forward(x, blk, meta, 1, dilate)
+        return x
     if rest and s2b and dilate == 2:
         b, c, h, w = x.shape
         # (B,C,H,W) -> (4B, C, H/2, W/2), phases (0,0),(0,1),(1,0),(1,1)
@@ -320,7 +474,7 @@ def serving_forward(meta: Dict[str, Any], params: Dict[str, Any],
     for li in range(n_stages):
         stride, dilate = plan[li]
         y = _stage_forward(y, params[f"layer{li + 1}"], meta, stride, dilate,
-                           s2b=meta["s2b_layer4"])
+                           s2b=meta["s2b_layer4"], li=li + 1)
         outs.append(y)
 
     feats = [outs[-2], outs[-1]] if meta["cascade"] else [outs[-1]]
@@ -332,13 +486,13 @@ def serving_forward(meta: Dict[str, Any], params: Dict[str, Any],
         if meta["head"] == "aspp":
             acc = None
             for i, d in enumerate(meta["aspp_dilations"]):
-                z = _conv(feat, g_params["aspp"][i], dilation=d)
+                z = _conv_any(feat, g_params["aspp"][i], dilation=d)
                 acc = z if acc is None else acc + z
             c = acc.shape[1] // g_size
             head_logits += [acc[:, hi * c:(hi + 1) * c] for hi in range(g_size)]
         else:
             h, w = feat.shape[2], feat.shape[3]
-            acc = _conv(feat, g_params["last_feat"])   # all heads' 512s
+            acc = _conv_any(feat, g_params["last_feat"])  # all heads' 512s
             pooled = adaptive_avg_pool_multi(feat, meta["pool_scales"])
             both = {sc: F.relu(_conv(pooled[sc], g_params["ppm_scales"][sc]))
                     for sc in meta["pool_scales"]}
@@ -350,6 +504,80 @@ def serving_forward(meta: Dict[str, Any], params: Dict[str, Any],
                 for hi in range(g_size)
             ]
     return eval_tail(head_logits, in_hw)
+
+
+def _map_int8_entries(tree, fn):
+    """Rebuild the serving-params structure, applying ``fn`` to every int8
+    conv entry (a dict holding 'wq')."""
+    if isinstance(tree, dict):
+        if "wq" in tree:
+            return fn(tree)
+        return {k: _map_int8_entries(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_int8_entries(v, fn) for v in tree]
+    return tree
+
+
+@torch.no_grad()
+def _amax_visit(meta, params, x) -> np.ndarray:
+    """One calibration forward: every dynamic int8 site's amax, in
+    forward-visit order (their weight shapes go to ``_LAST_VISIT_SIGS``)."""
+    global _AMAX_COLLECTOR, _SIG_COLLECTOR, _LAST_VISIT_SIGS
+    _AMAX_COLLECTOR, _SIG_COLLECTOR = [], []
+    try:
+        serving_forward(meta, params, x)
+        _LAST_VISIT_SIGS = list(_SIG_COLLECTOR)
+        if not _AMAX_COLLECTOR:
+            return np.zeros((0,), np.float32)
+        return torch.stack(_AMAX_COLLECTOR).cpu().numpy()
+    finally:
+        _AMAX_COLLECTOR = _SIG_COLLECTOR = None
+
+
+def calibrate_act_scales(meta: Dict[str, Any], params: Dict[str, Any],
+                         batches) -> Dict[str, Any]:
+    """Post-training calibration of static int8 activation scales
+    (``uemda_tpu/infer/fastpath.py:716-775``): one forward per batch of
+    ``batches`` (normalized (B, 3, H, W) tensors on the params' device)
+    records every int8 site's dynamic amax; the entries then carry
+    ``a = max over batches(amax) / 127``. Sites match entries by
+    forward-visit order, checked against the params walk: a different count
+    or order of weight shapes raises AssertionError. Old scales are dropped
+    first (re-calibration); when no batch is consumed the original params
+    come back unchanged."""
+    original_params = params
+    params = _map_int8_entries(
+        params, lambda e: {k: v for k, v in e.items() if k != "a"})
+    walk_sigs: list = []
+
+    def _collect_sig(e):
+        walk_sigs.append(tuple(e["wq"].shape))
+        return e
+
+    _map_int8_entries(params, _collect_sig)
+    agg = None
+    for x in batches:
+        cur = _amax_visit(meta, params, x)
+        agg = cur if agg is None else np.maximum(agg, cur)
+    if agg is None or agg.size == 0:
+        return original_params
+    if agg.size != len(walk_sigs):
+        raise AssertionError(
+            f"calibration visited {agg.size} int8 convs but the params hold "
+            f"{len(walk_sigs)} int8 entries -- forward/walk order contract "
+            "broken")
+    if _LAST_VISIT_SIGS is not None and list(_LAST_VISIT_SIGS) != walk_sigs:
+        raise AssertionError(
+            "int8 calibration order mismatch: forward-visit shapes "
+            f"{_LAST_VISIT_SIGS} != params-walk shapes {walk_sigs}")
+    it = iter(agg.tolist())
+
+    def embed(entry):
+        a = torch.tensor(max(next(it), 1e-8) / 127.0, dtype=torch.float32,
+                         device=entry["wq"].device)
+        return {**entry, "a": a}
+
+    return _map_int8_entries(params, embed)
 
 
 class FastpathModel:
@@ -372,6 +600,27 @@ def check_fastpath_tile(tile) -> None:
             f"got {tuple(tile)}; rerun without --fastpath")
 
 
+def parse_int8_stages_flag(int8_stages: str, int8: bool, fastpath: bool):
+    """CLI guard for ``--int8-stages``, called right after argparse so that
+    a bad value fails before any calibration work, and the flag is never
+    silently ignored without ``--fastpath 1 --int8 1``. Returns a stage
+    tuple or None."""
+    if not int8_stages:
+        return None
+    if not fastpath or not int8:
+        raise SystemExit(
+            "--int8-stages requires --fastpath 1 --int8 1 "
+            "(it selects which fastpath backbone stages to quantize)")
+    try:
+        stages = tuple(int(t) for t in int8_stages.split(",") if t.strip())
+    except ValueError:
+        stages = ()
+    if not stages or any(t not in (1, 2, 3, 4) for t in stages):
+        raise SystemExit(
+            f"--int8-stages must be a comma list from 1-4, got {int8_stages!r}")
+    return stages
+
+
 def build_fastpath(
     model: DeeplabV2,
     dtype: torch.dtype = torch.bfloat16,
@@ -381,13 +630,19 @@ def build_fastpath(
     int8_stages: Optional[Tuple[int, ...]] = None,
 ) -> FastpathModel:
     """CLI-facing entry: fold ``model`` and return a callable ready for
-    ``make_predictor`` / ``evaluate_dataset``. s2b layer4 stays off as in
-    the JAX package's ``build_fastpath``."""
-    if int8 or calibration_batches is not None or int8_stages:
-        raise NotImplementedError("int8 serving and calibration are not "
-                                  "ported yet (ROADMAP.md queue A)")
+    ``make_predictor`` / ``evaluate_dataset``; s2b layer4 stays off, as in
+    the JAX package's ``build_fastpath``. ``int8`` quantizes the heads'
+    feature-side conv and the 3x3s of ``int8_stages`` (default (3, 4));
+    ``calibration_batches`` (normalized (B, 3, H, W) tensors) then embeds
+    static activation scales (:func:`calibrate_act_scales`).
+    ``fused_stages`` runs those stages' identity blocks in K4."""
+    if int8_stages is None:
+        int8_stages = (3, 4)
     meta, params = build_serving_params(
-        model, dtype=dtype, s2b_layer4=False, fused_stages=fused_stages)
+        model, dtype=dtype, s2b_layer4=False, heads_int8=int8,
+        int8_stages=int8_stages if int8 else (), fused_stages=fused_stages)
+    if int8 and calibration_batches is not None:
+        params = calibrate_act_scales(meta, params, calibration_batches)
     return FastpathModel(meta, params)
 
 
