@@ -188,6 +188,21 @@ def profile_steps(what, step_fn, state, src_it, tgt_it, dev, ms_step, n=3):
     return total_us / 1e3
 
 
+def k4_design(plan) -> str:
+    """K4's launch plan in words: tile, configuration, ring, layout."""
+    from uemda_tpu_torch.ops.resblock import WGMMA_CONFIGS
+
+    if plan.design != "wgmma":
+        return (f"f32 on the CUDA cores, tile {plan.tile}, {plan.smem} B "
+                f"of shared memory, grid {plan.grid}")
+    kc, mt1, nw1, mt2, nw2, nw3 = WGMMA_CONFIGS[plan.config]
+    return (f"wgmma config {plan.config} (k-chunk {kc}, conv1 {mt1} m-tiles "
+            f"x {nw1} columns a warpgroup, conv2 {mt2} x {nw2}, conv3 {mt2} "
+            f"x {nw3}), tile {plan.tile}, ring of {plan.stages} stages of "
+            f"{plan.stage} B at {plan.region}, y2 at {plan.y2_off}, "
+            f"{plan.smem} B of shared memory, grid {plan.grid}")
+
+
 def train_phase(dev):
     """The stage-1 training path. (a) One f32 step on the card against the
     same step on the CPU's plain path. (b) The flagship run through
@@ -866,6 +881,22 @@ def main():
         phase("build", f"{name}: {len(regs)} instantiations, at most "
               f"{max(regs, default=0)} registers a thread, {spill} bytes of "
               "spill stores")
+        if name in ("stem", "resblock"):  # the redesigned kernels, each
+            for fn, body in re.findall(  # instantiation: ptxas -v
+                    r"Compiling entry function '([^']+)'(.*?)(?=Compiling "
+                    r"entry|$)", log, re.S):
+                r_ = re.search(r"Used (\d+) registers", body)
+                sp = re.search(r"(\d+) bytes spill stores", body)
+                sm = re.search(r"(\d+) bytes smem", body)
+                phase("build", f"{name} {fn}: {r_.group(1) if r_ else '?'} "
+                      f"registers, {sm.group(1) if sm else 0} bytes static "
+                      f"shared memory (the rest dynamic, from the launch "
+                      f"plan), {sp.group(1) if sp else '?'} bytes spill "
+                      "stores")
+            for msg in sorted(set(re.findall(r"Potential Performance Loss: "
+                                             r"([^\n]*?) in the function",
+                                             log))):
+                phase("build", f"{name}: ptxas: {msg}")
 
     mark("kernel checks")
     # 3. kernels against their plain versions, at the slice's shapes -----
@@ -908,6 +939,12 @@ def main():
             errs[(name, dn)] = check_close(f"{name} {dn}", got, ref, atol, rtol)
             phase("kernel", f"{name} {dn} {tuple(got.shape)}: max abs err "
                   f"{errs[(name, dn)]:.3g} (atol {atol}, rtol {rtol})")
+            if name == "stem_pool":
+                sp = stem_pool.plan
+                phase("kernel", f"stem_pool {dn} design: {sp.design} "
+                      f"({'tensor cores, mma.sync' if sp.design == 'mma' else 'CUDA cores'}), "
+                      f"pooled tile {sp.tile}, grid {sp.grid}, {sp.smem} B of "
+                      "shared memory")
 
     # K1 backward against its plain version on the same (x, dy) and the
     # plain f32 statistics: the flagship's (8, 2048, 32, 32) -- bf16 through
@@ -1163,12 +1200,12 @@ def main():
         "odd bf16": ((2, 64, 37, 53), 16, 1, torch.bfloat16),
         "dilation 2 on 6x6": ((BATCH, 2048, 6, 6), 512, 2, torch.bfloat16),
     })
-    k4_tiles = {}
+    k4_plans = {}
     for case, (shape, cmid, dil, dt) in k4_cases.items():
         dn = str(dt).split(".")[-1]
         args = block_args(shape, cmid, dt)
         got = bottleneck_identity(*args, dilation=dil)
-        k4_tiles[case] = bottleneck_identity.tile
+        k4_plans[case] = bottleneck_identity.plan
         ref = bottleneck_identity_plain(*args, dilation=dil)
         torch.cuda.synchronize()
         t_ = 1e-5 if dt == torch.float32 else 1.6e-2
@@ -1177,9 +1214,11 @@ def main():
             errs[(f"bottleneck_identity_{case}", dn)] = e
             inputs[case] = args
         phase("kernel", f"bottleneck_identity {case} {shape} Cmid {cmid} "
-              f"dilation {dil} {dn}: tile {k4_tiles[case]}, max abs err "
+              f"dilation {dil} {dn}: tile {k4_plans[case].tile}, max abs err "
               f"{e:.3g} (atol = rtol = {t_}), "
               f"{float((got == ref).float().mean()):.5f} of values bit-equal")
+        phase("kernel", f"bottleneck_identity {case} design: "
+              + k4_design(k4_plans[case]))
         del got, ref
 
     mark("f32 model checks")
@@ -1610,7 +1649,10 @@ def main():
                               cmid=k4_stages[stage][1],
                               dilation=k4_stages[stage][2],
                               launches_per_forward=k4_stages[stage][3],
-                              tile=list(k4_tiles[stage]))
+                              tile=list(k4_plans[stage].tile),
+                              config=k4_plans[stage].config,
+                              stages=k4_plans[stage].stages,
+                              smem=k4_plans[stage].smem)
         lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         phase("time", f"{name} {dn}: kernel {ms:.4f} ms ({host_ms:.4f} ms "
               f"back to back with its wrapper's host work), plain "

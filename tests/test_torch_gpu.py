@@ -89,11 +89,13 @@ def test_instance_norm_kernel(dev, dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hw2", [(32, 32), (36, 20), (256, 256), (15, 21)])
+@pytest.mark.parametrize("hw2", [(32, 32), (36, 20), (256, 256), (15, 21),
+                                 (66, 34), (97, 130)])
 def test_stem_pool_kernel(dev, dtype, hw2):
     """Pooled maps that tile evenly and raggedly (18 x 10 pooled pixels
-    against 8 x 8 blocks), and odd space-to-depth sides (an input tile even
-    but not divisible by 4) pooled to ceil(H2/2)."""
+    against 8 x 8 blocks; 33 x 17 and 49 x 65 against bf16's 16 x 16), and
+    odd space-to-depth sides (an input tile even but not divisible by 4, or
+    odd) pooled to ceil(H2/2)."""
     x = _randn((2, 12) + hw2, 2, dev, dtype).contiguous(memory_format=CL)
     w = _randn((4, 4, 12, 64), 3, dev, dtype, scale=0.2).contiguous()
     b = _randn((64,), 4, dev, torch.float32)
@@ -556,13 +558,17 @@ def _block_args(shape, cmid, dtype, seed, dev):
 @pytest.mark.parametrize("shape,cmid,dil", [
     ((2, 64, 37, 53), 16, 1), ((2, 64, 37, 53), 16, 2), ((2, 256, 20, 24), 64, 1),
     ((8, 256, 96, 96), 64, 1), ((1, 512, 6, 6), 128, 2), ((1, 2048, 6, 6), 512, 2),
-    ((1, 1024, 9, 7), 256, 4)])
+    ((1, 1024, 9, 7), 256, 4), ((3, 256, 24, 40), 64, 1),
+    ((1, 2048, 32, 32), 512, 2), ((1, 2048, 5, 7), 512, 2),
+    ((1, 64, 5, 7), 1024, 1)])
 def test_bottleneck_identity_kernel(dev, dtype, shape, cmid, dil):
     """K4 against its plain version: sides that are not multiples of a tile,
     dilations 1, 2 and 4 (a dilation-2 tile on a 6x6 map is all edge), the
-    flagship's widths, a grid of 288 blocks (bf16 runs two a SM); f32 on the
-    CUDA cores at 1e-5, bf16 at 1.6e-2 (the 3x3's tap order, one bf16
-    rounding)."""
+    flagship's widths, a grid of 288 blocks; for the wgmma design, a grid of
+    27 tiles (odd), B = 1 with 16 tiles (fewer than the SMs), layer4's width
+    at dilation 2 on a 5x7 map (smaller than one tile), and Cm 1024 (conv2 in
+    two passes, y2 beside y1); f32 on the CUDA cores at 1e-5, bf16 at
+    1.6e-2 (the 3x3's tap order, one bf16 rounding)."""
     from uemda_tpu_torch.ops.resblock import (
         bottleneck_identity,
         bottleneck_identity_plain,

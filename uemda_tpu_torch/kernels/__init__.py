@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_sms: Dict[int, int] = {}
 
 
 def _nvcc() -> str:
@@ -108,6 +109,18 @@ def check_launch(lib: str, fn: str, err: int) -> None:
     if err:
         msg = _libs[lib].uemda_error_string(err).decode()
         raise RuntimeError(f"{lib}.{fn} launch failed: cudaError {err} ({msg})")
+
+
+N_SM = 132  # streaming multiprocessors of an H100 SXM: the plans' default
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the card ``device`` names; launch plans
+    size their grids by it."""
+    i = device.index if device.index is not None else torch.cuda.current_device()
+    if i not in _sms:
+        _sms[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _sms[i]
 
 
 def stream_of(t: torch.Tensor) -> int:
