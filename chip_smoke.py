@@ -28,13 +28,15 @@ weights from a seed):
   target tiles (slide + 8-view TTA, bf16) and 30 flagship UVEM steps, each
   mining its soft label once with the K8 kernel.
 
-It times kernels, forwards and steps with CUDA events, profiles the paths,
-and prints one line per phase. Any failed check prints FAIL and exits
+It prints the launch plan ("design") of each redesigned kernel, times
+kernels, forwards and steps with CUDA events, profiles the paths, and
+prints one line per phase. Any failed check prints FAIL and exits
 nonzero. The second-to-last line is the kernels' JSON record; the last line
 is ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
 
 import copy
+import dataclasses
 import json
 import logging
 import os
@@ -186,6 +188,25 @@ def profile_steps(what, step_fn, state, src_it, tgt_it, dev, ms_step, n=3):
     for key, t, c in host[:10]:
         phase("profile", f"  {t / 1e3:.4f} ms  {c:.0f} calls  {key}")
     return total_us / 1e3
+
+
+# kernel (name part) of each source whose instantiations the [build] lines
+# list one by one: the kernels redesigned for Hopper
+REDESIGNED = {"stem": "", "resblock": "", "insnorm": "backward",
+              "segment": "gather"}
+
+
+def bwd_design(p, hw) -> str:
+    last = hw - (p.cluster - 1) * p.ppc
+    return (f"{p.route} route, {p.cb} channels a CTA, a cluster of "
+            f"{p.cluster} CTAs splitting H x W ({p.ppc} pixels each, the last "
+            f"{max(0, last)}), {p.smem} B of dynamic shared memory, grid "
+            f"{p.grid}")
+
+
+def gather_design(p) -> str:
+    return (f"{p.route} route, {p.lanes} lane(s) a pixel, {p.ppc} pixels a "
+            f"CTA, {p.smem} B of shared memory, grid {p.grid}")
 
 
 def k4_design(plan) -> str:
@@ -813,6 +834,7 @@ def main():
 
     from uemda_tpu_torch import kernels
     from uemda_tpu_torch.datasets.meta import NORM_STATS, IsprsDA
+    from uemda_tpu_torch.kernels import sass
     from uemda_tpu_torch.datasets.synthetic import synthetic_split
     from uemda_tpu_torch.infer.evaluate import evaluate_dataset
     from uemda_tpu_torch.infer.fastpath import build_fastpath, make_serving_fn
@@ -822,6 +844,7 @@ def main():
         instance_norm,
         instance_norm_backward,
         instance_norm_backward_plain,
+        instance_norm_backward_plan,
         instance_norm_forward_plain,
         instance_norm_plain,
     )
@@ -881,10 +904,12 @@ def main():
         phase("build", f"{name}: {len(regs)} instantiations, at most "
               f"{max(regs, default=0)} registers a thread, {spill} bytes of "
               "spill stores")
-        if name in ("stem", "resblock"):  # the redesigned kernels, each
+        if name in REDESIGNED:  # the redesigned kernels, each
             for fn, body in re.findall(  # instantiation: ptxas -v
                     r"Compiling entry function '([^']+)'(.*?)(?=Compiling "
                     r"entry|$)", log, re.S):
+                if REDESIGNED[name] not in fn:
+                    continue
                 r_ = re.search(r"Used (\d+) registers", body)
                 sp = re.search(r"(\d+) bytes spill stores", body)
                 sm = re.search(r"(\d+) bytes smem", body)
@@ -897,6 +922,18 @@ def main():
                                              r"([^\n]*?) in the function",
                                              log))):
                 phase("build", f"{name}: ptxas: {msg}")
+    # SASS of the two kernels redesigned for the memory system: instructions,
+    # loop bodies, subroutine calls (a 64-bit division is one)
+    for name in ("insnorm", "segment"):
+        try:
+            found = sass.stats(str(kernels._lib_path(name)), REDESIGNED[name])
+        except (OSError, subprocess.CalledProcessError) as e:
+            phase("build", f"{name}: cuobjdump not available ({e})")
+            continue
+        for fn, st in found.items():
+            phase("build", f"{name} {fn} SASS: {st['insns']} instructions; "
+                  f"loops {[(n, f'{a:#x}-{b:#x}') for a, b, n in st['loops']]}"
+                  f"; calls {st['calls']}")
 
     mark("kernel checks")
     # 3. kernels against their plain versions, at the slice's shapes -----
@@ -947,12 +984,15 @@ def main():
                       "shared memory")
 
     # K1 backward against its plain version on the same (x, dy) and the
-    # plain f32 statistics: the flagship's (8, 2048, 32, 32) -- bf16 through
-    # the shared-memory slabs, f32 through the global-memory route -- and an
-    # odd (3, 96, 20, 28), and bf16 at 64x64 (global route too)
+    # plain f32 statistics, each on its plan's route: the flagship's (8,
+    # 2048, 32, 32) in both dtypes (f32 too in shared memory), an odd (3,
+    # 96, 20, 28), bf16 at 64x64, a cluster of 8 over 45 x 47 pixels (the
+    # last CTA 5 short) and the global route at 128 x 128
     bwd_cases = {"flagship": (BATCH, 2048, TILE // 16, TILE // 16),
-                 "odd": (3, 96, 20, 28), "64x64": (2, 64, 64, 64)}
+                 "odd": (3, 96, 20, 28), "64x64": (2, 64, 64, 64),
+                 "ragged": (2, 96, 45, 47), "global": (1, 32, 128, 128)}
     bwd_tol = {"float32": 1e-5, "bfloat16": 1e-2}  # test_pallas_insnorm.py
+    bwd_routes = set()
     for case, shape in bwd_cases.items():
         xb0 = randn(*shape) + 3.0
         dyb0 = randn(*shape)
@@ -970,10 +1010,15 @@ def main():
             e = check_close(f"instance_norm_backward {dn} {case}", got, ref, t, t)
             if case == "flagship":
                 errs[("instance_norm_backward", dn)] = e
-                if dn == "bfloat16":
-                    inputs["bwd"] = (xb, dyb, mb, rb)
+                inputs[f"bwd {dn}"] = (xb, dyb, mb, rb)
+            bp = instance_norm_backward.plan
+            bwd_routes.add(bp.route)
             phase("kernel", f"instance_norm_backward {dn} {shape}: max abs err "
                   f"{e:.3g} (atol {t}, rtol {t})")
+            phase("kernel", f"instance_norm_backward {dn} {shape} design: "
+                  + bwd_design(bp, shape[2] * shape[3]))
+    if bwd_routes != {"smem", "global"}:
+        fail(f"instance_norm_backward: routes {bwd_routes} checked, not both")
 
     # K9 against its plain version: uint8 and f32 images, origins 0, odd and
     # maximal, at the training shape (8 crops of 512^2 from 1024^2 tiles)
@@ -1153,6 +1198,26 @@ def main():
               f"{e6:.3g} (exact), random sums at {e6r:.3g} of the f32 bound, "
               f"gather exact, "
               f"{int(nan_g.any(-1).sum())} NaN pixels")
+        phase("kernel", f"segment_gather {case} design: "
+              + gather_design(segment_gather.plan))
+    # K7 on its direct route (rows wider than 2048 floats) and on the widest
+    # staged row, int64 ids, ids outside [0, S): exact, NaN there
+    for c_w in (2500, 2048):
+        tab_w = randn(2, 9, c_w).to(dev)
+        ids_w = torch.randint(0, 9, (2, 37), generator=g)
+        ids_w[1, [0, 5, 36]] = torch.tensor([-1, 9, 1 << 20])
+        ids_w = ids_w.to(dev)
+        got = segment_gather(tab_w, ids_w)
+        ref = segment_gather_plain(tab_w, ids_w)
+        torch.cuda.synchronize()
+        if not (torch.equal(torch.nan_to_num(got, nan=7.0),
+                            torch.nan_to_num(ref, nan=7.0))
+                and bool(torch.isnan(got[1, [0, 5, 36]]).all())):
+            fail(f"segment_gather C {c_w}: differs from its plain version")
+        if segment_gather.plan.route != ("direct" if c_w > 2048 else "staged"):
+            fail(f"segment_gather C {c_w}: route {segment_gather.plan.route}")
+        phase("kernel", f"segment_gather (2, 37) ids, C {c_w}, S 9: exact, 3 "
+              "NaN pixels; design: " + gather_design(segment_gather.plan))
     # K6 on its own function, superpixel_expand (no path calls it), against
     # the CPU plain path on the same labels and maps
     lab_t = torch.randint(-1, nc7, (BATCH, TILE, TILE), generator=g)
@@ -1463,7 +1528,7 @@ def main():
     # 9. timing (bf16, the serving and training dtype; K9 on uint8 tiles,
     #    K5-K7 on f32 probabilities), CUDA events after warm-up
     xi, xs, ws, bs, xt = inputs["bfloat16"]
-    xb, dyb, mb, rb = inputs["bwd"]
+    xb, dyb, mb, rb = inputs["bwd bfloat16"]
     xc, offc = inputs["crop"]
     wt_oihw = ws.permute(3, 2, 0, 1).contiguous(memory_format=CL)
     bs16 = bs.to(torch.bfloat16)
@@ -1653,12 +1718,40 @@ def main():
                               config=k4_plans[stage].config,
                               stages=k4_plans[stage].stages,
                               smem=k4_plans[stage].smem)
+        if fn_name == "instance_norm_backward":
+            record[-1].update(plan=dataclasses.asdict(
+                instance_norm_backward.plan))
+        if fn_name == "segment_gather":
+            record[-1].update(plan=dataclasses.asdict(segment_gather.plan))
         lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         phase("time", f"{name} {dn}: kernel {ms:.4f} ms ({host_ms:.4f} ms "
               f"back to back with its wrapper's host work), plain "
               f"{plain_ms:.4f} ms, library {lib_txt}, bound "
               f"{bound:.4f} ms ({record[-1]['bound_by']}; {nbytes} B, "
               f"{nops} op)")
+    # the K1 backward's design space at the flagship shape, each plan held
+    # to its plain version and timed like the kernels above, in both dtypes:
+    # 32 or 64 channels a CTA, clusters of 1-8; the plan's own choice first
+    for dn in ("bfloat16", "float32"):
+        xs_, dys_, ms_, rs_ = inputs[f"bwd {dn}"]
+        b_, c_, h_, w_ = xs_.shape
+        ref_ = instance_norm_backward_plain(xs_, dys_, ms_, rs_)
+        sweep = [None] + [instance_norm_backward_plan(
+            b_, c_, h_, w_, xs_.dtype, cb=cb, cluster=k)
+            for cb in (64, 32) for k in (1, 2, 4, 8)]
+        cells = []
+        for plan in sweep:
+            got = instance_norm_backward(xs_, dys_, ms_, rs_, plan=plan)
+            check_close(f"instance_norm_backward {dn} sweep", got, ref_,
+                        bwd_tol[dn], bwd_tol[dn])
+            p_ = instance_norm_backward.plan
+            t_ = kernel_ms(lambda: instance_norm_backward(
+                xs_, dys_, ms_, rs_, plan=plan))
+            cells.append(f"{'plan: ' if plan is None else ''}{p_.route} cb "
+                         f"{p_.cb} cluster {p_.cluster} {p_.smem // 1024} KB "
+                         f"{t_:.4f} ms")
+        phase("time", f"instance_norm_backward {dn} {tuple(xs_.shape)} "
+              "design sweep: " + "; ".join(cells))
     # what label_refine costs at the flagship stage-2 shape, per view: the
     # trained prototypes, (8, 2048, 32, 32) features, two heads' (8, 7, 32,
     # 32) logits, the (8, 7, 512, 512) soft label and the 2urban maps

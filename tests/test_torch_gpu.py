@@ -1,8 +1,8 @@
 """The port's CUDA kernels on the card, against their plain versions: the
 odd shapes, both dtypes and both instance-norm routes (forward and
-backward) that chip_smoke.py's shapes do not reach, the crop kernel's
-vector and element routes (with and without the clamp), both routes of the
-segment kernels, the mining kernel in every layout and branch, the fused
+backward, the backward's clusters with a short last CTA) that
+chip_smoke.py's shapes do not reach, the crop kernel's vector and element
+routes (with and without the clamp), both routes of each segment kernel, the mining kernel in every layout and branch, the fused
 bottleneck kernel in both dtypes at odd shapes and dilations, the int8 conv
 on the card against the CPU, the fused and int8 fast paths, training
 steps that go through the kernels, and the card as the entry points'
@@ -25,6 +25,7 @@ from uemda_tpu_torch.ops.insnorm import (
     instance_norm,
     instance_norm_backward,
     instance_norm_backward_plain,
+    instance_norm_backward_plan,
     instance_norm_forward,
     instance_norm_forward_plain,
     instance_norm_plain,
@@ -197,12 +198,17 @@ def test_crop_normalize_kernel(dev, dtype, case):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 256, 8, 8), (1, 96, 64, 64),
-                                   (3, 2048, 32, 32), (2, 64, 9, 7)])
+                                   (3, 2048, 32, 32), (2, 64, 9, 7),
+                                   (2, 96, 45, 47), (1, 32, 128, 128)])
 def test_instance_norm_backward_kernel(dev, dtype, shape):
     """The K1 backward against its plain version on the forward kernel's
-    statistics (which match the plain statistics to 1e-5): the
-    shared-memory route (bf16 up to 32x32) and the global-memory one (f32
-    at 32x32, both at 64x64); f32 1e-5, bf16 1e-2 (test_pallas_insnorm.py)."""
+    statistics (which match the plain statistics to 1e-5), on the plan's
+    route: shared memory up to 64 x 64 in both dtypes (f32 at 32 x 32
+    among them), a cluster of 8 over 45 x 47 pixels that leaves the last
+    CTA 5 short, the global route at 128 x 128 (8 CTAs' parts overflow
+    shared memory); and at 9 x 7 with the cluster pinned to 1-8, each split
+    but 1 leaving a short last CTA. f32 1e-5, bf16 1e-2
+    (test_pallas_insnorm.py)."""
     x = _randn(shape, 11, dev, dtype, shift=3.0).contiguous(memory_format=CL)
     dy = _randn(shape, 12, dev, dtype).contiguous(memory_format=CL)
     y, mean, rstd = instance_norm_forward(x)
@@ -211,15 +217,26 @@ def test_instance_norm_backward_kernel(dev, dtype, shape):
     for got, ref in ((mean, mean_ref), (rstd, rstd_ref)):
         np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                    rtol=1e-5, atol=1e-5)
-    n = instance_norm_backward.launches
-    dx = instance_norm_backward(x, dy, mean, rstd)
-    assert instance_norm_backward.launches == n + 1
-    assert dx.is_contiguous(memory_format=CL)
+    b, c, h, w = shape
+    plans = [None]
+    if shape == (2, 64, 9, 7):
+        plans += [instance_norm_backward_plan(b, c, h, w, dtype, cluster=k)
+                  for k in (1, 2, 4, 8)]
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     ref = instance_norm_backward_plain(x, dy, mean, rstd)
-    torch.cuda.synchronize()
-    np.testing.assert_allclose(dx.float().cpu().numpy(),
-                               ref.float().cpu().numpy(), atol=tol, rtol=tol)
+    for plan in plans:
+        n = instance_norm_backward.launches
+        dx = instance_norm_backward(x, dy, mean, rstd, plan=plan)
+        assert instance_norm_backward.launches == n + 1
+        assert dx.is_contiguous(memory_format=CL)
+        p = instance_norm_backward.plan
+        assert p.route == ("global" if shape == (1, 32, 128, 128) else "smem")
+        if shape == (2, 96, 45, 47):
+            assert p.cluster == 8 and h * w - 7 * p.ppc == p.ppc - 5
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(dx.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(), atol=tol,
+                                   rtol=tol)
 
 
 def test_instance_norm_autograd_launches_both_kernels(dev):
@@ -248,6 +265,10 @@ def test_train_and_crop_kernels_refuse_what_they_do_not_take(dev):
         instance_norm_backward(xs, xs, mean[:, :48], rstd[:, :48])
     with pytest.raises(ValueError, match="is not"):
         instance_norm_backward(x, x, mean[:, :32].contiguous(), rstd)
+    shifted = torch.empty(mean.numel() + 1, device=dev)[1:].view_as(mean)
+    shifted.copy_(mean)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        instance_norm_backward(x, x, shifted, rstd)
     img = torch.zeros(2, 16, 16, 3, dtype=torch.uint8, device=dev)
     off = torch.zeros(2, 2, dtype=torch.int32)
     with pytest.raises(TypeError):
@@ -312,6 +333,8 @@ def _grid_sup(b, h, w, cell, seed):
     (2, 64, 96, 7, 16, 0),
     (3, 33, 47, 6, 5, 3),          # odd sizes, empty segments at the top
     (1, 40, 40, 11, 8, 0),         # C > 8: two channel passes
+    (2, 17, 15, 1, 4, 0),          # C = 1; 255 pixels: one short K7 CTA
+    (3, 31, 29, 16, 6, 2),         # C = 16: K7's two lanes a pixel
     # ... and a table over the 227 KB of shared memory: global atomics
     (2, 128, 128, 7, 2, 5000),
 ])
@@ -320,7 +343,8 @@ def test_segment_kernels(dev, ids_dtype, case):
     counts and, on random values, within the error bound of f32 summation
     in any order of the exact sums (its atomics' order varies); out-of-range
     ids (>= S, and negative) left out of both reductions and gathered back
-    as NaN."""
+    as NaN. K7's pixel counts are not multiples of its CTA's 256 (128 at C
+    = 11 and 16) but at 64 x 96 and 128 x 128."""
     b, h, w, c, cell, extra = case
     sup, s = _grid_sup(b, h, w, cell, seed=c)
     s += extra
@@ -346,11 +370,32 @@ def test_segment_kernels(dev, ids_dtype, case):
     g = segment_gather(got, ids)
     gref = segment_gather_plain(ref, ids)
     torch.cuda.synchronize()
+    assert segment_gather.plan.route == "staged"
     assert torch.equal(torch.nan_to_num(g, nan=7.0),
                        torch.nan_to_num(gref, nan=7.0))
     assert torch.isnan(g[0, :3]).all() and not torch.isnan(g[0, 3:]).any()
     assert (segment_max.launches, segment_sum.launches,
             segment_gather.launches) == (n5 + 1, n6 + 2, n7 + 1)
+
+
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+def test_segment_gather_kernel_wide_rows(dev, ids_dtype):
+    """K7's direct route (rows wider than 2048 floats, one pixel a CTA)
+    and the widest staged row, exact, NaN for ids outside [0, S)."""
+    r = np.random.default_rng(5)
+    for c, route in ((2500, "direct"), (2048, "staged")):
+        seg = torch.from_numpy(r.normal(size=(2, 9, c)).astype(np.float32)).to(dev)
+        ids_np = r.integers(0, 9, (2, 37))
+        ids_np[1, [0, 5, 36]] = [-1, 9, 1 << 20]
+        ids = torch.from_numpy(ids_np).to(dev, ids_dtype)
+        got = segment_gather(seg, ids)
+        assert segment_gather.plan.route == route
+        ref = segment_gather_plain(seg, ids)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.nan_to_num(got, nan=7.0),
+                           torch.nan_to_num(ref, nan=7.0))
+        assert torch.isnan(got[1, [0, 5, 36]]).all()
+        assert not torch.isnan(got[0]).any()
 
 
 def test_segment_kernels_refuse_what_they_do_not_take(dev):

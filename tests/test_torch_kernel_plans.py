@@ -1,13 +1,19 @@
 """Launch plans of the port's redesigned kernels, on the CPU: K4's
-(``ops/resblock.py: bottleneck_plan``) and K2's (``ops/stem.py:
-stem_plan``). Every identity bottleneck of ResNet-50 and ResNet-101 at
+(``ops/resblock.py: bottleneck_plan``), K2's (``ops/stem.py:
+stem_plan``), the K1 backward's (``ops/insnorm.py:
+instance_norm_backward_plan``) and K7's (``ops/segment.py:
+segment_gather_plan``). Every identity bottleneck of ResNet-50 and ResNet-101 at
 output stride 8 and 16 on 512^2 tiles, and every shape the GPU tests run,
 gets a plan that fits the H100's 232,448 bytes of shared memory a block; the
 wgmma path's haloed and output tiles fit its 64-row m-tiles; the plan's
 shared-memory layout holds every operand the kernel reads where it reads it,
 with every TMA destination on its swizzle's period; the grid covers every
-output pixel once. The CUDA launchers check the plans' bounds again on the
-card."""
+output pixel once. Every instance-norm shape of the training paths gets a
+K1 backward plan within shared memory, a portable cluster, a grid of
+whole clusters and the stated route, and covers every (sample, channel,
+pixel) once; K7's plan writes every output float of every sample once,
+with its 16-byte stores aligned. The CUDA launchers check the plans'
+bounds again on the card."""
 
 import re
 from pathlib import Path
@@ -18,13 +24,18 @@ import torch
 
 from uemda_tpu_torch import kernels
 from uemda_tpu_torch.models.resnet import RESNET_SPECS, stage_plan
-from uemda_tpu_torch.ops import resblock, stem
+from uemda_tpu_torch.ops import resblock, segment, stem
+from uemda_tpu_torch.ops.insnorm import (
+    bwd_static_smem,
+    instance_norm_backward_plan,
+)
 from uemda_tpu_torch.ops.resblock import (
     SMEM_LIMIT,
     WGMMA_CONFIGS,
     bottleneck_plan,
     wgmma_layout,
 )
+from uemda_tpu_torch.ops.segment import segment_gather_plan
 from uemda_tpu_torch.ops.stem import stem_plan
 
 CSRC = Path(resblock.__file__).resolve().parents[1] / "kernels" / "csrc"
@@ -234,3 +245,230 @@ def test_stem_smem_by_hand():
     src = (CSRC / "stem.cu").read_text()
     assert "constexpr int BP = 16;" in src and "constexpr int WLD = KDIM + 8;" in src
     assert "constexpr int CLD = COUT + 8;" in src
+
+
+# --- K1 backward ----------------------------------------------------------
+
+def _check_bwd_plan(p, b, c, hw, dtype):
+    """The plan's bounds, and that its grid covers every (sample, channel,
+    pixel) of a (b, c, hw) slab once, as insnorm.cu's backward kernel maps
+    CTAs and threads: blockIdx.x -> (chunk blockIdx.x / cluster, rank
+    blockIdx.x % cluster), pixels [rank ppc, min(hw, (rank + 1) ppc));
+    thread t -> 16-byte column t % VPR of pixels t / VPR, + G, ..."""
+    esz = 2 if dtype == BF16 else 4
+    assert p.cb in (32, 64) and c % p.cb == 0
+    assert 1 <= p.cluster <= 8 and p.grid[0] % p.cluster == 0
+    assert p.grid == (p.cluster * c // p.cb, b) and b <= 65535
+    assert p.ppc == -(-hw // p.cluster) and len(p.as_ints()) == 7
+    if p.route == "smem":
+        assert p.smem == 2 * p.ppc * p.cb * esz
+        assert p.smem + bwd_static_smem(p.cb) <= SMEM_LIMIT
+    else:
+        assert p.route == "global" and p.smem == 0
+        # global only where no width fits at this cluster
+        assert 2 * p.ppc * 32 * esz + bwd_static_smem(32) > SMEM_LIMIT
+    # the grid's x index is a one-to-one map onto (chunk, rank)
+    gx = np.arange(p.grid[0])
+    chunk, rank = gx // p.cluster, gx % p.cluster
+    assert len(set(zip(chunk, rank))) == p.grid[0]
+    chan = np.zeros(c, np.int64)
+    for k in range(c // p.cb):
+        chan[k * p.cb:(k + 1) * p.cb] += 1
+    pix = np.zeros(hw, np.int64)
+    nps = []
+    for r in range(p.cluster):
+        p0, p1 = r * p.ppc, min(hw, (r + 1) * p.ppc)
+        pix[p0:max(p0, p1)] += 1
+        nps.append(max(0, p1 - p0))
+    assert (chan == 1).all() and (pix == 1).all()
+    # inside a CTA: 256 threads over its np pixels x cb channels
+    epv = 16 // esz
+    vpr = p.cb // epv
+    groups = 256 // vpr
+    assert vpr <= 32 and 32 % vpr == 0
+    for n_px in set(nps):
+        cta = np.zeros((n_px, p.cb), np.int64)
+        for t in range(256):
+            j, g = t % vpr, t // vpr
+            cta[g:n_px:groups, j * epv:(j + 1) * epv] += 1
+        assert (cta == 1).all()
+    return nps
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("output_stride", [8, 16, 32])
+@pytest.mark.parametrize("c", [512, 2048])
+def test_k1_backward_plans_of_the_training_shapes(c, output_stride, dtype):
+    """The feature the instance norm takes: ResNet-18/34's 512 channels and
+    ResNet-50/101's 2048, on 512^2 crops at output stride 8, 16 and 32,
+    batch 8: every one on the shared-memory route, f32 at 32 x 32 among
+    them."""
+    side = TILE // output_stride
+    p = instance_norm_backward_plan(8, c, side, side, dtype)
+    _check_bwd_plan(p, 8, c, side * side, dtype)
+    assert p.route == "smem"
+
+
+# tests/test_torch_gpu.py: test_instance_norm_backward_kernel's shapes and
+# the route each takes
+GPU_K1_BWD = [((2, 256, 8, 8), "smem"), ((1, 96, 64, 64), "smem"),
+              ((3, 2048, 32, 32), "smem"), ((2, 64, 9, 7), "smem"),
+              ((3, 96, 20, 28), "smem"), ((2, 96, 45, 47), "smem"),
+              ((1, 32, 128, 128), "global")]
+
+
+@pytest.mark.parametrize("shape,route", GPU_K1_BWD)
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_k1_backward_plans_of_the_gpu_test_shapes(shape, route, dtype):
+    b, c, h, w = shape
+    p = instance_norm_backward_plan(b, c, h, w, dtype)
+    _check_bwd_plan(p, b, c, h * w, dtype)
+    assert p.route == route
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 3, 4, 8])
+def test_k1_backward_pinned_clusters_cover_a_ragged_slab(cluster):
+    """9 x 7 = 63 pixels split 2, 4 or 8 ways leaves a short last CTA (8
+    ways: 8 x 8, the last 7); a cluster of 3 splits it evenly."""
+    for dtype in (BF16, F32):
+        for cb in (32, 64):
+            p = instance_norm_backward_plan(2, 64, 9, 7, dtype, cb=cb,
+                                            cluster=cluster)
+            nps = _check_bwd_plan(p, 2, 64, 63, dtype)
+            assert sum(nps) == 63
+            assert nps[-1] == 63 - (cluster - 1) * -(-63 // cluster)
+
+
+def test_k1_backward_plan_of_the_flagship_by_hand():
+    """(8, 2048, 32, 32): bf16 in 64-channel chunks, 4 CTAs of 256 pixels
+    a slab, 64 KB of x and dy each; f32 the same 64 KB in 8 CTAs of 128
+    pixels. f32 at 64 x 64 keeps shared memory at 32 channels (128 KB);
+    the global route starts where 8 CTAs' parts overflow it at 32."""
+    p = instance_norm_backward_plan(8, 2048, 32, 32, BF16)
+    assert (p.route, p.cb, p.cluster, p.ppc, p.smem, p.grid) == (
+        "smem", 64, 4, 256, 65536, (128, 8))
+    q = instance_norm_backward_plan(8, 2048, 32, 32, F32)
+    assert (q.route, q.cb, q.cluster, q.ppc, q.smem) == (
+        "smem", 64, 8, 128, 65536)
+    r = instance_norm_backward_plan(8, 2048, 64, 64, F32)
+    assert (r.route, r.cb, r.cluster, r.smem) == ("smem", 32, 8, 131072)
+    assert instance_norm_backward_plan(1, 64, 96, 96, F32).route == "global"
+    assert instance_norm_backward_plan(1, 64, 96, 96, BF16).route == "smem"
+
+
+def test_k1_backward_static_smem_matches_the_cuda_source():
+    """insnorm.cu's backward declares red[2][WARPS][CB], part[2][CB] and
+    stat[2][CB] f32 with WARPS = 256 / 32: the plan's bwd_static_smem."""
+    src = (CSRC / "insnorm.cu").read_text()
+    for decl in ("__shared__ float red[2][WARPS][CB];",
+                 "__shared__ float part[2][CB];",
+                 "__shared__ float stat[2][CB];",
+                 "constexpr int kThreads = 256;"):
+        assert decl in src
+    assert bwd_static_smem(64) == (2 * 8 + 2 + 2) * 64 * 4
+
+
+# --- K7 ---------------------------------------------------------------------
+
+def _gather_writes(p, b, n, c):
+    """How many times segment.cu's K7 writes each output float of a (b, n,
+    c) gather under plan p: phase 1 puts lane l of pixel q = t / lanes on
+    channels l, l + lanes, ...; the staged route then stores the CTA's run
+    of np * c floats from g0 = (b n + p0) c: a head of (4 - g0 % 4) % 4
+    floats, 16-byte stores from a 16-byte boundary, and the tail."""
+    out = np.zeros(b * n * c, np.int64)
+    lanes = p.lanes
+    # phase 1 inside one CTA: every (pixel slot, channel) once
+    slot = np.zeros((p.ppc, c), np.int64)
+    for t in range(segment.GATHER_THREADS):
+        slot[t // lanes, t % lanes::lanes] += 1
+    assert (slot == 1).all()
+    for bi in range(p.grid[1]):
+        for bx in range(p.grid[0]):
+            p0 = bx * p.ppc
+            n_px = min(p.ppc, n - p0)
+            assert n_px >= 1
+            g0 = (bi * n + p0) * c
+            m = n_px * c
+            if p.route == "direct":
+                out[g0:g0 + m] += 1
+                continue
+            shift = g0 % 4
+            head = min(m, (4 - shift) % 4)
+            nv = (m - head) // 4
+            tail = head + 4 * nv
+            if nv:  # the 16-byte stores and loads on 16-byte boundaries
+                assert (g0 + head) % 4 == 0 and (shift + head) % 4 == 0
+            assert shift + m <= p.smem // 4
+            out[g0:g0 + head] += 1
+            out[g0 + head:g0 + tail] += 1
+            out[g0 + tail:g0 + m] += 1
+    return out
+
+
+@pytest.mark.parametrize("c", [1, 6, 7, 8, 11, 16])
+@pytest.mark.parametrize("b,n", [(8, TILE * TILE), (3, 33 * 47), (2, 257),
+                                 (1, 1), (2, 255)])
+def test_k7_plans_write_every_pixel_once(b, n, c):
+    """N not a multiple of the CTA's pixels (all but 512^2), one pixel, and
+    C of 1, 6 (ISPRS), 7 (LoveDA), 8, 11 and 16: every output float of
+    every sample written once."""
+    p = segment_gather_plan(b, n, c)
+    assert p.route == "staged" and p.lanes * p.ppc == segment.GATHER_THREADS
+    assert p.grid == (-(-n // p.ppc), b) and len(p.as_ints()) == 6
+    assert p.smem == 4 * (p.ppc * c + 4) <= 48 * 1024
+    # a lane reads at most 8 channels of its pixel
+    assert -(-c // p.lanes) <= 8
+    assert p.lanes == 1 or -(-c // (p.lanes // 2)) > 8
+    assert (_gather_writes(p, b, n, c) == 1).all()
+
+
+def test_k7_plan_of_wide_rows_goes_direct():
+    """Rows wider than GATHER_STAGED_MAX_C floats: one pixel a CTA, stored
+    by its 256 lanes with no staging; up to it, staged."""
+    wide = segment.GATHER_STAGED_MAX_C + 452
+    p = segment_gather_plan(2, 37, wide)
+    assert (p.route, p.lanes, p.ppc, p.smem, p.grid) == (
+        "direct", 256, 1, 0, (37, 2))
+    assert (_gather_writes(p, 2, 37, wide) == 1).all()
+    q = segment_gather_plan(2, 37, segment.GATHER_STAGED_MAX_C)
+    assert (q.route, q.lanes, q.ppc) == ("staged", 256, 1)
+    assert (_gather_writes(q, 2, 37, segment.GATHER_STAGED_MAX_C) == 1).all()
+
+
+def test_k7_plan_of_2urban_by_hand():
+    """(8, 512^2) ids, 7 classes: one lane a pixel, 256 pixels (7 KB of
+    rows) a CTA, 1024 x 8 CTAs."""
+    p = segment_gather_plan(8, TILE * TILE, 7)
+    assert (p.route, p.lanes, p.ppc, p.smem, p.grid) == (
+        "staged", 1, 256, 4 * (256 * 7 + 4), (1024, 8))
+
+
+def test_sass_parse_counts_loops_and_calls():
+    """kernels/sass.py on a cuobjdump listing: a loop from a backward
+    branch's target to the branch, a called subroutine up to its RET, the
+    self-branch after EXIT not a loop."""
+    from uemda_tpu_torch.kernels.sass import parse
+
+    listing = """
+        Function : _Z6kernelPfi
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   S2R R0, SR_TID.X ;
+        /*0020*/                   IMAD R2, R0, 0x4, RZ ;
+        /*0030*/                   CALL.REL.NOINC 0x80 ;
+        /*0040*/                   ISETP.GE.AND P0, PT, R2, 0x10, PT ;
+        /*0050*/              @!P0 BRA 0x20 ;
+        /*0060*/                   EXIT ;
+        /*0070*/                   BRA 0x70;
+        /*0080*/                   IADD3 R3, R3, 0x1, RZ ;
+        /*0090*/                   IMAD.HI R3, R3, R2, RZ ;
+        /*00a0*/                   RET.REL.NODEC R4 0x0 ;
+        /*00b0*/                   NOP ;
+        ..........
+        Function : _Z5otherv
+        /*0000*/                   EXIT ;
+"""
+    got = parse(listing)
+    assert got["_Z6kernelPfi"] == {"insns": 12, "loops": [(0x20, 0x50, 4)],
+                                   "calls": [3]}
+    assert got["_Z5otherv"] == {"insns": 1, "loops": [], "calls": []}

@@ -17,7 +17,7 @@
 // Bound on the H100: bytes. At the 2urban stage-2 shape (B 8, N 512^2,
 // C 7, S 4128) K5/K6 read 58.7 MB of values and 8.4 MB of ids and write
 // 0.9 MB, ~0.020 ms at 3.35 TB/s; K7 reads 8.4 MB of ids (+0.9 MB of table)
-// and writes 58.7 MB, ~0.020 ms. One compare (or add) per value.
+// and writes 58.7 MB, ~0.020 ms. One compare (or add) per value; K7 none.
 //
 // Design. The TPU kernel revisits one (S, C) accumulator across a
 // sequential grid of pixel tiles, masking every pixel against all S ids.
@@ -34,9 +34,24 @@
 // order-free, so K5 is exact and deterministic. K6's atomicAdd order varies
 // from run to run: exact for integer values below 2^24 (one-hot counts).
 // A table over the card's shared-memory limit takes the same loop with the
-// atomics aimed at the output in global memory. K7 is one thread per
-// output element: a coalesced write and an indexed load from the small
-// table, which stays in L1/L2.
+// atomics aimed at the output in global memory.
+//
+// K7 design. A CTA of 256 threads writes the output rows of ppc pixels of
+// one sample: the sample is blockIdx.y, so no index is divided per element
+// and the only 64-bit arithmetic is the CTA's base offsets. Each pixel has
+// `lanes` threads (1 for C <= 8, more for wider rows, ppc = 256 / lanes):
+// they read its id once, check its range once, and read the C floats of the
+// id's table row with __ldg (one sample's (S, C) table, 115 KB at 2urban,
+// stays in L1/L2; a superpixel's pixels are neighbours, so a warp's rows
+// mostly coincide), or write NaN. A pixel's row of C floats (28 bytes at
+// C = 7) is not 16-byte aligned, so the rows go to shared memory first, at
+// the offset that makes the CTA's contiguous run of ppc * C floats line up
+// with 16-byte boundaries of the output; the CTA then stores the run with
+// 16-byte stores, its first and last few floats one at a time. A row wider
+// than 2048 floats (route "direct", one pixel a CTA) is stored straight
+// from the lanes: a warp's stores are then contiguous already. The launch
+// plan (lanes, ppc, grid, shared-memory bytes, route) is computed in Python
+// (ops/segment.py: segment_gather_plan); the launcher checks it.
 
 #include "common.cuh"
 
@@ -137,19 +152,47 @@ segment_reduce_kernel(const float* __restrict__ val, const Id* __restrict__ ids,
   }
 }
 
-template <typename Id>
+// K7: one CTA writes pixels [blockIdx.x * ppc, + ppc) of sample blockIdx.y;
+// thread t is lane t % lanes of the CTA's pixel t / lanes
+template <typename Id, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 segment_gather_kernel(const float* __restrict__ seg, const Id* __restrict__ ids,
-                      float* __restrict__ out, long long total, int N, int C,
-                      int S) {
-  for (long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * kThreads) {
-    const long long p = i / C;             // flat pixel over B * N
-    const int c = static_cast<int>(i - p * C);
-    const long long b = p / N;
-    const long long id = static_cast<long long>(ids[p]);
-    out[i] = (id >= 0 && id < S) ? __ldg(seg + (b * S + id) * C + c) : NAN;
+                      float* __restrict__ out, int N, int C, int S,
+                      int lanes_log2, int ppc) {
+  extern __shared__ __align__(16) float stage[];  // ppc * C + 4, if kStaged
+  const int b = blockIdx.y;
+  const int p0 = blockIdx.x * ppc;
+  const int np = min(ppc, N - p0);
+  const int q = threadIdx.x >> lanes_log2;
+  const int lanes = 1 << lanes_log2;
+  const size_t g0 = (static_cast<size_t>(b) * N + p0) * C;
+  float* out_b = out + g0;
+  // stage[shift + i] holds out_b[i]; out_b - shift is 16-byte aligned
+  const int shift = kStaged ? static_cast<int>(g0 & 3) : 0;
+  if (q < np) {
+    const long long id =
+        static_cast<long long>(ids[static_cast<size_t>(b) * N + p0 + q]);
+    const bool ok = id >= 0 && id < S;
+    const float* row =
+        seg + (static_cast<size_t>(b) * S + (ok ? id : 0)) * C;
+    float* dst = kStaged ? stage + shift + q * C
+                         : out_b + static_cast<size_t>(q) * C;
+    for (int c = threadIdx.x & (lanes - 1); c < C; c += lanes)
+      dst[c] = ok ? __ldg(row + c) : NAN;
   }
+  if (!kStaged) return;
+  __syncthreads();
+  const int n = np * C;
+  const int head = min(n, (4 - shift) & 3);
+  const int nv = (n - head) >> 2;
+  const int tail = head + 4 * nv;
+  if (static_cast<int>(threadIdx.x) < head)
+    out_b[threadIdx.x] = stage[shift + threadIdx.x];
+  const float4* sv = reinterpret_cast<const float4*>(stage + shift + head);
+  float4* ov = reinterpret_cast<float4*>(out_b + head);
+  for (int v = threadIdx.x; v < nv; v += kThreads) ov[v] = sv[v];
+  if (static_cast<int>(threadIdx.x) < n - tail)
+    out_b[tail + threadIdx.x] = stage[shift + tail + threadIdx.x];
 }
 
 int sm_count() {
@@ -224,23 +267,49 @@ extern "C" int uemda_segment_reduce(const void* val, const void* ids, int ids64,
 }
 
 // seg: (B, S, C) f32; ids: (B, N) int32/int64; out: (B, N, C) f32; all
-// contiguous on the device. out[b, p, :] = seg[b, ids[b, p], :], NaN for an
-// id outside [0, S).
+// contiguous on the device, out 16-byte aligned. out[b, p, :] =
+// seg[b, ids[b, p], :], NaN for an id outside [0, S). plan (n = 6 ints, from
+// ops/segment.py: segment_gather_plan): lanes (a power of two, lanes * ppc
+// = 256), pixels a CTA, dynamic shared-memory bytes (4 * (ppc * C + 4) when
+// staged, at most 48 KB; 0 direct, with ppc 1), route (1 staged, 0
+// direct), grid x (ceil(N / ppc)), grid y (B). Anything else is refused.
 extern "C" int uemda_segment_gather(const void* seg, const void* ids, int ids64,
                                     void* out, int B, int N, int C, int S,
-                                    void* stream) {
-  if (B <= 0 || N <= 0 || C <= 0 || S <= 0) return cudaErrorInvalidValue;
+                                    const int* plan, int n, void* stream) {
+  if (B <= 0 || B > 65535 || N <= 0 || C <= 0 || S <= 0 || !plan || n != 6)
+    return cudaErrorInvalidValue;
+  const int lanes = plan[0], ppc = plan[1], smem = plan[2], staged = plan[3];
+  const dim3 grid(plan[4], plan[5]);
+  int lg = 0;
+  while (lg < 8 && (1 << lg) < lanes) ++lg;
+  if (lanes != (1 << lg) || lanes * ppc != kThreads ||
+      (staged != 0 && staged != 1) ||
+      (staged ? smem != 4LL * (static_cast<long long>(ppc) * C + 4) ||
+                    smem > 48 * 1024
+              : smem != 0 || ppc != 1) ||
+      static_cast<long long>(grid.x) * ppc < N ||
+      static_cast<long long>(grid.x - 1) * ppc >= N ||
+      static_cast<int>(grid.y) != B)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long total = static_cast<long long>(B) * N * C;
-  const int blocks = static_cast<int>(std::min<long long>(
-      (total + kThreads - 1) / kThreads, 32LL * sm_count()));
   const float* sg = static_cast<const float*>(seg);
   float* o = static_cast<float*>(out);
-  if (ids64)
-    segment_gather_kernel<long long><<<blocks, kThreads, 0, s>>>(
-        sg, static_cast<const long long*>(ids), o, total, N, C, S);
-  else
-    segment_gather_kernel<int><<<blocks, kThreads, 0, s>>>(
-        sg, static_cast<const int*>(ids), o, total, N, C, S);
+  if (ids64) {
+    const long long* i = static_cast<const long long*>(ids);
+    if (staged)
+      segment_gather_kernel<long long, true><<<grid, kThreads, smem, s>>>(
+          sg, i, o, N, C, S, lg, ppc);
+    else
+      segment_gather_kernel<long long, false><<<grid, kThreads, 0, s>>>(
+          sg, i, o, N, C, S, lg, ppc);
+  } else {
+    const int* i = static_cast<const int*>(ids);
+    if (staged)
+      segment_gather_kernel<int, true><<<grid, kThreads, smem, s>>>(
+          sg, i, o, N, C, S, lg, ppc);
+    else
+      segment_gather_kernel<int, false><<<grid, kThreads, 0, s>>>(
+          sg, i, o, N, C, S, lg, ppc);
+  }
   return cudaGetLastError();
 }

@@ -26,9 +26,14 @@ segment reductions and ``take_along_axis``), not the Pallas kernels:
 Superpixel ids are numbered over the whole image before the crop, and the
 top id marks the shrunk boundary pixels (``uemda/gast/superpixels.py:
 129-152``); ``max_segments`` bounds max(id) + 1.
+
+Each K7 launch runs a plan (:func:`segment_gather_plan`, pure Python, tested
+on the CPU); the launcher checks it.
 """
 
 import ctypes
+from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 
@@ -39,7 +44,43 @@ _REDUCE_ARGS = [kernels.P, kernels.P, kernels.I, kernels.P, kernels.I,
                 kernels.I, kernels.I, kernels.I, kernels.I,
                 ctypes.POINTER(ctypes.c_int), kernels.P]
 _GATHER_ARGS = [kernels.P, kernels.P, kernels.I, kernels.P] + [kernels.I] * 4 \
-    + [kernels.P]
+    + [kernels.P, kernels.I, kernels.P]
+GATHER_THREADS = 256
+GATHER_STAGED_MAX_C = 2048  # wider rows go straight to the output
+
+
+@dataclass(frozen=True)
+class GatherPlan:
+    """One launch of K7: ``lanes`` threads a pixel, ``ppc`` = 256 / lanes
+    pixels a CTA, ``grid`` (ceil(N / ppc), B); route "staged" (the CTA's
+    rows through ``smem`` bytes of shared memory, stored 16 bytes at a time)
+    or "direct" (one pixel a CTA, rows stored by the lanes, no shared
+    memory)."""
+    route: str
+    lanes: int
+    ppc: int
+    smem: int
+    grid: Tuple[int, int]
+
+    def as_ints(self):
+        """lanes, ppc, smem, route (1 staged, 0 direct), grid x, y: the int
+        array the C launcher takes."""
+        return [self.lanes, self.ppc, self.smem, int(self.route == "staged"),
+                *self.grid]
+
+
+def segment_gather_plan(b: int, n: int, c: int) -> GatherPlan:
+    """The launch plan of K7 for (b, n) ids and c channels: one lane a pixel
+    up to 8 channels, then the power of two that gives each lane at most 8
+    (256 at most); rows up to GATHER_STAGED_MAX_C floats are staged."""
+    if min(b, n, c) < 1 or b > 65535:
+        raise ValueError(f"segment_gather_plan: B {b}, N {n}, C {c}")
+    lanes = min(GATHER_THREADS, 1 << max(0, -(-c // 8) - 1).bit_length())
+    ppc = GATHER_THREADS // lanes
+    grid = (-(-n // ppc), b)
+    if c > GATHER_STAGED_MAX_C:
+        return GatherPlan("direct", lanes, ppc, 0, grid)
+    return GatherPlan("staged", lanes, ppc, 4 * (ppc * c + 4), grid)
 
 
 def _in_range(ids: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -156,7 +197,8 @@ def segment_sum(data: torch.Tensor, ids: torch.Tensor,
 def segment_gather(seg: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Gather-back: seg (B, S, C) f32, ids (B, N) -> (B, N, C) f32,
     ``out[b, p] = seg[b, ids[b, p]]``, NaN for an id outside [0, S). A CPU
-    tensor takes the plain version; a CUDA tensor launches K7."""
+    tensor takes the plain version; a CUDA tensor launches K7 (its plan in
+    ``segment_gather.plan``)."""
     if seg.device.type == "cpu":
         return segment_gather_plain(seg, ids)
     _check(seg, "segment_gather seg", 3, (torch.float32,))
@@ -167,18 +209,24 @@ def segment_gather(seg: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
                          f"{seg.device}")
     b, s, c = seg.shape
     n = ids.shape[1]
+    plan = segment_gather_plan(b, n, c)
     out = torch.empty((b, n, c), dtype=torch.float32, device=seg.device)
+    ints = plan.as_ints()
+    arr = (ctypes.c_int * len(ints))(*ints)
     fn = kernels.function("segment", "uemda_segment_gather", _GATHER_ARGS)
     with torch.cuda.device(seg.device):
         err = fn(seg.data_ptr(), ids.data_ptr(), int(ids.dtype == torch.int64),
-                 out.data_ptr(), b, n, c, s, kernels.stream_of(seg))
+                 out.data_ptr(), b, n, c, s, ctypes.addressof(arr), len(ints),
+                 kernels.stream_of(seg))
     kernels.check_launch("segment", "uemda_segment_gather", err)
     segment_gather.launches += 1
+    segment_gather.plan = plan
     return out
 
 
 segment_max.launches = segment_sum.launches = segment_gather.launches = 0
 segment_max.route = segment_sum.route = None
+segment_gather.plan = None  # the GatherPlan of the last launch
 
 
 def _flat_ids(sup: torch.Tensor) -> torch.Tensor:
