@@ -192,16 +192,22 @@ def profile_steps(what, step_fn, state, src_it, tgt_it, dev, ms_step, n=3):
 
 # kernel (name part) of each source whose instantiations the [build] lines
 # list one by one: the kernels redesigned for Hopper
-REDESIGNED = {"stem": "", "resblock": "", "insnorm": "backward",
-              "segment": "gather"}
+REDESIGNED = {"stem": "", "resblock": "", "insnorm": "",
+              "segment": "segment_"}
 
 
-def bwd_design(p, hw) -> str:
+def in_design(p, hw) -> str:
     last = hw - (p.cluster - 1) * p.ppc
     return (f"{p.route} route, {p.cb} channels a CTA, a cluster of "
             f"{p.cluster} CTAs splitting H x W ({p.ppc} pixels each, the last "
             f"{max(0, last)}), {p.smem} B of dynamic shared memory, grid "
             f"{p.grid}")
+
+
+def reduce_design(p) -> str:
+    return (f"{p.route} route, {p.tile} pixels a tile (ids and values "
+            f"staged), a table of {p.rows} rows, {p.smem} B of shared "
+            f"memory, grid {p.grid}")
 
 
 def gather_design(p) -> str:
@@ -845,7 +851,9 @@ def main():
         instance_norm_backward,
         instance_norm_backward_plain,
         instance_norm_backward_plan,
+        instance_norm_forward,
         instance_norm_forward_plain,
+        instance_norm_forward_plan,
         instance_norm_plain,
     )
     from uemda_tpu_torch.ops.mine import uvem_mine, uvem_mine_plain
@@ -855,6 +863,7 @@ def main():
         segment_gather_plain,
         segment_max,
         segment_max_plain,
+        segment_reduce_plan,
         segment_sum,
         segment_sum_bound,
         segment_sum_plain,
@@ -922,8 +931,9 @@ def main():
                                              r"([^\n]*?) in the function",
                                              log))):
                 phase("build", f"{name}: ptxas: {msg}")
-    # SASS of the two kernels redesigned for the memory system: instructions,
-    # loop bodies, subroutine calls (a 64-bit division is one)
+    # SASS of the kernels redesigned for the memory system (K1 forward and
+    # backward, K5/K6, K7): instructions, loop bodies, subroutine calls (a
+    # 64-bit division is one)
     for name in ("insnorm", "segment"):
         try:
             found = sass.stats(str(kernels._lib_path(name)), REDESIGNED[name])
@@ -983,6 +993,56 @@ def main():
                       f"pooled tile {sp.tile}, grid {sp.grid}, {sp.smem} B of "
                       "shared memory")
 
+    # K1 forward against its plain version on each of its plan's routes, y
+    # at the tolerances above and the f32 mean and rstd (which the backward
+    # reads) at 1e-5: the flagship's (8, 2048, 32, 32) and the serving
+    # batch of 32 in both dtypes, an odd (3, 96, 20, 28), a cluster of 8 over
+    # 45 x 47 pixels (the last CTA 5 short), 64 x 64, and 128 x 128 (f32 on
+    # the global route: 8 CTAs' parts overflow shared memory). Inputs from a
+    # generator of their own, so the later checks draw what they drew before
+    g8 = torch.Generator(device="cpu").manual_seed(8)
+    fwd_cases = {"flagship": (BATCH, 2048, TILE // 16, TILE // 16),
+                 "serving batch 32": (32, 2048, TILE // 16, TILE // 16),
+                 "odd": (3, 96, 20, 28), "ragged": (2, 96, 45, 47),
+                 "64x64": (2, 64, 64, 64), "global": (1, 32, 128, 128)}
+    fwd_routes = set()
+    for case, shape in fwd_cases.items():
+        xf0 = torch.randn(*shape, generator=g8) + 3.0
+        for dt in (torch.float32, torch.bfloat16):
+            dn = str(dt).split(".")[-1]
+            xf = xf0.to(dev, dt).contiguous(memory_format=CL)
+            yk, mk, rk = instance_norm_forward(xf)
+            yp, mp, rp = instance_norm_forward_plain(xf)
+            torch.cuda.synchronize()
+            atol, rtol = tol["instance_norm"][dn]
+            e = check_close(f"instance_norm {dn} {case}", yk, yp, atol, rtol)
+            em = check_close(f"instance_norm mean {dn} {case}", mk, mp,
+                             1e-5, 1e-5)
+            er = check_close(f"instance_norm rstd {dn} {case}", rk, rp,
+                             1e-5, 1e-5)
+            fp = instance_norm_forward.plan
+            fwd_routes.add(fp.route)
+            phase("kernel", f"instance_norm {dn} {shape}: max abs err y "
+                  f"{e:.3g} (atol {atol}, rtol {rtol}), mean {em:.3g}, rstd "
+                  f"{er:.3g} (1e-5)")
+            phase("kernel", f"instance_norm {dn} {shape} design: "
+                  + in_design(fp, shape[2] * shape[3]))
+            if case == "flagship":
+                # the kernel's statistics feed the backward to the dx of
+                # the plain statistics
+                dyf = torch.randn(*shape, generator=g8).to(dev, dt) \
+                    .contiguous(memory_format=CL)
+                t = 1e-5 if dt == torch.float32 else 1e-2
+                e = check_close(
+                    f"instance_norm_backward {dn} on the forward's statistics",
+                    instance_norm_backward(xf, dyf, mk, rk),
+                    instance_norm_backward_plain(xf, dyf, mp, rp), t, t)
+                phase("kernel", f"instance_norm_backward {dn} {shape} on the "
+                      f"forward kernel's mean and rstd: max abs err {e:.3g} "
+                      f"against the plain statistics' dx (atol {t}, rtol {t})")
+    if fwd_routes != {"smem", "global"}:
+        fail(f"instance_norm: routes {fwd_routes} checked, not both")
+
     # K1 backward against its plain version on the same (x, dy) and the
     # plain f32 statistics, each on its plan's route: the flagship's (8,
     # 2048, 32, 32) in both dtypes (f32 too in shared memory), an odd (3,
@@ -1016,7 +1076,7 @@ def main():
             phase("kernel", f"instance_norm_backward {dn} {shape}: max abs err "
                   f"{e:.3g} (atol {t}, rtol {t})")
             phase("kernel", f"instance_norm_backward {dn} {shape} design: "
-                  + bwd_design(bp, shape[2] * shape[3]))
+                  + in_design(bp, shape[2] * shape[3]))
     if bwd_routes != {"smem", "global"}:
         fail(f"instance_norm_backward: routes {bwd_routes} checked, not both")
 
@@ -1198,8 +1258,59 @@ def main():
               f"{e6:.3g} (exact), random sums at {e6r:.3g} of the f32 bound, "
               f"gather exact, "
               f"{int(nan_g.any(-1).sum())} NaN pixels")
+        phase("kernel", f"segment_max / segment_sum {case} design: "
+              + reduce_design(segment_max.plan))
         phase("kernel", f"segment_gather {case} design: "
               + gather_design(segment_gather.plan))
+    # K5 and K6 on each route of their plan, equal to their plain versions
+    # (K6: one-hot counts exact, random sums within the f32 summation
+    # bound): ISPRS's 6 classes, int64 ids, random ids that no window holds
+    # (the "window" plan sends every tile to the output's atomics) and the
+    # same on a pinned "full" table, S x C over shared memory (10000 x 7;
+    # coherent ids still fit a window), and the pinned "global" route
+    def reduce_case(case, val, ids, s_, plan=None):
+        got = segment_max(val, ids, s_, plan=plan)
+        ref = segment_max_plain(val, ids, s_)
+        oh = F.one_hot(torch.randint(0, val.shape[2], val.shape[:2],
+                                     generator=g8), val.shape[2]).float().to(dev)
+        cnt = segment_sum(oh, ids, s_, plan=plan)
+        ex, bd = segment_sum_bound(val, ids, s_)
+        d = (segment_sum(val, ids, s_, plan=plan).double() - ex).abs()
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            fail(f"segment_max {case}: differs from its plain version")
+        if not torch.equal(cnt, segment_sum_plain(oh, ids, s_)):
+            fail(f"segment_sum {case}: one-hot counts differ")
+        if not bool((d <= bd).all()):
+            fail(f"segment_sum {case}: over the f32 summation bound")
+        p_ = segment_max.plan
+        if segment_sum.plan != p_:
+            fail(f"segment_sum {case}: plan {segment_sum.plan} is not K5's")
+        phase("kernel", f"segment_max / segment_sum {case} "
+              f"{tuple(val.shape)}, {ids.dtype}, S {s_}: max exact, counts "
+              f"exact, sums at {float((d / bd.clamp(min=1e-300)).max()):.3g} "
+              f"of the f32 bound; design: {reduce_design(p_)}")
+        return p_.route
+
+    n_tile_px = TILE * TILE
+    val6 = torch.softmax(torch.randn(BATCH, n_tile_px, 6, generator=g8) * 3, -1) \
+        .to(dev).contiguous()
+    rnd_ids = torch.randint(0, n_seg, (BATCH, n_tile_px), generator=g8,
+                            dtype=torch.int32).to(dev)
+    reduce_routes = {
+        reduce_case("ISPRS C 6", val6, seg_ids, n_seg),
+        reduce_case("int64 ids", seg_val, seg_ids.long(), n_seg),
+        reduce_case("random ids", seg_val, rnd_ids, n_seg),
+        reduce_case("random ids, full table", seg_val, rnd_ids, n_seg,
+                    segment_reduce_plan(BATCH, n_tile_px, nc7, n_seg,
+                                        route="full")),
+        reduce_case("S x C over shared memory", seg_val, seg_ids * 2, 10000),
+        reduce_case("global", seg_val, bad_ids, n_seg,
+                    segment_reduce_plan(BATCH, n_tile_px, nc7, n_seg,
+                                        route="global")),
+    }
+    if reduce_routes != {"window", "full", "global"}:
+        fail(f"segment_max: routes {reduce_routes} checked, not all three")
     # K7 on its direct route (rows wider than 2048 floats) and on the widest
     # staged row, int64 ids, ids outside [0, S): exact, NaN there
     for c_w in (2500, 2048):
@@ -1718,9 +1829,16 @@ def main():
                               config=k4_plans[stage].config,
                               stages=k4_plans[stage].stages,
                               smem=k4_plans[stage].smem)
+        if fn_name == "instance_norm":
+            record[-1].update(plan=dataclasses.asdict(
+                instance_norm_forward.plan))
         if fn_name == "instance_norm_backward":
             record[-1].update(plan=dataclasses.asdict(
                 instance_norm_backward.plan))
+        if fn_name in ("segment_max", "segment_sum"):
+            record[-1].update(plan=dataclasses.asdict(
+                getattr(segment_max if fn_name == "segment_max"
+                        else segment_sum, "plan")))
         if fn_name == "segment_gather":
             record[-1].update(plan=dataclasses.asdict(segment_gather.plan))
         lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
@@ -1729,6 +1847,54 @@ def main():
               f"{plain_ms:.4f} ms, library {lib_txt}, bound "
               f"{bound:.4f} ms ({record[-1]['bound_by']}; {nbytes} B, "
               f"{nops} op)")
+    # the K1 forward's design space at the flagship shape in both dtypes and
+    # at the serving batch of 32 in bf16, each plan held to its plain
+    # version and timed like the kernels above: 32 or 64 channels a CTA,
+    # clusters of 1-8; the plan's own choice first
+    for shape, dn in (((BATCH, 2048, TILE // 16, TILE // 16), "bfloat16"),
+                      ((BATCH, 2048, TILE // 16, TILE // 16), "float32"),
+                      ((32, 2048, TILE // 16, TILE // 16), "bfloat16")):
+        dt = getattr(torch, dn)
+        xs_ = torch.randn(*shape, generator=g8).to(dev, dt) \
+            .contiguous(memory_format=CL)
+        ref_ = instance_norm_plain(xs_)
+        sweep = [None] + [instance_norm_forward_plan(*shape, dt, cb=cb,
+                                                     cluster=k)
+                          for cb in (64, 32) for k in (1, 2, 4, 8)]
+        cells = []
+        for plan in sweep:
+            with torch.no_grad():
+                got = instance_norm_forward(xs_, plan=plan)[0]
+                atol, rtol = tol["instance_norm"][dn]
+                check_close(f"instance_norm {dn} sweep", got, ref_, atol, rtol)
+                p_ = instance_norm_forward.plan
+                t_ = kernel_ms(lambda: instance_norm_forward(xs_, plan=plan))
+            cells.append(f"{'plan: ' if plan is None else ''}{p_.route} cb "
+                         f"{p_.cb} cluster {p_.cluster} {p_.smem // 1024} KB "
+                         f"{t_:.4f} ms")
+        phase("time", f"instance_norm {dn} {shape} design sweep: "
+              + "; ".join(cells))
+    # K5's design space at 2urban: tiles of 512-2048 pixels on the window
+    # route, the full table and the global route, each held to the plain
+    # version; the plan's own choice first
+    ref_ = segment_max_plain(sv, sid, n_seg)
+    sweep = [None] + [segment_reduce_plan(BATCH, TILE * TILE, nc7, n_seg,
+                                          tile=t) for t in (512, 2048)] + [
+        segment_reduce_plan(BATCH, TILE * TILE, nc7, n_seg, route=r)
+        for r in ("full", "global")]
+    cells = []
+    for plan in sweep:
+        got = segment_max(sv, sid, n_seg, plan=plan)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref_):
+            fail(f"segment_max sweep {plan}: differs from its plain version")
+        p_ = segment_max.plan
+        t_ = kernel_ms(lambda: segment_max(sv, sid, n_seg, plan=plan))
+        cells.append(f"{'plan: ' if plan is None else ''}{p_.route} tile "
+                     f"{p_.tile} rows {p_.rows} {p_.smem // 1024} KB "
+                     f"{t_:.4f} ms")
+    phase("time", f"segment_max float32 ({BATCH}, {TILE * TILE}, {nc7}) S "
+          f"{n_seg} design sweep: " + "; ".join(cells))
     # the K1 backward's design space at the flagship shape, each plan held
     # to its plain version and timed like the kernels above, in both dtypes:
     # 32 or 64 channels a CTA, clusters of 1-8; the plan's own choice first

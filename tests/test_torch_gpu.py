@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card, against their plain versions: the
 odd shapes, both dtypes and both instance-norm routes (forward and
-backward, the backward's clusters with a short last CTA) that
+backward, each with pinned clusters that leave a short last CTA) that
 chip_smoke.py's shapes do not reach, the crop kernel's vector and element
-routes (with and without the clamp), both routes of each segment kernel, the mining kernel in every layout and branch, the fused
+routes (with and without the clamp), every route of each segment kernel,
+the mining kernel in every layout and branch, the fused
 bottleneck kernel in both dtypes at odd shapes and dilations, the int8 conv
 on the card against the CPU, the fused and int8 fast paths, training
 steps that go through the kernels, and the card as the entry points'
@@ -14,6 +15,8 @@ repository's conftest imports JAX, so on such a machine run::
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -q
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -28,6 +31,7 @@ from uemda_tpu_torch.ops.insnorm import (
     instance_norm_backward_plan,
     instance_norm_forward,
     instance_norm_forward_plain,
+    instance_norm_forward_plan,
     instance_norm_plain,
 )
 from uemda_tpu_torch.ops.mine import uvem_mine, uvem_mine_plain
@@ -36,6 +40,7 @@ from uemda_tpu_torch.ops.segment import (
     segment_gather_plain,
     segment_max,
     segment_max_plain,
+    segment_reduce_plan,
     segment_sum,
     segment_sum_bound,
     segment_sum_plain,
@@ -79,14 +84,85 @@ def _close(got, ref, dtype):
 @pytest.mark.parametrize("shape", [(2, 256, 8, 8), (1, 96, 64, 64),
                                    (3, 2048, 32, 32)])
 def test_instance_norm_kernel(dev, dtype, shape):
-    """Shared-memory slab and, at 64x64 (slab over 200 KB), the route that
-    reads global memory again; high-mean channels (two-pass variance)."""
+    """The K1 forward on its plan, high-mean channels (two-pass variance):
+    an 8 x 8 map in one CTA a slab, 64 x 64 split 8 ways, and the flagship
+    width."""
     x = _randn(shape, 1, dev, dtype, shift=3.0).contiguous(memory_format=CL)
     n = instance_norm.launches
     y = instance_norm(x)
     assert instance_norm.launches == n + 1
     assert y.is_contiguous(memory_format=CL)
     _close(y, instance_norm_plain(x), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,route", [
+    ((8, 2048, 32, 32), "smem"), ((32, 2048, 32, 32), "smem"),
+    ((3, 96, 20, 28), "smem"), ((2, 96, 45, 47), "smem"),
+    ((2, 64, 64, 64), "smem"), ((1, 32, 128, 128), None),
+    ((1, 32, 192, 192), "global")])
+def test_instance_norm_forward_kernel_routes(dev, dtype, shape, route):
+    """The K1 forward against its plain version on its plan's route, y at
+    f32 1e-5 / bf16 1.6e-2 and the f32 mean and rstd at 1e-5: the flagship
+    and the serving batch of 32, an odd shape, a cluster of 8 over 45 x 47
+    pixels (the last CTA 5 short), 64 x 64, and 128 x 128 (shared memory in
+    bf16, the global route in f32: 8 CTAs' parts overflow it) and 192 x 192
+    (global in both); the plan reaches the launcher."""
+    x = _randn(shape, 21, dev, dtype, shift=3.0).contiguous(memory_format=CL)
+    b, c, h, w = shape
+    plan = instance_norm_forward_plan(b, c, h, w, dtype)
+    n = instance_norm.launches
+    y, mean, rstd = instance_norm_forward(x)
+    assert instance_norm.launches == n + 1
+    assert instance_norm_forward.plan == plan
+    assert plan.route == (route or ("smem" if dtype == torch.bfloat16
+                                    else "global"))
+    if shape == (2, 96, 45, 47):
+        assert plan.cluster == 8 and h * w - 7 * plan.ppc == plan.ppc - 5
+    y_ref, mean_ref, rstd_ref = instance_norm_forward_plain(x)
+    _close(y, y_ref, dtype)
+    for got, ref in ((mean, mean_ref), (rstd, rstd_ref)):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("cb", [32, 64])
+def test_instance_norm_forward_pinned_clusters(dev, cluster, cb):
+    """9 x 7 pixels split 1-8 ways (all but 1 and 3 leave a short last
+    CTA) at 32 and 64 channels a CTA, in both dtypes: the pinned plan is
+    the one launched, and y, mean and rstd match the plain version."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x = _randn((2, 64, 9, 7), 22, dev, dtype, shift=3.0) \
+            .contiguous(memory_format=CL)
+        plan = instance_norm_forward_plan(2, 64, 9, 7, dtype, cb=cb,
+                                          cluster=cluster)
+        y, mean, rstd = instance_norm_forward(x, plan=plan)
+        assert instance_norm_forward.plan == plan
+        y_ref, mean_ref, rstd_ref = instance_norm_forward_plain(x)
+        _close(y, y_ref, dtype)
+        for got, ref in ((mean, mean_ref), (rstd, rstd_ref)):
+            np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                       rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 2048, 32, 32), (2, 96, 45, 47),
+                                   (1, 32, 128, 128)])
+def test_instance_norm_forward_statistics_feed_the_backward(dev, dtype,
+                                                            shape):
+    """The K1 backward on the forward kernel's mean and rstd gives the dx of
+    the plain statistics, within the backward's f32 1e-5 / bf16 1e-2."""
+    x = _randn(shape, 23, dev, dtype, shift=3.0).contiguous(memory_format=CL)
+    dy = _randn(shape, 24, dev, dtype).contiguous(memory_format=CL)
+    _, mean, rstd = instance_norm_forward(x)
+    _, mean_ref, rstd_ref = instance_norm_forward_plain(x)
+    got = instance_norm_backward(x, dy, mean, rstd)
+    ref = instance_norm_backward_plain(x, dy, mean_ref, rstd_ref)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -131,6 +207,14 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         instance_norm(x[:, :48].contiguous(memory_format=CL))
     with pytest.raises(TypeError):
         instance_norm(x.half().contiguous(memory_format=CL))
+    shifted = torch.empty(x.numel() + 1, device=dev)[1:].view(1, 8, 8, 64) \
+        .permute(0, 3, 1, 2)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        instance_norm(shifted)
+    bad = instance_norm_forward_plan(1, 64, 8, 8, torch.float32, cluster=2)
+    bad = dataclasses.replace(bad, ppc=bad.ppc + 1)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        instance_norm_forward(x.contiguous(memory_format=CL), plan=bad)
     with pytest.raises(ValueError, match="at most 16"):
         tail_upsample_softmax_mean(
             _randn((1, 34, 4, 4), 7, dev, torch.float32)
@@ -335,7 +419,7 @@ def _grid_sup(b, h, w, cell, seed):
     (1, 40, 40, 11, 8, 0),         # C > 8: two channel passes
     (2, 17, 15, 1, 4, 0),          # C = 1; 255 pixels: one short K7 CTA
     (3, 31, 29, 16, 6, 2),         # C = 16: K7's two lanes a pixel
-    # ... and a table over the 227 KB of shared memory: global atomics
+    # ... and S x C over the 227 KB of shared memory: a window of the table
     (2, 128, 128, 7, 2, 5000),
 ])
 def test_segment_kernels(dev, ids_dtype, case):
@@ -354,7 +438,8 @@ def test_segment_kernels(dev, ids_dtype, case):
     val = torch.from_numpy(r.normal(size=(b, h * w, c)).astype(np.float32)).to(dev)
     n5, n6, n7 = segment_max.launches, segment_sum.launches, segment_gather.launches
     got = segment_max(val, ids, s)
-    assert segment_max.route == ("global" if extra > 1000 else "shared")
+    assert segment_max.route == ("window" if extra > 1000 else "full")
+    assert segment_max.plan == segment_reduce_plan(b, h * w, c, s, ids_dtype)
     ref = segment_max_plain(val, ids, s)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
@@ -398,6 +483,44 @@ def test_segment_gather_kernel_wide_rows(dev, ids_dtype):
         assert not torch.isnan(got[0]).any()
 
 
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", ["random window", "random full", "global",
+                                  "isprs", "coherent tile 512"])
+def test_segment_reduce_routes(dev, ids_dtype, case):
+    """K5 and K6 on each route, equal to their plain versions (K6: one-hot
+    counts exact, random sums within the f32 summation bound), with ids out
+    of range: random ids that no window holds (every tile to the output's
+    atomics), the same on a pinned full table, the pinned global route,
+    ISPRS's 6 classes, and a pinned tile of 512 pixels; the plan reaches
+    the launcher."""
+    b, h, w, s = 2, 96, 128, 1000
+    c = 6 if case == "isprs" else 7
+    sup, _ = _grid_sup(b, h, w, 4, seed=3)  # 24 x 32 cells, top id 768
+    r = np.random.default_rng(31)
+    if case.startswith("random"):
+        sup = r.integers(0, s, (b, h, w))
+    sup[1, 0, :3] = [s, s + 9, -1]
+    ids = torch.from_numpy(sup.reshape(b, -1)).to(dev, ids_dtype)
+    pin = {"random full": dict(route="full"), "global": dict(route="global"),
+           "coherent tile 512": dict(tile=512)}.get(case)
+    plan = segment_reduce_plan(b, h * w, c, s, ids_dtype, **(pin or {}))
+    assert plan.route == {"random full": "full", "global": "global"}.get(
+        case, "window")
+    val = torch.from_numpy(r.normal(size=(b, h * w, c)).astype(np.float32)).to(dev)
+    got = segment_max(val, ids, s, plan=plan if pin else None)
+    assert segment_max.plan == plan
+    assert torch.equal(got, segment_max_plain(val, ids, s))
+    oh = torch.nn.functional.one_hot(
+        torch.from_numpy(r.integers(0, c, (b, h * w))), c).float().to(dev)
+    assert torch.equal(segment_sum(oh, ids, s, plan=plan if pin else None),
+                       segment_sum_plain(oh, ids, s))
+    got_s = segment_sum(val, ids, s, plan=plan if pin else None)
+    assert segment_sum.plan == plan
+    exact, bound = segment_sum_bound(val, ids, s)
+    torch.cuda.synchronize()
+    assert bool(((got_s.double() - exact).abs() <= bound).all())
+
+
 def test_segment_kernels_refuse_what_they_do_not_take(dev):
     val = torch.zeros(2, 16, 7, device=dev)
     ids = torch.zeros(2, 16, dtype=torch.int32, device=dev)
@@ -413,6 +536,9 @@ def test_segment_kernels_refuse_what_they_do_not_take(dev):
         segment_gather(val, ids[:1])
     with pytest.raises(RuntimeError, match="CUDA or CPU"):
         segment_gather(val, ids.cpu())
+    bad = segment_reduce_plan(2, 16, 7, 4)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        segment_max(val, ids, 4, plan=dataclasses.replace(bad, rows=3))
 
 
 def test_align_step_goes_through_the_kernels(dev):

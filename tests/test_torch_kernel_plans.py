@@ -27,7 +27,9 @@ from uemda_tpu_torch.models.resnet import RESNET_SPECS, stage_plan
 from uemda_tpu_torch.ops import resblock, segment, stem
 from uemda_tpu_torch.ops.insnorm import (
     bwd_static_smem,
+    fwd_static_smem,
     instance_norm_backward_plan,
+    instance_norm_forward_plan,
 )
 from uemda_tpu_torch.ops.resblock import (
     SMEM_LIMIT,
@@ -35,7 +37,11 @@ from uemda_tpu_torch.ops.resblock import (
     bottleneck_plan,
     wgmma_layout,
 )
-from uemda_tpu_torch.ops.segment import segment_gather_plan
+from uemda_tpu_torch.ops.segment import (
+    reduce_smem,
+    segment_gather_plan,
+    segment_reduce_plan,
+)
 from uemda_tpu_torch.ops.stem import stem_plan
 
 CSRC = Path(resblock.__file__).resolve().parents[1] / "kernels" / "csrc"
@@ -249,24 +255,25 @@ def test_stem_smem_by_hand():
 
 # --- K1 backward ----------------------------------------------------------
 
-def _check_bwd_plan(p, b, c, hw, dtype):
+def _check_bwd_plan(p, b, c, hw, dtype, inputs=2, static=bwd_static_smem):
     """The plan's bounds, and that its grid covers every (sample, channel,
-    pixel) of a (b, c, hw) slab once, as insnorm.cu's backward kernel maps
-    CTAs and threads: blockIdx.x -> (chunk blockIdx.x / cluster, rank
-    blockIdx.x % cluster), pixels [rank ppc, min(hw, (rank + 1) ppc));
-    thread t -> 16-byte column t % VPR of pixels t / VPR, + G, ..."""
+    pixel) of a (b, c, hw) slab once, as insnorm.cu's kernels (the backward
+    staging x and dy; the forward, ``inputs`` 1, x) map CTAs and threads:
+    blockIdx.x -> (chunk blockIdx.x / cluster, rank blockIdx.x % cluster),
+    pixels [rank ppc, min(hw, (rank + 1) ppc)); thread t -> 16-byte column
+    t % VPR of pixels t / VPR, + G, ..."""
     esz = 2 if dtype == BF16 else 4
     assert p.cb in (32, 64) and c % p.cb == 0
     assert 1 <= p.cluster <= 8 and p.grid[0] % p.cluster == 0
     assert p.grid == (p.cluster * c // p.cb, b) and b <= 65535
     assert p.ppc == -(-hw // p.cluster) and len(p.as_ints()) == 7
     if p.route == "smem":
-        assert p.smem == 2 * p.ppc * p.cb * esz
-        assert p.smem + bwd_static_smem(p.cb) <= SMEM_LIMIT
+        assert p.smem == inputs * p.ppc * p.cb * esz
+        assert p.smem + static(p.cb) <= SMEM_LIMIT
     else:
         assert p.route == "global" and p.smem == 0
         # global only where no width fits at this cluster
-        assert 2 * p.ppc * 32 * esz + bwd_static_smem(32) > SMEM_LIMIT
+        assert inputs * p.ppc * 32 * esz + static(32) > SMEM_LIMIT
     # the grid's x index is a one-to-one map onto (chunk, rank)
     gx = np.arange(p.grid[0])
     chunk, rank = gx // p.cluster, gx % p.cluster
@@ -366,6 +373,297 @@ def test_k1_backward_static_smem_matches_the_cuda_source():
                  "constexpr int kThreads = 256;"):
         assert decl in src
     assert bwd_static_smem(64) == (2 * 8 + 2 + 2) * 64 * 4
+
+
+# --- K1 forward -----------------------------------------------------------
+
+def _check_fwd_plan(p, b, c, hw, dtype):
+    return _check_bwd_plan(p, b, c, hw, dtype, 1, fwd_static_smem)
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("output_stride", [8, 16, 32])
+@pytest.mark.parametrize("c,batch", [(512, 8), (2048, 8), (2048, 32)])
+def test_k1_forward_plans_of_the_training_and_serving_shapes(c, batch,
+                                                             output_stride,
+                                                             dtype):
+    """The feature the instance norm takes, on 512^2 crops at output
+    stride 8, 16 and 32: ResNet-18/34's 512 channels and ResNet-50/101's
+    2048 at the training batch of 8, and 2048 at the serving batch of 32;
+    every one on the shared-memory route."""
+    side = TILE // output_stride
+    p = instance_norm_forward_plan(batch, c, side, side, dtype)
+    _check_fwd_plan(p, batch, c, side * side, dtype)
+    assert p.route == "smem"
+
+
+# tests/test_torch_gpu.py: the K1 forward's shapes and the route each takes
+GPU_K1_FWD = [((2, 256, 8, 8), "smem", "smem"), ((1, 96, 64, 64), "smem", "smem"),
+              ((3, 2048, 32, 32), "smem", "smem"),
+              ((8, 2048, 32, 32), "smem", "smem"),
+              ((32, 2048, 32, 32), "smem", "smem"),
+              ((3, 96, 20, 28), "smem", "smem"), ((2, 96, 45, 47), "smem", "smem"),
+              ((2, 64, 64, 64), "smem", "smem"), ((2, 64, 9, 7), "smem", "smem"),
+              ((1, 32, 128, 128), "smem", "global"),
+              ((1, 32, 192, 192), "global", "global")]
+
+
+@pytest.mark.parametrize("shape,bf16_route,f32_route", GPU_K1_FWD)
+def test_k1_forward_plans_of_the_gpu_test_shapes(shape, bf16_route,
+                                                 f32_route):
+    b, c, h, w = shape
+    for dtype, route in ((BF16, bf16_route), (F32, f32_route)):
+        p = instance_norm_forward_plan(b, c, h, w, dtype)
+        _check_fwd_plan(p, b, c, h * w, dtype)
+        assert p.route == route
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 3, 4, 8])
+def test_k1_forward_pinned_clusters_cover_a_ragged_slab(cluster):
+    """9 x 7 = 63 pixels split 2, 4 or 8 ways leaves a short last CTA; a
+    cluster of 3 splits it evenly."""
+    for dtype in (BF16, F32):
+        for cb in (32, 64):
+            p = instance_norm_forward_plan(2, 64, 9, 7, dtype, cb=cb,
+                                           cluster=cluster)
+            nps = _check_fwd_plan(p, 2, 64, 63, dtype)
+            assert sum(nps) == 63
+            assert nps[-1] == 63 - (cluster - 1) * -(-63 // cluster)
+
+
+def test_k1_forward_plan_of_the_flagship_by_hand():
+    """(8, 2048, 32, 32): bf16 in 64-channel chunks, 2 CTAs of 512 pixels a
+    slab, 64 KB of x each; f32 the same 64 KB in 4 CTAs of 256 pixels; the
+    serving batch of 32 the same clusters (512 and 2048 CTAs fill the card
+    already). f32 at 128 x 128 with 32 channels overflows shared memory
+    even split 8 ways (2048 pixels x 128 B = 256 KB a CTA): the global
+    route; bf16 there takes 128 KB a CTA."""
+    p = instance_norm_forward_plan(8, 2048, 32, 32, BF16)
+    assert (p.route, p.cb, p.cluster, p.ppc, p.smem, p.grid) == (
+        "smem", 64, 2, 512, 65536, (64, 8))
+    q = instance_norm_forward_plan(8, 2048, 32, 32, F32)
+    assert (q.route, q.cb, q.cluster, q.ppc, q.smem, q.grid) == (
+        "smem", 64, 4, 256, 65536, (128, 8))
+    for dtype, k in ((BF16, 2), (F32, 4)):
+        r = instance_norm_forward_plan(32, 2048, 32, 32, dtype)
+        assert (r.cluster, r.smem, r.grid) == (k, 65536, (32 * k, 32))
+    g = instance_norm_forward_plan(1, 32, 128, 128, F32)
+    assert (g.route, g.cb, g.cluster, g.ppc, g.smem) == (
+        "global", 32, 8, 2048, 0)
+    assert instance_norm_forward_plan(1, 32, 128, 128, BF16).smem == 131072
+
+
+def test_k1_forward_static_smem_matches_the_cuda_source():
+    """insnorm.cu's forward declares red[1][WARPS][CB], part[2][CB] and
+    stat[2][CB] f32 with WARPS = 256 / 32: the plan's fwd_static_smem; and
+    the launcher reads the plan the plan's as_ints() writes."""
+    src = (CSRC / "insnorm.cu").read_text()
+    fwd = src[src.index("instance_norm_kernel(const T*"):
+              src.index("instance_norm_backward_kernel(")]
+    for decl in ("__shared__ float red[1][WARPS][CB];",
+                 "__shared__ float part[2][CB];",
+                 "__shared__ float stat[2][CB];"):
+        assert decl in fwd
+    assert "constexpr int WARPS = kThreads / 32;" in src
+    assert fwd_static_smem(64) == (8 + 2 + 2) * 64 * 4
+    assert "read_plan(plan, n, B, HW, C, is_bf16 ? 2 : 4, 1, &p)" in src
+    assert "read_plan(plan, n, B, HW, C, is_bf16 ? 2 : 4, 2, &p)" in src
+
+
+def _rank_order_instance_norm(x, cluster, eps=1e-5):
+    """The forward kernel's arithmetic in numpy f32 on an NHWC array: each
+    (sample, channel)'s H x W split into ``cluster`` parts of ceil(HW /
+    cluster) pixels (the last short or empty), each part's sum of x, the
+    parts' sums added in rank order for the mean; then each part's sum of
+    squared deviations about that mean, added in rank order for the
+    variance; rstd = 1 / sqrt(var + eps); y = (x - mean) * rstd."""
+    b, h, w, c = x.shape
+    hw = h * w
+    flat = x.reshape(b, hw, c).astype(np.float32)
+    ppc = -(-hw // cluster)
+    parts = [flat[:, r * ppc:min(hw, (r + 1) * ppc)] for r in range(cluster)]
+
+    def rank_order(terms):
+        t = np.zeros((b, c), np.float32)
+        for part in terms:
+            t = t + part.sum(axis=1, dtype=np.float32)
+        return t
+
+    mean = rank_order(parts) / np.float32(hw)
+    var = rank_order([np.square(p - mean[:, None]) for p in parts]) \
+        / np.float32(hw)
+    rstd = np.float32(1.0) / np.sqrt(var + np.float32(eps))
+    return ((flat - mean[:, None]) * rstd[:, None]).reshape(b, h, w, c)
+
+
+@pytest.mark.parametrize("cluster", [3, 8])
+def test_k1_rank_order_two_pass_statistics_match_the_jax_reference(cluster):
+    """A ragged split (45 x 47 pixels in 3 parts of 705, or 8 of 265 with
+    the last 5 short) of channels of mean 2 and deviation 3 (the JAX
+    kernel's test data, tests/test_pallas_insnorm.py): the kernel's
+    rank-order two-pass statistics modelled in numpy match
+    ``uemda_tpu.models.deeplabv2.instance_norm`` at 1e-5 (f32)."""
+    import jax.numpy as jnp
+
+    from uemda_tpu.models.deeplabv2 import instance_norm as jax_instance_norm
+
+    x = np.random.default_rng(cluster).normal(
+        2.0, 3.0, size=(2, 45, 47, 64)).astype(np.float32)
+    p = instance_norm_forward_plan(2, 64, 45, 47, F32, cluster=cluster)
+    assert p.ppc * (cluster - 1) < 45 * 47 <= p.ppc * cluster
+    got = _rank_order_instance_norm(x, p.cluster)
+    ref = np.asarray(jax_instance_norm(jnp.asarray(x)))
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
+
+
+# --- K5 / K6 ----------------------------------------------------------------
+
+def _reduce_tiles(p, ids_np, s):
+    """segment.cu's K5/K6 CTAs on plan p, in numpy: each tile's pixels once;
+    on a table route its window (lowest valid id lo, top id, highest id hi
+    below top: rows lo..hi and one for top) when it fits p.rows, else the
+    output's atomics. Returns (pixels covered, tiles on the table, the
+    windows' row counts, the segment max of ``ids_np`` as the table rows
+    would hold it, for values val = ids_np-derived)."""
+    b, n = ids_np.shape
+    covered = np.zeros((b, n), np.int64)
+    on_table, needs = 0, []
+    for bi in range(p.grid[1]):
+        for bx in range(p.grid[0]):
+            p0, p1 = bx * p.tile, min(n, (bx + 1) * p.tile)
+            assert p1 > p0
+            covered[bi, p0:p1] += 1
+            t = ids_np[bi, p0:p1]
+            valid = t[(t >= 0) & (t < s)]
+            if p.route == "global" or valid.size == 0:
+                continue
+            lo, top = valid.min(), valid.max()
+            below = valid[valid < top]
+            hi = below.max() if below.size else lo - 1
+            need = hi - lo + 2
+            needs.append(need)
+            if need <= p.rows:
+                on_table += 1
+                # every valid id maps to one row in [0, need)
+                rows = np.where(valid < top, valid - lo, need - 1)
+                assert rows.min() >= 0 and rows.max() < need
+                assert len(np.unique(rows)) == len(np.unique(valid))
+    return covered, on_table, needs
+
+
+def _check_reduce_plan(p, b, n, c, s, id_bytes):
+    assert p.route in ("full", "window", "global")
+    assert p.grid == (-(-n // p.tile), b) and len(p.as_ints()) == 6
+    assert p.smem == reduce_smem(p.tile, c, id_bytes, p.rows)
+    assert p.smem + segment.REDUCE_STATIC_SMEM <= SMEM_LIMIT
+    assert p.rows == {"full": s, "global": 0}.get(p.route, p.rows)
+    if p.route == "window":
+        assert 1 <= p.rows < s
+
+
+def _urban_ids(b, seed=0):
+    """2urban's stage-2 maps: crops of 512^2 from a 1024^2 grid of
+    16-pixel superpixels (ids 0-4095, the boundary pixels 4096)."""
+    from uemda_tpu_torch.datasets.synthetic import grid_superpixels
+
+    grid = grid_superpixels(2 * TILE)
+    r = np.random.default_rng(seed)
+    ys, xs = r.integers(0, TILE + 1, b), r.integers(0, TILE + 1, b)
+    return np.stack([grid[y:y + TILE, x:x + TILE].reshape(-1)
+                     for y, x in zip(ys, xs)])
+
+
+@pytest.mark.parametrize("c,ids_dtype", [(7, torch.int32), (6, torch.int32),
+                                         (7, torch.int64)])
+def test_k5_plan_of_2urban_and_isprs_by_hand(c, ids_dtype):
+    """(8, 512^2) values, S 4128: a tile of 32 KB of ids and values (1024
+    pixels at C 7 with int32 ids, 1168 at C 6, 904 with int64 ids), a
+    window of the 8 KB table's rows (292 at C 7, 341 at C 6), 4 KB a CTA
+    more than the staging; every tile of the 2urban maps fits its window,
+    which needs at most two rows of 64-wide superpixel ids and the top
+    id's row, and every pixel is in one tile."""
+    idb = 4 if ids_dtype == torch.int32 else 8
+    p = segment_reduce_plan(8, TILE * TILE, c, 4128, ids_dtype)
+    tile = {(7, 4): 1024, (6, 4): 1168, (7, 8): 904}[(c, idb)]
+    rows = 8192 // (4 * c)
+    assert (p.route, p.tile, p.rows, p.grid) == (
+        "window", tile, rows, (-(-TILE * TILE // tile), 8))
+    _check_reduce_plan(p, 8, TILE * TILE, c, 4128, idb)
+    assert p.smem == ((tile * idb + 31) & ~15) + ((tile * c * 4 + 31) & ~15) \
+        + rows * c * 4
+    ids = _urban_ids(8)
+    covered, on_table, needs = _reduce_tiles(p, ids, 4128)
+    assert (covered == 1).all()
+    assert on_table == p.grid[0] * p.grid[1]
+    assert max(needs) <= 64 + 33 + 1
+
+
+def test_k5_plans_of_random_ids_and_wide_s():
+    """Random ids in [0, 4128) overflow every window (each tile holds ~870
+    of them); the pinned full table holds all 4128 rows; S x C over the
+    shared memory (10000 x 7) keeps the window route, which the 2urban
+    maps' ids spread 2x fit; the pinned global route has no table."""
+    r = np.random.default_rng(1)
+    rnd = r.integers(0, 4128, (2, TILE * TILE))
+    p = segment_reduce_plan(2, TILE * TILE, 7, 4128)
+    covered, on_table, needs = _reduce_tiles(p, rnd, 4128)
+    assert (covered == 1).all() and on_table == 0 and min(needs) > p.rows
+    f = segment_reduce_plan(2, TILE * TILE, 7, 4128, route="full")
+    _check_reduce_plan(f, 2, TILE * TILE, 7, 4128, 4)
+    assert f.rows == 4128 and f.smem == 4128 * 28 + 4128 + 28688 - 16
+    covered, on_table, _ = _reduce_tiles(f, rnd, 4128)
+    assert (covered == 1).all() and on_table == f.grid[0] * f.grid[1]
+    w = segment_reduce_plan(2, TILE * TILE, 7, 10000)
+    assert 10000 * 7 * 4 > SMEM_LIMIT and w.route == "window"
+    _check_reduce_plan(w, 2, TILE * TILE, 7, 10000, 4)
+    _, on_table, _ = _reduce_tiles(w, _urban_ids(2) * 2, 10000)
+    assert on_table == w.grid[0] * w.grid[1]
+    g = segment_reduce_plan(2, TILE * TILE, 7, 4128, route="global")
+    _check_reduce_plan(g, 2, TILE * TILE, 7, 4128, 4)
+    assert g.rows == 0 and g.smem == 4128 + 28688 - 16
+
+
+@pytest.mark.parametrize("b,n,c,s", [(3, 33 * 47, 6, 60), (2, 64 * 96, 7, 25),
+                                     (1, 40 * 40, 11, 26), (2, 17 * 15, 1, 21),
+                                     (3, 31 * 29, 16, 32), (2, 128 * 128, 7, 9097),
+                                     (2, 96 * 128, 7, 1000), (1, 100, 5000, 3)])
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+def test_k5_plans_of_the_gpu_test_shapes_cover_every_pixel_once(b, n, c, s,
+                                                                ids_dtype):
+    idb = 4 if ids_dtype == torch.int32 else 8
+    for route in (None, "full", "global"):
+        try:
+            p = segment_reduce_plan(b, n, c, s, ids_dtype, route=route)
+        except ValueError:  # a full table over the shared memory
+            assert route == "full" and reduce_smem(
+                segment_reduce_plan(b, n, c, s, ids_dtype).tile, c, idb,
+                s) > SMEM_LIMIT - segment.REDUCE_STATIC_SMEM
+            continue
+        _check_reduce_plan(p, b, n, c, s, idb)
+        ids = np.random.default_rng(n).integers(-1, s + 1, (b, n))
+        covered, _, _ = _reduce_tiles(p, ids, s)
+        assert (covered == 1).all()
+        if route is None:
+            assert p.route == ("full" if s <= max(64, 8192 // (4 * c))
+                               else "window")
+
+
+def test_k5_launcher_bounds_match_the_cuda_source():
+    """segment.cu's reduce_smem, thread count, run length and static red
+    array are the plan's; its launcher refuses a route without its rows."""
+    src = (CSRC / "segment.cu").read_text()
+    for text in ("(static_cast<long long>(tile) * id_bytes + 31) & ~15LL",
+                 "(static_cast<long long>(tile) * C * 4 + 31) & ~15LL",
+                 "return ids + vals + static_cast<long long>(rows) * C * 4;",
+                 "constexpr int kThreads = 256;",
+                 f"constexpr int kRun = {segment.REDUCE_RUN};",
+                 "__shared__ int red[WARPS];",
+                 "(route == 2 ? rows != S : route == 1 ? rows < 1 || rows >= S "
+                 ": rows != 0)"):
+        assert text in src
+    assert segment.REDUCE_THREADS == 256
+    assert segment.REDUCE_STATIC_SMEM == 4 * 256 // 32
+    assert segment.REDUCE_ROUTES == {"full": 2, "window": 1, "global": 0}
 
 
 # --- K7 ---------------------------------------------------------------------

@@ -15,6 +15,7 @@ never loaded. Nothing here runs at import: the CPU-only test host has no
 ``nvcc`` and imports every module.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -34,6 +35,8 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[tuple, ctypes._CFuncPtr] = {}
+_plans: Dict[tuple, tuple] = {}
 _sms: Dict[int, int] = {}
 
 
@@ -89,8 +92,12 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:
 
 
 def function(lib: str, fn: str, argtypes: Sequence) -> ctypes._CFuncPtr:
-    """The C launcher ``fn`` of ``csrc/<lib>.cu``, building it if needed.
-    Every launcher returns its ``cudaError_t`` as an int."""
+    """The C launcher ``fn`` of ``csrc/<lib>.cu``, building it if needed,
+    set up once (later calls return it without taking the lock). Every
+    launcher returns its ``cudaError_t`` as an int."""
+    f = _fns.get((lib, fn))
+    if f is not None:
+        return f
     with _lock:
         if lib not in _libs:
             path = _lib_path(lib)
@@ -100,9 +107,27 @@ def function(lib: str, fn: str, argtypes: Sequence) -> ctypes._CFuncPtr:
             _libs[lib].uemda_error_string.restype = ctypes.c_char_p
             _libs[lib].uemda_error_string.argtypes = [ctypes.c_int]
         f = getattr(_libs[lib], fn)
-    f.argtypes = list(argtypes)
-    f.restype = ctypes.c_int
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+        _fns[(lib, fn)] = f
     return f
+
+
+def cached_plan(key, make):
+    """(plan, the ctypes int array of its ``as_ints()``) for ``key``, made
+    by ``make()`` at the key's first launch only: a launch plan depends on
+    shapes, dtypes and the card alone."""
+    hit = _plans.get(key)
+    if hit is None:
+        plan = make()
+        hit = _plans[key] = (plan, plan_ints(plan))
+    return hit
+
+
+def plan_ints(plan):
+    """The ctypes int array a C launcher reads ``plan`` from."""
+    ints = plan.as_ints()
+    return (ctypes.c_int * len(ints))(*ints)
 
 
 def check_launch(lib: str, fn: str, err: int) -> None:
@@ -125,6 +150,14 @@ def sm_count(device: torch.device) -> int:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_device(t: torch.Tensor):
+    """A context that makes ``t``'s card the current device for a launch;
+    nothing to do (and no host time spent switching) where it is already."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
 
 
 def check_cuda_input(t: torch.Tensor, name: str, ndim: int = 4,

@@ -14,48 +14,47 @@
 // far below the card's ~295 flop/byte ridge: the floor is one read of each
 // input and one write of the output at 3.35 TB/s.
 //
-// Forward design: one block per (sample, chunk of CB channels). The block
-// stages the whole (H*W, CB) slab in shared memory (32x32 px x 64 bf16
-// channels = 128 KB of the 227 KB a block may use) while it sums for the
-// mean, takes the mean of squared deviations from shared memory (two-pass f32
-// statistics -- never E[x^2]-E[x]^2, which cancels catastrophically for
-// high-mean, low-variance channels, models/deeplabv2.py:35-37), and writes
-// the normalized slab once, rounded once to the storage type. When the slab
-// does not fit (large maps), the same kernel reads global memory again for
-// each pass instead (SMEM=false): three reads, still no library call. It
-// also writes the f32 mean and rstd of every (sample, channel), 8 bytes per
-// channel, which the backward reads instead of recomputing them: its xhat is
-// then bit for bit the forward's.
+// Design, the same for both. Each (sample, chunk of CB channels) slab needs
+// sums over all of H x W before it can write any output, and each input
+// should come from device memory once. The slab's H x W is split across a
+// thread block cluster of `cluster` CTAs (at most 8, the portable size),
+// each taking ppc = ceil(H*W / cluster) consecutive pixels (the last may
+// hold fewer, or none, and still joins every barrier). A CTA copies its part
+// of the inputs into shared memory with 16-byte cp.async copies, all issued
+// before the first wait (tens of KB in flight a CTA, where one CTA a slab
+// with 2-byte loads kept ~1 KB in flight a SM; the bf16 forward waits for
+// them in four groups and sums each as it lands), and forms its partial
+// per-channel sums: 16 bytes a thread a step, a warp shuffle, then the warps
+// through shared memory (cta_sums). The CTAs exchange the partial sums
+// through distributed shared memory (cluster_sums: map_shared_rank after a
+// cluster barrier), each adding them in rank order, so every CTA of the
+// cluster holds the same sums. Each CTA then writes its part of the output
+// from shared memory with 16-byte stores. A part too large for shared
+// memory even split 8 ways takes the global-memory route of the same kernel
+// (SMEM=false): the same cluster split, with the inputs read from device
+// memory again for each pass. The launch plans (grid, cluster, CB, ppc,
+// shared-memory bytes, route) are computed in Python (ops/insnorm.py:
+// instance_norm_forward_plan, instance_norm_backward_plan); the launchers
+// check them.
 //
-// Backward design. Each (sample, chunk of CB channels) needs two f32 sums
-// over all of H x W before it can write any of dx, and x and dy should come
-// from device memory once each. The slab's H x W is split across a thread
-// block cluster of `cluster` CTAs (at most 8, the portable size), each
-// taking ppc = ceil(H*W / cluster) consecutive pixels (the last may hold
-// fewer, or none). A CTA copies its part of x and dy into shared memory with
-// 16-byte cp.async copies, all issued before the first wait (32-64 KB in
-// flight a CTA, where one CTA a slab with 2-byte loads kept ~1 KB in flight
-// a SM), and forms its partial sum(dy) and sum(dy * xhat) per channel: 16
-// bytes a thread a step, a warp shuffle, then the warps through shared
-// memory. The CTAs exchange
-// the partial sums through distributed shared memory (2 floats a channel,
-// map_shared_rank between two cluster barriers), each adding them in rank
-// order, so every CTA of the cluster holds the same sums. Each CTA then
-// writes its part of dx from shared memory with 16-byte stores. A part too
-// large for shared memory even split 8 ways takes the global-memory route
-// of the same kernel (SMEM=false): the same cluster split, with x and dy
-// read from device memory again for dx. The launch plan (grid, cluster,
-// CB, ppc, shared-memory bytes, route) is computed in Python
-// (ops/insnorm.py: instance_norm_backward_plan); the launcher checks it.
-// Rounding contract, unchanged: xhat from the forward's f32 mean and rstd,
-// bit for bit; f32 sums (in another order than a single CTA's); dx
+// Forward: x only is staged. Sum of x, exchanged: the mean; then the sum of
+// squared deviations about that mean from shared memory, exchanged: the
+// variance. Two-pass f32 statistics -- never E[x^2]-E[x]^2, which cancels
+// catastrophically for high-mean, low-variance channels
+// (models/deeplabv2.py:35-37) -- in another summation order than one CTA's;
+// y rounded once to the storage type. Rank 0 also writes the f32 mean and
+// rstd of every (sample, channel), 8 bytes per channel, which the backward
+// reads instead of recomputing them: its xhat is then bit for bit the
+// forward's.
+//
+// Backward: x and dy are staged; sum(dy) and sum(dy * xhat) are formed and
+// exchanged together, with xhat from the forward's f32 mean and rstd; dx
 // rounded once to x's dtype.
 //
-// Layout: NHWC in memory (a channels_last tensor). In the forward, thread t
-// handles channel t % CB of the chunk for pixels t / CB, t / CB + GROUPS,
-// ...; in the backward, the 16-byte column t % VPR of a pixel's chunk (VPR
-// = CB * sizeof(T) / 16) for pixels t / VPR, + G, ...; either way,
-// neighbouring threads read neighbouring channels of one pixel.
+// Layout: NHWC in memory (a channels_last tensor). Thread t takes the
+// 16-byte column t % VPR of a pixel's chunk (VPR = CB * sizeof(T) / 16) for
+// pixels t / VPR, + G, ...: neighbouring threads read neighbouring channels
+// of one pixel.
 
 #include "common.cuh"
 
@@ -66,67 +65,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr size_t kSmemLimit = 200 * 1024;
-
-template <typename T, int CB, bool SMEM>
-__global__ void __launch_bounds__(kThreads)
-instance_norm_kernel(const T* __restrict__ x, T* __restrict__ y,
-                     float* __restrict__ mean_out, float* __restrict__ rstd_out,
-                     int HW, int C, float eps) {
-  constexpr int GROUPS = kThreads / CB;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* slab = reinterpret_cast<T*>(smem_raw);  // [HW][CB], used when SMEM
-  __shared__ float red[GROUPS][CB];
-  __shared__ float stat[CB];
-
-  const int nchunk = C / CB;
-  const int b = blockIdx.x / nchunk;
-  const int c0 = (blockIdx.x % nchunk) * CB;
-  const int lc = threadIdx.x % CB;
-  const int g = threadIdx.x / CB;
-  const size_t base = static_cast<size_t>(b) * HW * C + c0 + lc;
-
-  float s = 0.f;
-  for (int p = g; p < HW; p += GROUPS) {
-    const T v = x[base + static_cast<size_t>(p) * C];
-    if (SMEM) slab[p * CB + lc] = v;
-    s += to_f32(v);
-  }
-  red[g][lc] = s;
-  __syncthreads();
-  if (g == 0) {
-    float t = 0.f;
-    for (int i = 0; i < GROUPS; ++i) t += red[i][lc];
-    stat[lc] = t / HW;
-  }
-  __syncthreads();
-  const float mean = stat[lc];
-
-  float q = 0.f;
-  for (int p = g; p < HW; p += GROUPS) {
-    const float d = to_f32(SMEM ? slab[p * CB + lc]
-                                : x[base + static_cast<size_t>(p) * C]) - mean;
-    q += d * d;
-  }
-  red[g][lc] = q;
-  __syncthreads();
-  if (g == 0) {
-    float t = 0.f;
-    for (int i = 0; i < GROUPS; ++i) t += red[i][lc];
-    const float rs = rsqrtf(t / HW + eps);
-    stat[lc] = rs;
-    mean_out[static_cast<size_t>(b) * C + c0 + lc] = mean;
-    rstd_out[static_cast<size_t>(b) * C + c0 + lc] = rs;
-  }
-  __syncthreads();
-  const float rs = stat[lc];
-
-  for (int p = g; p < HW; p += GROUPS) {
-    const size_t i = base + static_cast<size_t>(p) * C;
-    const float v = to_f32(SMEM ? slab[p * CB + lc] : x[i]);
-    y[i] = from_f32<T>((v - mean) * rs);
-  }
-}
+constexpr int WARPS = kThreads / 32;  // warps a CTA
 
 // 16 bytes of T: 8 bf16 or 4 f32 values, unpacked to f32 and packed back
 // (bf16 rounded to nearest even, as from_f32)
@@ -173,9 +112,199 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// One CTA: sample blockIdx.y, channels [c0, c0 + CB) of chunk blockIdx.x /
-// cluster, pixels [rank * ppc, min(HW, (rank + 1) * ppc)) of the slab.
-// Thread t takes the 16-byte column t % VPR of pixels t / VPR, + G, ...
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most n (0-3, a constant after unrolling) of this thread's
+// committed copy groups are still in flight.
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
+}
+
+// Copies pixels [p0, p1) x CB channels of a CTA's part at src (row stride C
+// values) into dst[p][VPR] with 16-byte cp.async copies, none waited for.
+template <typename T, int CB>
+__device__ __forceinline__ void stage_part(uint4* dst, const T* src, int p0,
+                                           int p1, int C) {
+  constexpr int EPV = Vec16<T>::N;
+  constexpr int VPR = CB / EPV;
+  for (int v = p0 * VPR + threadIdx.x; v < p1 * VPR; v += kThreads)
+    cp_async16(dst + v,
+               src + static_cast<size_t>(v / VPR) * C + (v % VPR) * EPV);
+}
+
+// The CTA's sums of K per-thread partial sums s[k][e] (channel j * EPV + e
+// of the chunk, thread column j = t % VPR): a warp shuffle over the lanes
+// j, j + VPR, ... that hold the same channels, then the warps through red;
+// threads < K * CB write them to part[k][c]. Ends with every thread's red
+// reads not yet done: the caller's next barrier orders them.
+template <int K, int CB, int EPV>
+__device__ __forceinline__ void cta_sums(float (&s)[K][EPV],
+                                         float (*red)[WARPS][CB],
+                                         float (*part)[CB]) {
+  constexpr int VPR = CB / EPV;
+  static_assert(VPR <= 32 && 32 % VPR == 0, "a warp holds whole rows");
+#pragma unroll
+  for (int o = VPR; o < 32; o <<= 1) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int e = 0; e < EPV; ++e)
+        s[k][e] += __shfl_xor_sync(0xffffffffu, s[k][e], o);
+  }
+  const int warp = threadIdx.x / 32;
+  const int j = threadIdx.x % VPR;
+  if (threadIdx.x % 32 < VPR) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int e = 0; e < EPV; ++e) red[k][warp][j * EPV + e] = s[k][e];
+  }
+  __syncthreads();
+  if (threadIdx.x < K * CB) {
+    const int k = threadIdx.x / CB, c = threadIdx.x % CB;
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) t += red[k][w][c];
+    part[k][c] = t;
+  }
+}
+
+// The slab's sums: every CTA's part[k][c], read through distributed shared
+// memory after a cluster barrier that makes them visible and added in rank
+// order, so every CTA of the cluster gets the same stat[k][c] = sum / HW.
+// The caller's next cluster barrier keeps each CTA's part alive until every
+// CTA has read it (and makes stat visible to the CTA).
+template <int K, int CB>
+__device__ __forceinline__ void cluster_sums(cg::cluster_group& cl,
+                                             float (*part)[CB],
+                                             float (*stat)[CB], int cluster,
+                                             int HW) {
+  cl.sync();
+  if (threadIdx.x < K * CB) {
+    const int k = threadIdx.x / CB, c = threadIdx.x % CB;
+    float t = 0.f;
+    for (int r = 0; r < cluster; ++r)
+      t += cl.map_shared_rank(&part[k][0], r)[c];
+    stat[k][c] = t / HW;
+  }
+}
+
+// Forward. One CTA: sample blockIdx.y, channels [c0, c0 + CB) of chunk
+// blockIdx.x / cluster, pixels [rank * ppc, min(HW, (rank + 1) * ppc)) of
+// the slab. Thread t takes the 16-byte column t % VPR of pixels t / VPR,
+// + G, ...
+template <typename T, int CB, bool SMEM>
+__global__ void __launch_bounds__(kThreads)
+instance_norm_kernel(const T* __restrict__ x, T* __restrict__ y,
+                     float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                     int HW, int C, int cluster, int ppc, float eps) {
+  using V = Vec16<T>;
+  constexpr int EPV = V::N;                // values a 16-byte vector
+  constexpr int VPR = CB / EPV;            // vectors a pixel's chunk
+  constexpr int G = kThreads / VPR;        // pixel groups of the CTA
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint4* xs = reinterpret_cast<uint4*>(smem_raw);  // [ppc][VPR], if SMEM
+  __shared__ float red[1][WARPS][CB];
+  __shared__ float part[2][CB];  // this CTA's sums of x, of (x - mean)^2
+  __shared__ float stat[2][CB];  // the slab's mean, variance
+
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = static_cast<int>(cl.block_rank());
+  const int b = blockIdx.y;
+  const int c0 = (blockIdx.x / cluster) * CB;
+  const int p0 = rank * ppc;
+  const int np = max(0, min(ppc, HW - p0));
+  const size_t base = (static_cast<size_t>(b) * HW + p0) * C + c0;
+  const T* xb = x + base;
+  const int j = threadIdx.x % VPR;
+  const int g = threadIdx.x / VPR;
+
+  // the part's pixels in kGroups copy groups, all issued at once; the sum
+  // of x takes each group as it lands (bf16: 4% faster at the flagship
+  // shape; f32, whose rows take 16 threads, 4% slower, so one group)
+  constexpr int kGroups = SMEM && sizeof(T) == 2 ? 4 : 1;
+  const int pg = (np + kGroups - 1) / kGroups;
+  if (SMEM) {
+#pragma unroll
+    for (int k = 0; k < kGroups; ++k) {
+      stage_part<T, CB>(xs, xb, min(np, k * pg), min(np, (k + 1) * pg), C);
+      cp_async_commit();
+    }
+  }
+  auto load = [&](int p, float* xf) {
+    V::unpack(SMEM ? xs[p * VPR + j]
+                   : __ldg(reinterpret_cast<const uint4*>(
+                         xb + static_cast<size_t>(p) * C + j * EPV)),
+              xf);
+  };
+
+  float s[1][EPV];
+#pragma unroll
+  for (int e = 0; e < EPV; ++e) s[0][e] = 0.f;
+#pragma unroll
+  for (int k = 0; k < kGroups; ++k) {
+    if (SMEM) {
+      cp_async_wait_pending(kGroups - 1 - k);
+      __syncthreads();
+    }
+    for (int p = k * pg + g; p < min(np, (k + 1) * pg); p += G) {
+      float xf[EPV];
+      load(p, xf);
+#pragma unroll
+      for (int e = 0; e < EPV; ++e) s[0][e] += xf[e];
+    }
+  }
+  cta_sums<1, CB, EPV>(s, red, &part[0]);
+  cluster_sums<1, CB>(cl, &part[0], &stat[0], cluster, HW);
+  __syncthreads();  // the mean is visible; part[0] stays until the next
+                    // cluster barrier, which every CTA reaches after reading
+
+  float mu[EPV];
+#pragma unroll
+  for (int e = 0; e < EPV; ++e) {
+    mu[e] = stat[0][j * EPV + e];
+    s[0][e] = 0.f;
+  }
+  for (int p = g; p < np; p += G) {
+    float xf[EPV];
+    load(p, xf);
+#pragma unroll
+    for (int e = 0; e < EPV; ++e) {
+      const float d = xf[e] - mu[e];
+      s[0][e] += d * d;
+    }
+  }
+  cta_sums<1, CB, EPV>(s, red, &part[1]);
+  cluster_sums<1, CB>(cl, &part[1], &stat[1], cluster, HW);
+  cl.sync();  // no CTA leaves while another reads its sums; stat is visible
+
+  float rs[EPV];
+#pragma unroll
+  for (int e = 0; e < EPV; ++e) rs[e] = rsqrtf(stat[1][j * EPV + e] + eps);
+  if (rank == 0 && threadIdx.x < CB) {
+    const size_t sb = static_cast<size_t>(b) * C + c0 + threadIdx.x;
+    mean_out[sb] = stat[0][threadIdx.x];
+    rstd_out[sb] = rsqrtf(stat[1][threadIdx.x] + eps);
+  }
+  T* ob = y + base;
+  for (int p = g; p < np; p += G) {
+    float xf[EPV], o[EPV];
+    load(p, xf);
+#pragma unroll
+    for (int e = 0; e < EPV; ++e) o[e] = (xf[e] - mu[e]) * rs[e];
+    *reinterpret_cast<uint4*>(ob + static_cast<size_t>(p) * C + j * EPV) =
+        V::pack(o);
+  }
+}
+
+// Backward. The CTAs and threads map as in the forward.
 template <typename T, int CB, bool SMEM>
 __global__ void __launch_bounds__(kThreads)
 instance_norm_backward_kernel(const T* __restrict__ x, const T* __restrict__ dy,
@@ -187,8 +316,6 @@ instance_norm_backward_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   constexpr int EPV = V::N;                // values a 16-byte vector
   constexpr int VPR = CB / EPV;            // vectors a pixel's chunk
   constexpr int G = kThreads / VPR;        // pixel groups of the CTA
-  constexpr int WARPS = kThreads / 32;
-  static_assert(VPR <= 32 && 32 % VPR == 0, "a warp holds whole rows");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint4* xs = reinterpret_cast<uint4*>(smem_raw);  // [ppc][VPR], if SMEM
   uint4* ds = xs + static_cast<size_t>(ppc) * VPR;  // [ppc][VPR], if SMEM
@@ -209,11 +336,8 @@ instance_norm_backward_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   const int g = threadIdx.x / VPR;
 
   if (SMEM) {
-    for (int v = threadIdx.x; v < np * VPR; v += kThreads) {
-      const size_t off = static_cast<size_t>(v / VPR) * C + (v % VPR) * EPV;
-      cp_async16(xs + v, xb + off);
-      cp_async16(ds + v, db + off);
-    }
+    stage_part<T, CB>(xs, xb, 0, np, C);
+    stage_part<T, CB>(ds, db, 0, np, C);
   }
   float mu[EPV], rs[EPV];
   {
@@ -244,50 +368,20 @@ instance_norm_backward_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     V::unpack(dv, df);
   };
 
-  float s1[EPV], s2[EPV];
+  float s[2][EPV];  // sum(dy), sum(dy * xhat)
 #pragma unroll
-  for (int e = 0; e < EPV; ++e) s1[e] = s2[e] = 0.f;
+  for (int e = 0; e < EPV; ++e) s[0][e] = s[1][e] = 0.f;
   for (int p = g; p < np; p += G) {
     float xf[EPV], df[EPV];
     load(p, xf, df);
 #pragma unroll
     for (int e = 0; e < EPV; ++e) {
-      s1[e] += df[e];
-      s2[e] += df[e] * ((xf[e] - mu[e]) * rs[e]);
+      s[0][e] += df[e];
+      s[1][e] += df[e] * ((xf[e] - mu[e]) * rs[e]);
     }
   }
-  // lanes j, j + VPR, ... of a warp hold the same channels
-#pragma unroll
-  for (int o = VPR; o < 32; o <<= 1) {
-#pragma unroll
-    for (int e = 0; e < EPV; ++e) {
-      s1[e] += __shfl_xor_sync(0xffffffffu, s1[e], o);
-      s2[e] += __shfl_xor_sync(0xffffffffu, s2[e], o);
-    }
-  }
-  const int warp = threadIdx.x / 32;
-  if (threadIdx.x % 32 < VPR) {
-#pragma unroll
-    for (int e = 0; e < EPV; ++e) {
-      red[0][warp][j * EPV + e] = s1[e];
-      red[1][warp][j * EPV + e] = s2[e];
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < 2 * CB) {
-    const int k = threadIdx.x / CB, c = threadIdx.x % CB;
-    float t = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) t += red[k][w][c];
-    part[k][c] = t;
-  }
-  cl.sync();  // every CTA's partial sums are in its shared memory
-  if (threadIdx.x < 2 * CB) {
-    const int k = threadIdx.x / CB, c = threadIdx.x % CB;
-    float t = 0.f;
-    for (int r = 0; r < cluster; ++r) t += cl.map_shared_rank(&part[k][0], r)[c];
-    stat[k][c] = t / HW;
-  }
+  cta_sums<2, CB, EPV>(s, red, part);
+  cluster_sums<2, CB>(cl, part, stat, cluster, HW);
   cl.sync();  // no CTA leaves while another reads its sums; stat is visible
 
   float m1[EPV], m2[EPV];
@@ -311,46 +405,18 @@ instance_norm_backward_kernel(const T* __restrict__ x, const T* __restrict__ dy,
 }
 
 template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
+cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+                              bytes);
 }
 
-template <typename T, int CB>
-cudaError_t launch_cb(const void* x, void* y, float* mean, float* rstd, int B,
-                      int HW, int C, float eps, cudaStream_t stream) {
-  const size_t bytes = static_cast<size_t>(HW) * CB * sizeof(T);
-  const dim3 grid(B * (C / CB));
-  if (bytes <= kSmemLimit) {
-    auto k = instance_norm_kernel<T, CB, true>;
-    cudaError_t e = allow_smem(k, bytes);
-    if (e != cudaSuccess) return e;
-    k<<<grid, kThreads, bytes, stream>>>(static_cast<const T*>(x),
-                                         static_cast<T*>(y), mean, rstd, HW, C,
-                                         eps);
-  } else {
-    instance_norm_kernel<T, CB, false><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<T*>(y), mean, rstd, HW, C, eps);
-  }
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch(const void* x, void* y, float* mean, float* rstd, int B,
-                   int HW, int C, float eps, cudaStream_t stream) {
-  // widest chunk whose slab fits in shared memory; 32 otherwise
-  if (C % 64 == 0 && static_cast<size_t>(HW) * 64 * sizeof(T) <= kSmemLimit)
-    return launch_cb<T, 64>(x, y, mean, rstd, B, HW, C, eps, stream);
-  return launch_cb<T, 32>(x, y, mean, rstd, B, HW, C, eps, stream);
-}
-
-template <typename T, int CB, bool SMEM>
-cudaError_t launch_backward(const void* x, const void* dy, const float* mean,
-                            const float* rstd, void* dx, int HW, int C,
-                            int cluster, int ppc, int smem, dim3 grid,
-                            cudaStream_t stream) {
-  auto k = instance_norm_backward_kernel<T, CB, SMEM>;
-  cudaError_t e = allow_smem(k, smem);
+// Launches kernel(args...) on grid in clusters of `cluster` CTAs along x,
+// with smem bytes of dynamic shared memory; refused if the card cannot hold
+// one such cluster.
+template <typename... KArgs, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(KArgs...), dim3 grid, int cluster,
+                            int smem, cudaStream_t stream, Args... args) {
+  cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
@@ -365,77 +431,115 @@ cudaError_t launch_backward(const void* x, const void* dy, const float* mean,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   int active = 0;
-  e = cudaOccupancyMaxActiveClusters(&active, k, &cfg);
+  e = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
   if (e != cudaSuccess) return e;
   if (active == 0) return cudaErrorLaunchOutOfResources;
-  return cudaLaunchKernelEx(&cfg, k, static_cast<const T*>(x),
-                            static_cast<const T*>(dy), mean, rstd,
-                            static_cast<T*>(dx), HW, C, cluster, ppc);
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-template <typename T>
-cudaError_t launch_backward_plan(const void* x, const void* dy,
-                                 const float* mean, const float* rstd,
-                                 void* dx, int HW, int C, int cb, int cluster,
-                                 int ppc, int smem, bool shared, dim3 grid,
-                                 cudaStream_t s) {
-  if (cb == 64)
-    return shared ? launch_backward<T, 64, true>(x, dy, mean, rstd, dx, HW, C,
-                                                 cluster, ppc, smem, grid, s)
-                  : launch_backward<T, 64, false>(x, dy, mean, rstd, dx, HW,
-                                                  C, cluster, ppc, smem, grid,
-                                                  s);
-  return shared ? launch_backward<T, 32, true>(x, dy, mean, rstd, dx, HW, C,
-                                               cluster, ppc, smem, grid, s)
-                : launch_backward<T, 32, false>(x, dy, mean, rstd, dx, HW, C,
-                                                cluster, ppc, smem, grid, s);
+// A launch plan of either kernel (n = 7 ints, from ops/insnorm.py): CB (32
+// or 64, dividing C), cluster (1-8), pixels a CTA (ceil(HW / cluster)),
+// dynamic shared-memory bytes (inputs * ppc * CB * sizeof(T) on the
+// shared-memory route, 0 on the global one), route (1 shared, 0 global),
+// grid x (cluster * C / CB), grid y (B).
+struct Plan {
+  int cb, cluster, ppc, smem;
+  bool shared;
+  dim3 grid;
+};
+
+bool read_plan(const int* plan, int n, int B, int HW, int C, long long esz,
+               int inputs, Plan* p) {
+  if (B <= 0 || B > 65535 || HW <= 0 || C <= 0 || !plan || n != 7)
+    return false;
+  const int cb = plan[0], cluster = plan[1], ppc = plan[2], smem = plan[3];
+  const int route = plan[4];
+  if ((cb != 32 && cb != 64) || C % cb != 0 || cluster < 1 || cluster > 8 ||
+      ppc != (HW + cluster - 1) / cluster || (route != 0 && route != 1) ||
+      smem != (route ? inputs * static_cast<long long>(ppc) * cb * esz : 0LL) ||
+      static_cast<long long>(plan[5]) != static_cast<long long>(cluster) * (C / cb) ||
+      plan[6] != B)
+    return false;
+  *p = {cb, cluster, ppc, smem, route == 1, dim3(plan[5], plan[6])};
+  return true;
+}
+
+template <typename T, int CB>
+cudaError_t launch_forward(const Plan& p, const void* x, void* y, float* mean,
+                           float* rstd, int HW, int C, float eps,
+                           cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  return p.shared
+             ? launch_clusters(instance_norm_kernel<T, CB, true>, p.grid,
+                               p.cluster, p.smem, s, xt, yt, mean, rstd, HW, C,
+                               p.cluster, p.ppc, eps)
+             : launch_clusters(instance_norm_kernel<T, CB, false>, p.grid,
+                               p.cluster, p.smem, s, xt, yt, mean, rstd, HW, C,
+                               p.cluster, p.ppc, eps);
+}
+
+template <typename T, int CB>
+cudaError_t launch_backward(const Plan& p, const void* x, const void* dy,
+                            const float* mean, const float* rstd, void* dx,
+                            int HW, int C, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  const T* dt = static_cast<const T*>(dy);
+  T* ot = static_cast<T*>(dx);
+  return p.shared
+             ? launch_clusters(instance_norm_backward_kernel<T, CB, true>,
+                               p.grid, p.cluster, p.smem, s, xt, dt, mean,
+                               rstd, ot, HW, C, p.cluster, p.ppc)
+             : launch_clusters(instance_norm_backward_kernel<T, CB, false>,
+                               p.grid, p.cluster, p.smem, s, xt, dt, mean,
+                               rstd, ot, HW, C, p.cluster, p.ppc);
 }
 
 }  // namespace
 
-// x, y: (B, H*W, C) contiguous (a channels_last NCHW tensor); C % 32 == 0.
-// mean, rstd: (B, C) f32 outputs.
+// x, y: (B, H*W, C) contiguous (a channels_last NCHW tensor), 16-byte
+// aligned; mean, rstd: (B, C) f32 outputs. plan (n = 7 ints, from
+// ops/insnorm.py: instance_norm_forward_plan, read_plan's layout, one input
+// staged). Anything else is refused.
 extern "C" int uemda_instance_norm(const void* x, void* y, void* mean,
                                    void* rstd, int B, int HW, int C,
-                                   int is_bf16, float eps, void* stream) {
-  if (C % 32 != 0 || B <= 0 || HW <= 0) return cudaErrorInvalidValue;
+                                   int is_bf16, float eps, const int* plan,
+                                   int n, void* stream) {
+  Plan p;
+  if (!read_plan(plan, n, B, HW, C, is_bf16 ? 2 : 4, 1, &p))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* m = static_cast<float*>(mean);
   float* r = static_cast<float*>(rstd);
-  return is_bf16 ? launch<__nv_bfloat16>(x, y, m, r, B, HW, C, eps, s)
-                 : launch<float>(x, y, m, r, B, HW, C, eps, s);
+  if (is_bf16)
+    return p.cb == 64
+               ? launch_forward<__nv_bfloat16, 64>(p, x, y, m, r, HW, C, eps, s)
+               : launch_forward<__nv_bfloat16, 32>(p, x, y, m, r, HW, C, eps, s);
+  return p.cb == 64 ? launch_forward<float, 64>(p, x, y, m, r, HW, C, eps, s)
+                    : launch_forward<float, 32>(p, x, y, m, r, HW, C, eps, s);
 }
 
-// x, dy, dx: (B, H*W, C) contiguous; mean, rstd: (B, C) f32 from the
-// forward. plan (n = 7 ints, from ops/insnorm.py: instance_norm_backward_plan):
-// CB (32 or 64, dividing C), cluster (1-8), pixels a CTA (ceil(HW /
-// cluster)), dynamic shared-memory bytes (2 * ppc * CB * sizeof(T) on the
-// shared-memory route, 0 on the global one), route (1 shared, 0 global),
-// grid x (cluster * C / CB), grid y (B). Anything else is refused.
+// x, dy, dx: (B, H*W, C) contiguous, 16-byte aligned; mean, rstd: (B, C) f32
+// from the forward. plan (n = 7 ints, from ops/insnorm.py:
+// instance_norm_backward_plan, read_plan's layout, two inputs staged).
+// Anything else is refused.
 extern "C" int uemda_instance_norm_backward(const void* x, const void* dy,
                                             const void* mean, const void* rstd,
                                             void* dx, int B, int HW, int C,
                                             int is_bf16, const int* plan,
                                             int n, void* stream) {
-  if (B <= 0 || B > 65535 || HW <= 0 || C <= 0 || !plan || n != 7)
-    return cudaErrorInvalidValue;
-  const int cb = plan[0], cluster = plan[1], ppc = plan[2], smem = plan[3];
-  const int route = plan[4];
-  const dim3 grid(plan[5], plan[6]);
-  const long long esz = is_bf16 ? 2 : 4;
-  if ((cb != 32 && cb != 64) || C % cb != 0 || cluster < 1 || cluster > 8 ||
-      ppc != (HW + cluster - 1) / cluster || (route != 0 && route != 1) ||
-      smem != (route ? 2LL * ppc * cb * esz : 0LL) ||
-      static_cast<long long>(grid.x) != static_cast<long long>(cluster) * (C / cb) ||
-      static_cast<int>(grid.y) != B)
+  Plan p;
+  if (!read_plan(plan, n, B, HW, C, is_bf16 ? 2 : 4, 2, &p))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* m = static_cast<const float*>(mean);
   const float* r = static_cast<const float*>(rstd);
-  return is_bf16 ? launch_backward_plan<__nv_bfloat16>(
-                       x, dy, m, r, dx, HW, C, cb, cluster, ppc, smem,
-                       route == 1, grid, s)
-                 : launch_backward_plan<float>(x, dy, m, r, dx, HW, C, cb,
-                                               cluster, ppc, smem, route == 1,
-                                               grid, s);
+  if (is_bf16)
+    return p.cb == 64 ? launch_backward<__nv_bfloat16, 64>(p, x, dy, m, r, dx,
+                                                           HW, C, s)
+                      : launch_backward<__nv_bfloat16, 32>(p, x, dy, m, r, dx,
+                                                           HW, C, s);
+  return p.cb == 64
+             ? launch_backward<float, 64>(p, x, dy, m, r, dx, HW, C, s)
+             : launch_backward<float, 32>(p, x, dy, m, r, dx, HW, C, s);
 }

@@ -19,22 +19,38 @@
 // 0.9 MB, ~0.020 ms at 3.35 TB/s; K7 reads 8.4 MB of ids (+0.9 MB of table)
 // and writes 58.7 MB, ~0.020 ms. One compare (or add) per value; K7 none.
 //
-// Design. The TPU kernel revisits one (S, C) accumulator across a
+// K5/K6 design. The TPU kernel revisits one (S, C) accumulator across a
 // sequential grid of pixel tiles, masking every pixel against all S ids.
-// Blocks on Hopper run in no order, so each block -- one (pixel tile,
-// sample) -- keeps a private (S, C) table in dynamic shared memory
-// (4128 x 7 x 4 B = 113 KB at 2urban, two blocks per SM), reduces its tile
-// into it, and merges the occupied entries into the output with global
-// atomics. Each thread walks a run of kRun consecutive pixels, whose C
-// values are contiguous (channels_last), and folds a run of equal ids in
-// registers before one shared atomic: superpixels are spatially coherent,
-// so a run rarely holds more than two ids. The float max is an integer
-// atomic (atomicMax on the int pattern for a clear sign bit, atomicMin on
-// the unsigned pattern otherwise), which orders every non-NaN float; max is
-// order-free, so K5 is exact and deterministic. K6's atomicAdd order varies
-// from run to run: exact for integer values below 2^24 (one-hot counts).
-// A table over the card's shared-memory limit takes the same loop with the
-// atomics aimed at the output in global memory.
+// Blocks on Hopper run in no order, so each block -- one tile of `tile`
+// pixels of one sample (blockIdx.y) -- reduces its tile into a private
+// table in shared memory and merges the occupied entries into the output
+// with global atomics (after a fill pass that writes -inf, or a memset to 0
+// for the sum). The tile's ids and values are contiguous in memory; the
+// CTA copies both into shared memory with cp.async, 16 bytes a copy where
+// the 16-byte boundaries of source and destination coincide (the head and
+// tail 4 bytes at a time), all issued before the first wait, so
+// neighbouring lanes read neighbouring bytes and a CTA keeps its whole
+// tile (~32 KB) in flight; several CTAs a SM overlap one's loads with
+// another's work. The table covers only the ids the tile touches: a block
+// min and max over the staged ids give its lowest id lo and its top id top
+// (the shrunk-boundary label of superpixels.py, which every tile holds),
+// and a second max the highest id hi below top. Rows [0, hi - lo] hold ids
+// lo..hi and row hi - lo + 1 holds top. Superpixel ids are spatially
+// coherent and numbered in scan order, so at 2urban a tile of 1024 pixels
+// (two image rows) needs ~100 rows of the 4128. Only those rows are set up
+// and merged. The plan (ops/segment.py: segment_reduce_plan) sizes the
+// table: route "full" gives it S rows (every tile fits), route "window"
+// fewer, and a tile whose rows do not fit (ids not spatially coherent)
+// reduces straight into the output with global atomics, as route "global"
+// does for every tile. Each thread walks runs of kRun consecutive staged
+// pixels (an odd run, so the lanes' reads of a 7-float row fall on distinct
+// banks) and folds a run of equal ids in registers before one atomic:
+// superpixels are spatially coherent, so a run rarely holds more than two
+// ids. The float max is an integer atomic (atomicMax on the int pattern
+// for a clear sign bit, atomicMin on the unsigned pattern otherwise), which
+// orders every non-NaN float; max is order-free, so K5 is exact and
+// deterministic on every route. K6's atomicAdd order varies from run to
+// run: exact for integer values below 2^24 (one-hot counts).
 //
 // K7 design. A CTA of 256 threads writes the output rows of ppc pixels of
 // one sample: the sample is blockIdx.y, so no index is divided per element
@@ -55,6 +71,7 @@
 
 #include "common.cuh"
 
+#include <limits.h>
 #include <math.h>
 
 #include <algorithm>
@@ -62,7 +79,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRun = 8;   // consecutive pixels per thread
+constexpr int WARPS = kThreads / 32;  // warps a CTA
+constexpr int kRun = 7;   // consecutive pixels per thread (odd: no bank
+                          // conflicts on an odd row of floats)
 constexpr int kCh = 8;    // channels per pass, held in registers
 
 __device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
@@ -87,69 +106,166 @@ __global__ void fill_kernel(float* __restrict__ out, long long n) {
     out[i] = empty;
 }
 
-template <typename Id, bool kMax, bool kShared>
-__global__ void __launch_bounds__(kThreads)
-segment_reduce_kernel(const float* __restrict__ val, const Id* __restrict__ ids,
-                      float* __restrict__ out, int N, int C, int S, int tile) {
-  extern __shared__ float table[];
-  const float empty = kMax ? -INFINITY : 0.f;
-  const int b = blockIdx.y;
-  const long long p0 = static_cast<long long>(blockIdx.x) * tile;
-  const long long p1 = min(static_cast<long long>(N), p0 + tile);
-  const int SC = S * C;
-  float* out_b = out + static_cast<size_t>(b) * SC;
-  float* acc = kShared ? table : out_b;
-  if (kShared) {
-    for (int i = threadIdx.x; i < SC; i += kThreads) table[i] = empty;
-    __syncthreads();
-  }
-  const Id* id_b = ids + static_cast<size_t>(b) * N;
-  const float* v_b = val + static_cast<size_t>(b) * N * C;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
 
-  for (long long r0 = p0 + static_cast<long long>(threadIdx.x) * kRun; r0 < p1;
-       r0 += static_cast<long long>(kThreads) * kRun) {
-    const long long r1 = min(p1, r0 + kRun);
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+// Issues the copy of the n bytes at src (n and src multiples of 4) to dst +
+// src % 16 (dst 16-byte aligned), so the 16-byte pieces of both coincide:
+// the head up to src's first 16-byte boundary and the tail 4 bytes a copy,
+// the rest 16. Returns the offset src % 16.
+__device__ __forceinline__ int stage_bytes(unsigned char* dst,
+                                           const unsigned char* src, int n) {
+  const int shift = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+  const int head = min(n, (16 - shift) & 15);
+  const int nv = (n - head) >> 4;
+  const int tail = head + 16 * nv;
+  unsigned char* d = dst + shift;
+  for (int i = 4 * threadIdx.x; i < head; i += 4 * kThreads)
+    cp_async4(d + i, src + i);
+  for (int v = threadIdx.x; v < nv; v += kThreads)
+    cp_async16(d + head + 16 * v, src + head + 16 * v);
+  for (int i = tail + 4 * threadIdx.x; i < n; i += 4 * kThreads)
+    cp_async4(d + i, src + i);
+  return shift;
+}
+
+// The staged tile's np pixels (ids, and C values a pixel) reduced into acc:
+// the table in shared memory (kTable: row id - lo for an id below top, row
+// top_row for top) or the sample's output rows in device memory (row id).
+// Ids outside [0, S) are left out.
+template <typename Id, bool kMax, bool kTable>
+__device__ __forceinline__ void reduce_tile(const Id* ids, const float* vals,
+                                            int np, int C, int S, float* acc,
+                                            int lo, int top, int top_row) {
+  const int nruns = (np + kRun - 1) / kRun;
+  for (int r = threadIdx.x; r < nruns; r += kThreads) {
+    const int q0 = r * kRun, q1 = min(np, q0 + kRun);
     for (int c0 = 0; c0 < C; c0 += kCh) {
       const int nc = min(kCh, C - c0);
-      long long cur = -1;   // the run's segment, -1 for none
+      int cur = -1;   // the run's segment, -1 for none
       float run[kCh];
-      for (long long p = r0; p < r1; ++p) {
-        const long long id = static_cast<long long>(id_b[p]);
-        const float* v = v_b + p * C + c0;
-        if (id == cur) {
+      auto flush = [&]() {
+        const int row = !kTable ? cur : cur < top ? cur - lo : top_row;
+        float* a = acc + static_cast<size_t>(row) * C + c0;
+#pragma unroll
+        for (int j = 0; j < kCh; ++j)
+          if (j < nc) combine<kMax>(a + j, run[j]);
+      };
+      for (int q = q0; q < q1; ++q) {
+        const long long id = static_cast<long long>(ids[q]);
+        const float* v = vals + q * C + c0;
+        if (cur >= 0 && id == cur) {
 #pragma unroll
           for (int j = 0; j < kCh; ++j)
             if (j < nc) run[j] = kMax ? fmaxf(run[j], v[j]) : run[j] + v[j];
           continue;
         }
-        if (cur >= 0) {
-          float* a = acc + cur * C + c0;
-#pragma unroll
-          for (int j = 0; j < kCh; ++j)
-            if (j < nc) combine<kMax>(a + j, run[j]);
-        }
-        cur = (id >= 0 && id < S) ? id : -1;
+        if (cur >= 0) flush();
+        cur = (id >= 0 && id < S) ? static_cast<int>(id) : -1;
         if (cur >= 0) {
 #pragma unroll
           for (int j = 0; j < kCh; ++j)
             if (j < nc) run[j] = v[j];
         }
       }
-      if (cur >= 0) {
-        float* a = acc + cur * C + c0;
+      if (cur >= 0) flush();
+    }
+  }
+}
+
+// The block's min (kMin) or max of v; every thread gets it. red: WARPS ints.
+template <bool kMin>
+__device__ __forceinline__ int block_reduce(int v, int* red) {
+  v = kMin ? __reduce_min_sync(0xffffffffu, v)
+           : __reduce_max_sync(0xffffffffu, v);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  int r = red[0];
 #pragma unroll
-        for (int j = 0; j < kCh; ++j)
-          if (j < nc) combine<kMax>(a + j, run[j]);
+  for (int w = 1; w < WARPS; ++w) r = kMin ? min(r, red[w]) : max(r, red[w]);
+  __syncthreads();  // red may be written again
+  return r;
+}
+
+// One CTA: pixels [blockIdx.x * tile, + tile) of sample blockIdx.y. Dynamic
+// shared memory: the staged ids (tile * sizeof(Id) + 16 bytes), the staged
+// values (tile * C * 4 + 16), each from a 16-byte boundary, then the table
+// of `rows` rows of C floats (kTable).
+template <typename Id, bool kMax, bool kTable>
+__global__ void __launch_bounds__(kThreads)
+segment_reduce_kernel(const float* __restrict__ val, const Id* __restrict__ ids,
+                      float* __restrict__ out, int N, int C, int S, int tile,
+                      int rows) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int red[WARPS];
+  const float empty = kMax ? -INFINITY : 0.f;
+  const int b = blockIdx.y;
+  const long long p0 = static_cast<long long>(blockIdx.x) * tile;
+  const int np = static_cast<int>(min(static_cast<long long>(tile), N - p0));
+  const size_t g0 = static_cast<size_t>(b) * N + p0;
+  const int ids_bytes = (tile * static_cast<int>(sizeof(Id)) + 16 + 15) & ~15;
+  const int val_bytes = (tile * C * 4 + 16 + 15) & ~15;
+  unsigned char* ids_s = smem_raw;
+  unsigned char* val_s = smem_raw + ids_bytes;
+  float* table = reinterpret_cast<float*>(val_s + val_bytes);
+  const int id_shift = stage_bytes(
+      ids_s, reinterpret_cast<const unsigned char*>(ids + g0),
+      np * static_cast<int>(sizeof(Id)));
+  const int val_shift = stage_bytes(
+      val_s, reinterpret_cast<const unsigned char*>(val + g0 * C), np * C * 4);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  const Id* ti = reinterpret_cast<const Id*>(ids_s + id_shift);
+  const float* tv = reinterpret_cast<const float*>(val_s + val_shift);
+  float* out_b = out + static_cast<size_t>(b) * S * C;
+
+  if (kTable) {
+    // lo, top: the least and greatest valid id; hi: the greatest below top
+    int lo = INT_MAX, top = -1;
+    for (int q = threadIdx.x; q < np; q += kThreads) {
+      const long long id = static_cast<long long>(ti[q]);
+      if (id >= 0 && id < S) {
+        lo = min(lo, static_cast<int>(id));
+        top = max(top, static_cast<int>(id));
       }
     }
-  }
-  if (kShared) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < SC; i += kThreads) {
-      const float v = table[i];
-      if (v != empty) combine<kMax>(out_b + i, v);
+    lo = block_reduce<true>(lo, red);
+    top = block_reduce<false>(top, red);
+    if (top < 0) return;  // no valid id in the tile (uniform)
+    int hi = lo - 1;
+    for (int q = threadIdx.x; q < np; q += kThreads) {
+      const long long id = static_cast<long long>(ti[q]);
+      if (id >= 0 && id < top) hi = max(hi, static_cast<int>(id));
+    }
+    hi = block_reduce<false>(hi, red);
+    const int need = hi - lo + 2;  // rows lo..hi and top's
+    if (need <= rows) {
+      for (int i = threadIdx.x; i < need * C; i += kThreads) table[i] = empty;
+      __syncthreads();
+      reduce_tile<Id, kMax, true>(ti, tv, np, C, S, table, lo, top, need - 1);
+      __syncthreads();
+      for (int i = threadIdx.x; i < need * C; i += kThreads) {
+        const float v = table[i];
+        if (v == empty) continue;
+        const int row = i / C;
+        const int id = row < need - 1 ? lo + row : top;
+        combine<kMax>(out_b + static_cast<size_t>(id) * C + (i - row * C), v);
+      }
+      return;
     }
   }
+  reduce_tile<Id, kMax, false>(ti, tv, np, C, S, out_b, 0, 0, 0);
 }
 
 // K7: one CTA writes pixels [blockIdx.x * ppc, + ppc) of sample blockIdx.y;
@@ -195,16 +311,18 @@ segment_gather_kernel(const float* __restrict__ seg, const Id* __restrict__ ids,
     out_b[tail + threadIdx.x] = stage[shift + tail + threadIdx.x];
 }
 
-int sm_count() {
-  int dev = 0, n = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n;
+// The dynamic shared memory of segment_reduce_kernel: the staged ids and
+// values, each rounded up to 16 bytes, and the table.
+long long reduce_smem(int tile, int C, int id_bytes, int rows) {
+  const long long ids = (static_cast<long long>(tile) * id_bytes + 31) & ~15LL;
+  const long long vals = (static_cast<long long>(tile) * C * 4 + 31) & ~15LL;
+  return ids + vals + static_cast<long long>(rows) * C * 4;
 }
 
-template <typename Id, bool kMax>
+template <typename Id, bool kMax, bool kTable>
 cudaError_t launch_reduce(const float* val, const Id* ids, float* out, int B,
-                          int N, int C, int S, cudaStream_t s, int* route) {
+                          int N, int C, int S, int tile, int rows, int smem,
+                          dim3 grid, cudaStream_t s) {
   const long long n_out = static_cast<long long>(B) * S * C;
   if (kMax) {
     const int blocks = static_cast<int>(
@@ -214,56 +332,64 @@ cudaError_t launch_reduce(const float* val, const Id* ids, float* out, int B,
     cudaError_t e = cudaMemsetAsync(out, 0, n_out * sizeof(float), s);
     if (e != cudaSuccess) return e;
   }
-  int dev = 0, smem_max = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  const size_t smem = static_cast<size_t>(S) * C * sizeof(float);
-  const bool shared = smem <= static_cast<size_t>(smem_max);
-  // about two blocks per SM over the whole batch, whole runs per tile
-  const long long per = static_cast<long long>(kThreads) * kRun;
-  const long long want = (static_cast<long long>(N) * B + 2LL * sm_count() - 1) /
-                         (2LL * sm_count());
-  const long long tile = std::max<long long>(per, (want + per - 1) / per * per);
-  const dim3 grid(static_cast<unsigned>((N + tile - 1) / tile), B);
-  *route = shared ? 1 : 0;
-  if (shared) {
-    cudaError_t e = cudaFuncSetAttribute(
-        segment_reduce_kernel<Id, kMax, true>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    segment_reduce_kernel<Id, kMax, true><<<grid, kThreads, smem, s>>>(
-        val, ids, out, N, C, S, static_cast<int>(tile));
-  } else {
-    segment_reduce_kernel<Id, kMax, false><<<grid, kThreads, 0, s>>>(
-        val, ids, out, N, C, S, static_cast<int>(tile));
-  }
+  auto k = segment_reduce_kernel<Id, kMax, kTable>;
+  cudaError_t e = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;  // over the card's limit: refused here
+  k<<<grid, kThreads, smem, s>>>(val, ids, out, N, C, S, tile, rows);
   return cudaGetLastError();
+}
+
+template <typename Id>
+cudaError_t launch_reduce_plan(const float* val, const Id* ids, float* out,
+                               int B, int N, int C, int S, bool is_max,
+                               int tile, int rows, int smem, dim3 grid,
+                               cudaStream_t s) {
+  if (rows > 0)
+    return is_max ? launch_reduce<Id, true, true>(val, ids, out, B, N, C, S,
+                                                  tile, rows, smem, grid, s)
+                  : launch_reduce<Id, false, true>(val, ids, out, B, N, C, S,
+                                                   tile, rows, smem, grid, s);
+  return is_max ? launch_reduce<Id, true, false>(val, ids, out, B, N, C, S,
+                                                 tile, 0, smem, grid, s)
+                : launch_reduce<Id, false, false>(val, ids, out, B, N, C, S,
+                                                  tile, 0, smem, grid, s);
 }
 
 }  // namespace
 
 // val: (B, N, C) f32 contiguous; ids: (B, N) int32 (ids64 = 0) or int64
 // contiguous; out: (B, S, C) f32 contiguous, all on the device. is_max
-// selects K5 (max, empty -inf) or K6 (sum, empty 0). *route (host memory)
-// is set to 1 for the shared-memory table, 0 for global atomics.
+// selects K5 (max, empty -inf) or K6 (sum, empty 0). plan (n = 6 ints, from
+// ops/segment.py: segment_reduce_plan): route (2 full table, 1 window, 0
+// global), pixels a tile, table rows (S on route 2, 1 to S - 1 on route 1,
+// 0 on route 0), dynamic shared-memory bytes (reduce_smem's; over the
+// card's per-block limit, the runtime refuses them), grid x (ceil(N /
+// tile)), grid y (B). Anything else is refused.
 extern "C" int uemda_segment_reduce(const void* val, const void* ids, int ids64,
                                     void* out, int B, int N, int C, int S,
-                                    int is_max, int* route, void* stream) {
+                                    int is_max, const int* plan, int n,
+                                    void* stream) {
   if (B <= 0 || N <= 0 || C <= 0 || S <= 0 || B > 65535 ||
-      static_cast<long long>(S) * C > (1LL << 30))
+      static_cast<long long>(S) * C > (1LL << 30) || !plan || n != 6)
+    return cudaErrorInvalidValue;
+  const int route = plan[0], tile = plan[1], rows = plan[2], smem = plan[3];
+  const dim3 grid(plan[4], plan[5]);
+  if (route < 0 || route > 2 || tile < 1 ||
+      (route == 2 ? rows != S : route == 1 ? rows < 1 || rows >= S : rows != 0) ||
+      smem != reduce_smem(tile, C, ids64 ? 8 : 4, rows) ||
+      static_cast<long long>(grid.x) * tile < N ||
+      static_cast<long long>(grid.x - 1) * tile >= N ||
+      static_cast<int>(grid.y) != B)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* v = static_cast<const float*>(val);
   float* o = static_cast<float*>(out);
-  if (ids64) {
-    const long long* i = static_cast<const long long*>(ids);
-    return is_max ? launch_reduce<long long, true>(v, i, o, B, N, C, S, s, route)
-                  : launch_reduce<long long, false>(v, i, o, B, N, C, S, s, route);
-  }
-  const int* i = static_cast<const int*>(ids);
-  return is_max ? launch_reduce<int, true>(v, i, o, B, N, C, S, s, route)
-                : launch_reduce<int, false>(v, i, o, B, N, C, S, s, route);
+  if (ids64)
+    return launch_reduce_plan(v, static_cast<const long long*>(ids), o, B, N,
+                              C, S, is_max != 0, tile, rows, smem, grid, s);
+  return launch_reduce_plan(v, static_cast<const int*>(ids), o, B, N, C, S,
+                            is_max != 0, tile, rows, smem, grid, s);
 }
 
 // seg: (B, S, C) f32; ids: (B, N) int32/int64; out: (B, N, C) f32; all

@@ -27,26 +27,104 @@ Superpixel ids are numbered over the whole image before the crop, and the
 top id marks the shrunk boundary pixels (``uemda/gast/superpixels.py:
 129-152``); ``max_segments`` bounds max(id) + 1.
 
-Each K7 launch runs a plan (:func:`segment_gather_plan`, pure Python, tested
-on the CPU); the launcher checks it.
+Each launch runs a plan (:func:`segment_reduce_plan` for K5 and K6,
+:func:`segment_gather_plan` for K7; pure Python, tested on the CPU); the
+launcher checks it. Each default plan and its int array are built once per
+shape.
 """
 
 import ctypes
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from uemda_tpu_torch import kernels
 from uemda_tpu_torch.ops.labels import one_hot_ignore
+from uemda_tpu_torch.ops.resblock import SMEM_LIMIT
 
-_REDUCE_ARGS = [kernels.P, kernels.P, kernels.I, kernels.P, kernels.I,
-                kernels.I, kernels.I, kernels.I, kernels.I,
-                ctypes.POINTER(ctypes.c_int), kernels.P]
+_REDUCE_ARGS = [kernels.P, kernels.P, kernels.I, kernels.P] + [kernels.I] * 5 \
+    + [kernels.P, kernels.I, kernels.P]
 _GATHER_ARGS = [kernels.P, kernels.P, kernels.I, kernels.P] + [kernels.I] * 4 \
     + [kernels.P, kernels.I, kernels.P]
 GATHER_THREADS = 256
 GATHER_STAGED_MAX_C = 2048  # wider rows go straight to the output
+REDUCE_THREADS = 256
+REDUCE_RUN = 7              # pixels a thread folds before an atomic
+REDUCE_STAGE_BYTES = 32 * 1024  # ids and values a CTA stages
+REDUCE_TABLE_BYTES = 8 * 1024   # the table of a "window" plan
+REDUCE_MIN_ROWS = 64            # the least window worth a table
+REDUCE_ROUTES = {"full": 2, "window": 1, "global": 0}
+REDUCE_STATIC_SMEM = 4 * REDUCE_THREADS // 32  # the kernel's red[WARPS]
+
+
+@dataclass(frozen=True)
+class ReducePlan:
+    """One launch of K5 or K6: a CTA stages ``tile`` pixels (their ids and
+    values) and reduces them into a table of ``rows`` rows of C floats in
+    shared memory, ``smem`` bytes in all; ``grid`` (ceil(N / tile), B).
+    Route "full": S rows, every tile's ids fit; "window": fewer rows, and a
+    tile whose ids span more (lowest to highest below its top id, plus the
+    top id's row) reduces straight into the output; "global": no table,
+    every tile reduces into the output with global atomics."""
+    route: str
+    tile: int
+    rows: int
+    smem: int
+    grid: Tuple[int, int]
+
+    def as_ints(self):
+        """route (2 full, 1 window, 0 global), tile, rows, smem, grid x, y:
+        the int array the C launcher takes."""
+        return [REDUCE_ROUTES[self.route], self.tile, self.rows, self.smem,
+                *self.grid]
+
+
+def reduce_smem(tile: int, c: int, id_bytes: int, rows: int) -> int:
+    """segment.cu's reduce_smem: the staged ids and values, each with 16
+    bytes of slack for its alignment shift and rounded up to 16 bytes, and
+    the table."""
+    return (((tile * id_bytes + 31) & ~15) + ((tile * c * 4 + 31) & ~15)
+            + rows * c * 4)
+
+
+def segment_reduce_plan(b: int, n: int, c: int, s: int,
+                        ids_dtype: torch.dtype = torch.int32,
+                        route: Optional[str] = None,
+                        tile: Optional[int] = None) -> ReducePlan:
+    """The launch plan of K5/K6 for (b, n, c) values and ``s`` segments: a
+    tile of REDUCE_STAGE_BYTES of ids and values (a multiple of 8 pixels,
+    at most N rounded up to 8); a table of the rows that fill
+    REDUCE_TABLE_BYTES, at least REDUCE_MIN_ROWS: S rows where S is no more
+    ("full"), else that many ("window"); "global" where table and tile
+    overflow the shared memory. ``route`` and ``tile`` pin those choices.
+    No rule reads the card's SM count: 1024-pixel tiles give the 2urban
+    batch 2048 CTAs."""
+    if min(b, n, c, s) < 1 or b > 65535 or s * c > 1 << 30:
+        raise ValueError(f"segment_reduce_plan: B {b}, N {n}, C {c}, S {s}")
+    if ids_dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"segment_reduce_plan: ids dtype {ids_dtype}")
+    idb = 4 if ids_dtype == torch.int32 else 8
+    if tile is None:
+        tile = min(max(8, REDUCE_STAGE_BYTES // (4 * c + idb) // 8 * 8),
+                   -(-n // 8) * 8)
+    if tile < 1:
+        raise ValueError(f"segment_reduce_plan: tile {tile}")
+    rows = max(REDUCE_MIN_ROWS, REDUCE_TABLE_BYTES // (4 * c))
+    if route is None:
+        route = "full" if rows >= s else "window"
+        if (reduce_smem(tile, c, idb, min(rows, s)) + REDUCE_STATIC_SMEM
+                > SMEM_LIMIT):
+            route = "global"
+    if route not in REDUCE_ROUTES or (route == "window" and rows >= s):
+        raise ValueError(f"segment_reduce_plan: route {route} for S {s}")
+    rows = {"full": s, "window": rows, "global": 0}[route]
+    smem = reduce_smem(tile, c, idb, rows)
+    if smem + REDUCE_STATIC_SMEM > SMEM_LIMIT:
+        raise ValueError(f"segment_reduce_plan: {smem} B of shared memory "
+                         f"for a tile of {tile} pixels of {c} channels, "
+                         f"{rows} rows")
+    return ReducePlan(route, tile, rows, smem, (-(-n // tile), b))
 
 
 @dataclass(frozen=True)
@@ -151,45 +229,52 @@ def _check_ids(data: torch.Tensor, ids: torch.Tensor, name: str) -> None:
                          f"not match {tuple(data.shape)} on {data.device}")
 
 
-def _reduce(data, ids, num_segments, is_max, name):
+def _reduce(data, ids, num_segments, is_max, name, plan):
     _check(data, f"{name} data", 3, (torch.float32,))
     _check_ids(data, ids, name)
     b, n, c = data.shape
-    out = torch.empty((b, num_segments, c), dtype=torch.float32,
-                      device=data.device)
-    route = ctypes.c_int(-1)
+    s = int(num_segments)
+    if plan is None:
+        plan, arr = kernels.cached_plan(
+            ("reduce", b, n, c, s, ids.dtype),
+            lambda: segment_reduce_plan(b, n, c, s, ids.dtype))
+    else:
+        arr = kernels.plan_ints(plan)
+    out = torch.empty((b, s, c), dtype=torch.float32, device=data.device)
     fn = kernels.function("segment", "uemda_segment_reduce", _REDUCE_ARGS)
-    with torch.cuda.device(data.device):
+    with kernels.on_device(data):
         err = fn(data.data_ptr(), ids.data_ptr(), int(ids.dtype == torch.int64),
-                 out.data_ptr(), b, n, c, int(num_segments), int(is_max),
-                 ctypes.byref(route), kernels.stream_of(data))
+                 out.data_ptr(), b, n, c, s, int(is_max),
+                 ctypes.addressof(arr), len(arr), kernels.stream_of(data))
     kernels.check_launch("segment", "uemda_segment_reduce", err)
-    return out, "shared" if route.value == 1 else "global"
+    return out, plan
 
 
-def segment_max(data: torch.Tensor, ids: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
+def segment_max(data: torch.Tensor, ids: torch.Tensor, num_segments: int, *,
+                plan: ReducePlan = None) -> torch.Tensor:
     """Batched segment max: data (B, N, C) f32, ids (B, N) int32/int64 ->
     (B, S, C) f32, -inf for an empty segment. A CPU tensor takes the plain
-    version; a CUDA tensor launches K5 (its route, "shared" or "global",
-    is kept in ``segment_max.route``)."""
+    version; a CUDA tensor launches K5 on ``plan`` (default:
+    :func:`segment_reduce_plan`'s), kept in ``segment_max.plan``; its route
+    ("full", "window" or "global") in ``segment_max.route``."""
     if data.device.type == "cpu":
         return segment_max_plain(data, ids, num_segments)
-    out, segment_max.route = _reduce(data, ids, num_segments, True,
-                                     "segment_max")
+    out, p = _reduce(data, ids, num_segments, True, "segment_max", plan)
+    segment_max.plan, segment_max.route = p, p.route
     segment_max.launches += 1
     return out
 
 
-def segment_sum(data: torch.Tensor, ids: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
+def segment_sum(data: torch.Tensor, ids: torch.Tensor, num_segments: int, *,
+                plan: ReducePlan = None) -> torch.Tensor:
     """Batched segment sum: data (B, N, C) f32, ids (B, N) -> (B, S, C) f32,
     0 for an empty segment. A CPU tensor takes the plain version; a CUDA
-    tensor launches K6 (route in ``segment_sum.route``)."""
+    tensor launches K6 on ``plan`` (as :func:`segment_max`; plan and route
+    in ``segment_sum.plan`` and ``segment_sum.route``)."""
     if data.device.type == "cpu":
         return segment_sum_plain(data, ids, num_segments)
-    out, segment_sum.route = _reduce(data, ids, num_segments, False,
-                                     "segment_sum")
+    out, p = _reduce(data, ids, num_segments, False, "segment_sum", plan)
+    segment_sum.plan, segment_sum.route = p, p.route
     segment_sum.launches += 1
     return out
 
@@ -209,14 +294,13 @@ def segment_gather(seg: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
                          f"{seg.device}")
     b, s, c = seg.shape
     n = ids.shape[1]
-    plan = segment_gather_plan(b, n, c)
+    plan, arr = kernels.cached_plan(("gather", b, n, c),
+                                    lambda: segment_gather_plan(b, n, c))
     out = torch.empty((b, n, c), dtype=torch.float32, device=seg.device)
-    ints = plan.as_ints()
-    arr = (ctypes.c_int * len(ints))(*ints)
     fn = kernels.function("segment", "uemda_segment_gather", _GATHER_ARGS)
-    with torch.cuda.device(seg.device):
+    with kernels.on_device(seg):
         err = fn(seg.data_ptr(), ids.data_ptr(), int(ids.dtype == torch.int64),
-                 out.data_ptr(), b, n, c, s, ctypes.addressof(arr), len(ints),
+                 out.data_ptr(), b, n, c, s, ctypes.addressof(arr), len(arr),
                  kernels.stream_of(seg))
     kernels.check_launch("segment", "uemda_segment_gather", err)
     segment_gather.launches += 1
@@ -226,6 +310,7 @@ def segment_gather(seg: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 segment_max.launches = segment_sum.launches = segment_gather.launches = 0
 segment_max.route = segment_sum.route = None
+segment_max.plan = segment_sum.plan = None  # the ReducePlan of the last launch
 segment_gather.plan = None  # the GatherPlan of the last launch
 
 
