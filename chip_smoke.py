@@ -190,10 +190,12 @@ def profile_steps(what, step_fn, state, src_it, tgt_it, dev, ms_step, n=3):
     return total_us / 1e3
 
 
-# kernel (name part) of each source whose instantiations the [build] lines
-# list one by one: the kernels redesigned for Hopper
+# kernels (a pattern of the name) of each source whose instantiations the
+# [build] lines list one by one: the kernels redesigned for Hopper (K8: its
+# LoveDA instantiations and the strided route)
 REDESIGNED = {"stem": "", "resblock": "", "insnorm": "",
-              "segment": "segment_"}
+              "segment": "segment_", "tail": "tail_kernel",
+              "mine": r"uvem_mine_\w*(ILi7E|strided)"}
 
 
 def in_design(p, hw) -> str:
@@ -213,6 +215,17 @@ def reduce_design(p) -> str:
 def gather_design(p) -> str:
     return (f"{p.route} route, {p.lanes} lane(s) a pixel, {p.ppc} pixels a "
             f"CTA, {p.smem} B of shared memory, grid {p.grid}")
+
+
+def tail_design(p) -> str:
+    return (f"{p.rows} rows x {p.cols} columns a CTA, {p.ppt} pixel(s) a "
+            f"thread, an input window of at most {p.in_rows} x {p.in_cols}, "
+            f"{p.smem} B of shared memory, grid {p.grid}")
+
+
+def mine_design(p) -> str:
+    return (f"{p.route} route, {p.ppt} pixels a thread, {p.blocks} CTAs a "
+            f"sample, {p.smem} B of dynamic shared memory, grid {p.grid}")
 
 
 def k4_design(plan) -> str:
@@ -856,7 +869,11 @@ def main():
         instance_norm_forward_plan,
         instance_norm_plain,
     )
-    from uemda_tpu_torch.ops.mine import uvem_mine, uvem_mine_plain
+    from uemda_tpu_torch.ops.mine import (
+        uvem_mine,
+        uvem_mine_plain,
+        uvem_mine_plan,
+    )
     from uemda_tpu_torch.ops.pseudo import class_thresholds
     from uemda_tpu_torch.ops.segment import (
         segment_gather,
@@ -875,6 +892,7 @@ def main():
     )
     from uemda_tpu_torch.ops.stem import stem_pool, stem_pool_plain
     from uemda_tpu_torch.ops.tail import (
+        tail_plan,
         tail_upsample_softmax_mean,
         tail_upsample_softmax_mean_plain,
     )
@@ -917,7 +935,7 @@ def main():
             for fn, body in re.findall(  # instantiation: ptxas -v
                     r"Compiling entry function '([^']+)'(.*?)(?=Compiling "
                     r"entry|$)", log, re.S):
-                if REDESIGNED[name] not in fn:
+                if not re.search(REDESIGNED[name], fn):
                     continue
                 r_ = re.search(r"Used (\d+) registers", body)
                 sp = re.search(r"(\d+) bytes spill stores", body)
@@ -932,18 +950,22 @@ def main():
                                              log))):
                 phase("build", f"{name}: ptxas: {msg}")
     # SASS of the kernels redesigned for the memory system (K1 forward and
-    # backward, K5/K6, K7): instructions, loop bodies, subroutine calls (a
-    # 64-bit division is one)
-    for name in ("insnorm", "segment"):
+    # backward, K5/K6, K7, K3, K8): instructions, loop bodies, subroutine
+    # calls and 64-bit integer divisions (the I2F.U64.RP that opens one)
+    for name in ("insnorm", "segment", "tail", "mine"):
         try:
-            found = sass.stats(str(kernels._lib_path(name)), REDESIGNED[name])
+            found = sass.stats(str(kernels._lib_path(name)), "")
         except (OSError, subprocess.CalledProcessError) as e:
             phase("build", f"{name}: cuobjdump not available ({e})")
             continue
         for fn, st in found.items():
+            if not re.search(REDESIGNED[name], fn):
+                continue
             phase("build", f"{name} {fn} SASS: {st['insns']} instructions; "
                   f"loops {[(n, f'{a:#x}-{b:#x}') for a, b, n in st['loops']]}"
-                  f"; calls {st['calls']}")
+                  f"; calls {st['calls']}; 64-bit divisions {st['div64']}")
+            if name in ("tail", "mine") and st["div64"]:
+                fail(f"{name} {fn}: {st['div64']} 64-bit integer divisions")
 
     mark("kernel checks")
     # 3. kernels against their plain versions, at the slice's shapes -----
@@ -992,6 +1014,34 @@ def main():
                       f"({'tensor cores, mma.sync' if sp.design == 'mma' else 'CUDA cores'}), "
                       f"pooled tile {sp.tile}, grid {sp.grid}, {sp.smem} B of "
                       "shared memory")
+            if name == "tail":
+                phase("kernel", f"tail {dn} design: "
+                      + tail_design(tail_upsample_softmax_mean.plan))
+
+    # K3 at the serving batch of 32 and on output rows that start off 16
+    # bytes (45 x 37 pixels of 7 classes from 7 x 7, one head pair), both
+    # dtypes, at the gates above, each with its plan. Inputs from a
+    # generator of their own, so the later checks draw what they drew before
+    g3 = torch.Generator(device="cpu").manual_seed(3)
+    tail_cases = {"serving batch 32": (32, 2, 6, TILE // 16, TILE, TILE),
+                  "misaligned rows": (2, 2, 7, 7, 45, 37)}
+    for case, (b3, h3, nc3, hi3, ho3, wo3) in tail_cases.items():
+        x3 = torch.randn(b3, h3 * nc3, hi3, hi3, generator=g3) * 3.0
+        for dt in (torch.float32, torch.bfloat16):
+            dn = str(dt).split(".")[-1]
+            xt3 = x3.to(dev, dt).contiguous(memory_format=CL)
+            got = tail_upsample_softmax_mean(xt3, (ho3, wo3), h3, nc3)
+            ref = tail_upsample_softmax_mean_plain(xt3, (ho3, wo3), h3, nc3)
+            torch.cuda.synchronize()
+            atol, rtol = tol["tail"][dn]
+            e = check_close(f"tail {dn} {case}", got, ref, atol, rtol)
+            if case == "serving batch 32":
+                errs[("tail_b32", dn)] = e
+                inputs[f"tail32 {dn}"] = xt3
+            phase("kernel", f"tail {dn} {case} {tuple(xt3.shape)} -> "
+                  f"{tuple(got.shape)}: max abs err {e:.3g} (atol {atol})")
+            phase("kernel", f"tail {dn} {case} design: "
+                  + tail_design(tail_upsample_softmax_mean.plan))
 
     # K1 forward against its plain version on each of its plan's routes, y
     # at the tolerances above and the f32 mean and rstd (which the backward
@@ -1196,6 +1246,8 @@ def main():
               f"cutoffs ({top}, {low}): labels equal, max abs err u "
               f"{e_u:.3g} (rtol 1e-6), w {e_w:.3g} (rtol 1e-5); shares "
               + json.dumps({k: round(v, 5) for k, v in shares.items()}))
+        phase("kernel", f"uvem_mine {case} design: "
+              + mine_design(uvem_mine.plan))
     if not all(v > 0 for v in seen.values()):
         fail(f"uvem_mine checks miss a branch or a selection case: {seen}")
 
@@ -1647,6 +1699,7 @@ def main():
     yr = F.instance_norm(xr, eps=1e-5)   # the library yardstick's graph
     crop_args = (xc, offc, (TILE, TILE), st_l["mean"], st_l["std"])
     p_mine = inputs["mine"]
+    xt32 = inputs["tail32 bfloat16"]
     # K5-K7 at the 2urban stage-2 shape; the library yardsticks take the
     # int64 indices they need, made here once
     sv, sid, _, stab = inputs["segment"]
@@ -1669,6 +1722,12 @@ def main():
             lambda: torch.softmax(F.interpolate(
                 xt, size=(TILE, TILE), mode="bilinear", align_corners=True
             ).view(BATCH, 2, 6, TILE, TILE), dim=2).mean(1)),
+        "tail_b32": (
+            lambda: tail_upsample_softmax_mean(xt32, (TILE, TILE), 2, 6),
+            lambda: tail_upsample_softmax_mean_plain(xt32, (TILE, TILE), 2, 6),
+            lambda: torch.softmax(F.interpolate(
+                xt32, size=(TILE, TILE), mode="bilinear", align_corners=True
+            ).view(32, 2, 6, TILE, TILE), dim=2).mean(1)),
         "instance_norm_backward": (
             lambda: instance_norm_backward(xb, dyb, mb, rb),
             lambda: instance_norm_backward_plain(xb, dyb, mb, rb),
@@ -1688,8 +1747,8 @@ def main():
             lambda: segment_gather(stab, sid),
             lambda: segment_gather_plain(stab, sid),
             lambda: torch.gather(stab, 1, sidx)),
-        # the wrapper: the class-max reduction (outside the kernel, as in
-        # XLA outside the Pallas body) and K8; no one library call mines
+        # the whole wrapper: K8's two passes, the class max inside them; no
+        # one library call mines
         "uvem_mine": (
             lambda: uvem_mine(p_mine), lambda: uvem_mine_plain(p_mine), None),
     }
@@ -1732,6 +1791,8 @@ def main():
                       PEAK_FLOPS["bfloat16"]),
         "tail": (xt.numel() * el + n_px * 6 * el, n_px * 12 * 14,
                  PEAK_FLOPS["float32"]),
+        "tail_b32": (xt32.numel() * el + 4 * n_px * 6 * el,
+                     4 * n_px * 12 * 14, PEAK_FLOPS["float32"]),
         # K5/K6 read the f32 values and int32 ids and write the (B, S, C)
         # table, one compare or add per value; K7 reads the ids and the
         # table and writes the values, no arithmetic
@@ -1765,6 +1826,9 @@ def main():
         "tail": ("uemda_tpu_torch/kernels/csrc/tail.cu",
                  "uemda_tpu/ops/pallas_tail.py:57",
                  "tail_upsample_softmax_mean"),
+        "tail_b32": ("uemda_tpu_torch/kernels/csrc/tail.cu",
+                     "uemda_tpu/ops/pallas_tail.py:57",
+                     "tail_upsample_softmax_mean"),
         "instance_norm_backward": (
             "uemda_tpu_torch/kernels/csrc/insnorm.cu",
             "uemda_tpu/ops/pallas_insnorm.py:32 (backward of)",
@@ -1841,6 +1905,11 @@ def main():
                         else segment_sum, "plan")))
         if fn_name == "segment_gather":
             record[-1].update(plan=dataclasses.asdict(segment_gather.plan))
+        if fn_name == "tail_upsample_softmax_mean":
+            record[-1].update(plan=dataclasses.asdict(
+                tail_upsample_softmax_mean.plan))
+        if fn_name == "uvem_mine":
+            record[-1].update(plan=dataclasses.asdict(uvem_mine.plan))
         lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         phase("time", f"{name} {dn}: kernel {ms:.4f} ms ({host_ms:.4f} ms "
               f"back to back with its wrapper's host work), plain "
@@ -1895,6 +1964,47 @@ def main():
                      f"{t_:.4f} ms")
     phase("time", f"segment_max float32 ({BATCH}, {TILE * TILE}, {nc7}) S "
           f"{n_seg} design sweep: " + "; ".join(cells))
+    # K3's design space at (8, 12, 32, 32) bf16 -> 512^2: 2-16 rows a CTA,
+    # each held to the plain version at the bf16 gate and timed like the
+    # kernels above; the plan's own choice first
+    ref_ = tail_upsample_softmax_mean_plain(xt, (TILE, TILE), 2, 6)
+    sweep = [None] + [tail_plan(BATCH, TILE // 16, TILE // 16, TILE, TILE, 2,
+                                6, torch.bfloat16, rows=r)
+                      for r in (2, 4, 8, 16)]
+    cells = []
+    for plan in sweep:
+        with torch.no_grad():
+            got = tail_upsample_softmax_mean(xt, (TILE, TILE), 2, 6, plan=plan)
+            check_close("tail bfloat16 sweep", got, ref_,
+                        *tol["tail"]["bfloat16"])
+            p_ = tail_upsample_softmax_mean.plan
+            t_ = kernel_ms(lambda: tail_upsample_softmax_mean(
+                xt, (TILE, TILE), 2, 6, plan=plan))
+        cells.append(f"{'plan: ' if plan is None else ''}rows {p_.rows} ppt "
+                     f"{p_.ppt} {p_.smem // 1024} KB {t_:.4f} ms")
+    phase("time", f"tail bfloat16 {tuple(xt.shape)} -> {TILE}^2 design "
+          "sweep: " + "; ".join(cells))
+    # K8's at the flagship (8, 7, 512^2) channels_last, the whole wrapper:
+    # 4, 8 or 16 pixels a thread, each held to the plain version at the
+    # gates above; the plan's own first
+    ref_ = uvem_mine_plain(p_mine)
+    sweep = [None] + [uvem_mine_plan(*p_mine.shape, p_mine.stride(),
+                                     p_mine.data_ptr(), ppt=pp)
+                      for pp in (4, 8, 16)]
+    cells = []
+    for plan in sweep:
+        got = uvem_mine(p_mine, plan=plan)
+        torch.cuda.synchronize()
+        if not torch.equal(got[0], ref_[0]):
+            fail(f"uvem_mine sweep {plan}: labels differ")
+        check_close("uvem_mine sweep u", got[2], ref_[2], 1e-7, 1e-6)
+        check_close("uvem_mine sweep w", got[1], ref_[1], 1e-7, 1e-5)
+        p_ = uvem_mine.plan
+        t_ = kernel_ms(lambda: uvem_mine(p_mine, plan=plan))
+        cells.append(f"{'plan: ' if plan is None else ''}{p_.route} ppt "
+                     f"{p_.ppt} {t_:.4f} ms")
+    phase("time", f"uvem_mine float32 {tuple(p_mine.shape)} channels_last "
+          "design sweep: " + "; ".join(cells))
     # the K1 backward's design space at the flagship shape, each plan held
     # to its plain version and timed like the kernels above, in both dtypes:
     # 32 or 64 channels a CTA, clusters of 1-8; the plan's own choice first

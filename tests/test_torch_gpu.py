@@ -34,7 +34,7 @@ from uemda_tpu_torch.ops.insnorm import (
     instance_norm_forward_plan,
     instance_norm_plain,
 )
-from uemda_tpu_torch.ops.mine import uvem_mine, uvem_mine_plain
+from uemda_tpu_torch.ops.mine import uvem_mine, uvem_mine_plain, uvem_mine_plan
 from uemda_tpu_torch.ops.segment import (
     segment_gather,
     segment_gather_plain,
@@ -47,6 +47,7 @@ from uemda_tpu_torch.ops.segment import (
 )
 from uemda_tpu_torch.ops.stem import stem_pool, stem_pool_plain
 from uemda_tpu_torch.ops.tail import (
+    tail_plan,
     tail_upsample_softmax_mean,
     tail_upsample_softmax_mean_plain,
 )
@@ -197,6 +198,54 @@ def test_tail_kernel(dev, dtype, g, nc, hi, ho, wo):
     atol = 1e-5 if dtype == torch.float32 else 8e-3  # pallas_tail.py:23-24
     np.testing.assert_allclose(y.float().cpu().numpy(),
                                ref.float().cpu().numpy(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,g,nc,hi,ho,wo", [
+    (32, 2, 6, 32, 512, 512),   # the serving batch of 32
+    (2, 2, 7, 7, 45, 37),       # rows of 37 x 7 values, off 16 bytes
+    (2, 1, 16, 8, 61, 33),      # 16 classes, the generic instantiation
+    (2, 3, 6, 16, 100, 100)])   # three heads
+def test_tail_kernel_redesign_shapes(dev, dtype, b, g, nc, hi, ho, wo):
+    cat = _randn((b, g * nc, hi, hi), 9, dev, dtype, scale=3.0) \
+        .contiguous(memory_format=CL)
+    y = tail_upsample_softmax_mean(cat, (ho, wo), g, nc)
+    assert tail_upsample_softmax_mean.plan == tail_plan(
+        b, hi, hi, ho, wo, g, nc, dtype)
+    ref = tail_upsample_softmax_mean_plain(cat, (ho, wo), g, nc)
+    torch.cuda.synchronize()
+    atol = 1e-5 if dtype == torch.float32 else 8e-3  # pallas_tail.py:23-24
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("rows,cols", [(1, None), (3, None), (16, None),
+                                       (2, 100), (5, 7)])
+def test_tail_kernel_pinned_plans(dev, rows, cols):
+    """Plans pinned to 1-16 rows and column chunks (the last one short) at
+    (3, 14, 16, 16) bf16 -> 130 x 250."""
+    cat = _randn((3, 14, 16, 16), 10, dev, torch.bfloat16, scale=3.0) \
+        .contiguous(memory_format=CL)
+    plan = tail_plan(3, 16, 16, 130, 250, 2, 7, torch.bfloat16, rows=rows,
+                     cols=cols)
+    y = tail_upsample_softmax_mean(cat, (130, 250), 2, 7, plan=plan)
+    assert tail_upsample_softmax_mean.plan is plan
+    ref = tail_upsample_softmax_mean_plain(cat, (130, 250), 2, 7)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), atol=8e-3, rtol=0)
+
+
+@pytest.mark.parametrize("hi,b,ho", [(16, 2, 64), (32, 1, 64), (32, 2, 32)])
+def test_tail_kernel_refuses_a_plan_of_another_call(dev, hi, b, ho):
+    """A plan made for other logits (16 x 16 for 32 x 32, the same output),
+    another batch or another output size is refused by the launcher, which
+    works out the align_corners scales from the call's own shapes."""
+    cat = _randn((2, 12, 32, 32), 11, dev, torch.bfloat16, scale=3.0) \
+        .contiguous(memory_format=CL)
+    plan = tail_plan(b, hi, hi, ho, 64, 2, 6, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tail_upsample_softmax_mean(cat, (64, 64), 2, 6, plan=plan)
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
@@ -659,6 +708,46 @@ def test_uvem_mine_kernel_branches_and_nan(dev, m, t):
     got = uvem_mine(p, 0.8, 0.6, m, t, 4.0)
     _mine_close(got, uvem_mine_plain(p, 0.8, 0.6, m, t, 4.0))
     assert torch.isnan(got[2][1, 5, 6]) and not (got[0][1] == 3).any()
+
+
+@pytest.mark.parametrize("case,route", [
+    ("channels_last", "channels_last"), ("nchw", "nchw"),
+    ("hw % 4", "strided"), ("misaligned", "strided"), ("C 19", "strided")])
+def test_uvem_mine_kernel_routes(dev, case, route):
+    """One case per route of uvem_mine_plan: 16-byte loads of channels_last
+    memory and of NCHW planes; through the strides for H*W not a multiple
+    of 4, for a base one pixel (7 floats) into a buffer, and for 19
+    classes."""
+    shape = {"hw % 4": (2, 7, 37, 53), "C 19": (1, 19, 9, 300)}.get(
+        case, (2, 7, 40, 48))
+    p = _mine_inputs(shape, 35, dev)
+    if case in ("channels_last", "misaligned"):
+        p = p.contiguous(memory_format=CL)
+    if case == "misaligned":
+        flat = torch.empty(p.numel() + 7, device=dev)
+        flat[7:].copy_(p.permute(0, 2, 3, 1).reshape(-1))
+        p = flat[7:].view(2, 40, 48, 7).permute(0, 3, 1, 2)
+    got = uvem_mine(p, 0.8, 0.6, 0.2, 0.7, 4.0)
+    assert uvem_mine.plan.route == route
+    _mine_close(got, uvem_mine_plain(p, 0.8, 0.6, 0.2, 0.7, 4.0))
+
+
+@pytest.mark.parametrize("ppt", [4, 8, 16])
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+def test_uvem_mine_kernel_pinned_ppt(dev, ppt, layout):
+    """4-16 pixels a thread: the labels, w and u do not change (a sample's
+    thresholds are reduced from every CTA's maxima before any label;
+    cutoffs 0.4 / 0.3 leave pixels with several candidates, whose
+    probabilities pass 2 reads again)."""
+    p = _mine_inputs((3, 7, 64, 80), 36, dev)
+    p[2, 4, 9, 9] = float("nan")
+    if layout == "channels_last":
+        p = p.contiguous(memory_format=CL)
+    plan = uvem_mine_plan(3, 7, 64, 80, p.stride(), p.data_ptr(), ppt=ppt)
+    assert plan.route == layout
+    got = uvem_mine(p, 0.4, 0.3, 0.2, 0.7, 4.0, plan=plan)
+    assert uvem_mine.plan is plan
+    _mine_close(got, uvem_mine_plain(p, 0.4, 0.3, 0.2, 0.7, 4.0))
 
 
 def test_uvem_mine_refuses_what_it_does_not_take(dev):

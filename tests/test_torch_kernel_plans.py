@@ -12,8 +12,13 @@ output pixel once. Every instance-norm shape of the training paths gets a
 K1 backward plan within shared memory, a portable cluster, a grid of
 whole clusters and the stated route, and covers every (sample, channel,
 pixel) once; K7's plan writes every output float of every sample once,
-with its 16-byte stores aligned. The CUDA launchers check the plans'
-bounds again on the card."""
+with its 16-byte stores aligned. K3's plan (``ops/tail.py: tail_plan``)
+writes every output element once with aligned 16-byte stores from input
+windows within its bound, and an emulation of its arithmetic matches the
+JAX tail; K8's plan (``ops/mine.py: uvem_mine_plan``) picks the route of
+each layout and visits every pixel once in both passes, and an emulation
+of its two passes is bit-equal to its plain version. The CUDA launchers
+check the plans' bounds again on the card."""
 
 import re
 from pathlib import Path
@@ -42,7 +47,18 @@ from uemda_tpu_torch.ops.segment import (
     segment_gather_plan,
     segment_reduce_plan,
 )
+from uemda_tpu_torch.ops import mine
+from uemda_tpu_torch.ops.mine import uvem_mine_plain, uvem_mine_plan
 from uemda_tpu_torch.ops.stem import stem_plan
+from uemda_tpu_torch.ops.tail import (
+    TAIL_STATIC_NC,
+    TAIL_THREADS,
+    tail_chunk_elems,
+    tail_plan,
+    tail_scales,
+    tail_smem,
+)
+from uemda_tpu_torch.ops.uncertainty import pixel_entropy
 
 CSRC = Path(resblock.__file__).resolve().parents[1] / "kernels" / "csrc"
 TILE = 512
@@ -768,5 +784,504 @@ def test_sass_parse_counts_loops_and_calls():
 """
     got = parse(listing)
     assert got["_Z6kernelPfi"] == {"insns": 12, "loops": [(0x20, 0x50, 4)],
-                                   "calls": [3]}
-    assert got["_Z5otherv"] == {"insns": 1, "loops": [], "calls": []}
+                                   "calls": [3], "div64": 0}
+    assert got["_Z5otherv"] == {"insns": 1, "loops": [], "calls": [],
+                                "div64": 0}
+
+
+def test_sass_parse_counts_64_bit_divisions():
+    """A 64-bit division (its I2F.U64.RP, here in a called subroutine) is
+    counted; a 32-bit one (I2F.U32.RP) and a plain conversion are not."""
+    from uemda_tpu_torch.kernels.sass import parse
+
+    listing = """
+        Function : _Z3divPmm
+        /*0000*/                   I2F.U32.RP R5, R4 ;
+        /*0010*/                   MUFU.RCP R5, R5 ;
+        /*0020*/                   I2F.U64 R6, R2 ;
+        /*0030*/                   CALL.REL.NOINC 0x50 ;
+        /*0040*/                   EXIT ;
+        /*0050*/                   I2F.U64.RP R8, R2 ;
+        /*0060*/                   MUFU.RCP R8, R8 ;
+        /*0070*/                   F2I.U64.TRUNC R10, R8 ;
+        /*0080*/                   RET.REL.NODEC R20 0x0 ;
+"""
+    got = parse(listing)["_Z3divPmm"]
+    assert got["div64"] == 1 and got["calls"] == [4]
+
+
+# --- K3 ---------------------------------------------------------------------
+
+def _src_lo(o, scale, n):
+    """tail.cu's src_lo: floor(f32(o * scale)) clamped to the input."""
+    f = np.float32(o) * np.float32(scale)
+    return min(int(f), n - 1)
+
+
+def _tail_writes(p, b, hi, wi, ho, wo, nc, elt, base=0):
+    """tail.cu's K3 on plan p, CTA by CTA, in numpy: the input window each
+    CTA stages (within p.in_rows x p.in_cols); then row by row, each warp's
+    chunks of 32 * ppt pixels (warp w on chunks w, w + 8, ... of a row, a
+    lane on ppt consecutive pixels), staged in the warp's buffer at the
+    chunk's offset within 16 bytes, and the chunk's stores to a destination
+    at byte ``base``: the head and tail one element a lane, the rest 16
+    bytes a lane, from 16-byte boundaries of the buffer (the warp buffers
+    follow the H-rows, the window and the column table in shared memory)
+    and of the output. Returns how many times each output pixel (all its
+    nc values) was written."""
+    v = 16 // elt
+    warps = TAIL_THREADS // 32
+    chunk = 32 * p.ppt
+    cel = tail_chunk_elems(p.ppt, nc, elt)
+    # the warp buffers' byte offset in shared memory: the rest of the layout
+    out_at = p.smem - warps * cel * elt
+    assert out_at % 16 == 0 and out_at >= 8 * p.cols
+    writes = np.zeros((b, ho, wo), np.int64)
+    sh, sw = tail_scales(hi, wi, ho, wo)
+    for gz in range(p.grid[2]):
+        c0 = gz * p.cols
+        ncol = min(p.cols, wo - c0)
+        assert ncol >= 1
+        xlo = _src_lo(c0, sw, wi)
+        xhi = min(_src_lo(c0 + ncol - 1, sw, wi) + 1, wi - 1)
+        assert xhi - xlo + 1 <= p.in_cols
+        for gx in range(p.grid[0]):
+            r0 = gx * p.rows
+            nr = min(p.rows, ho - r0)
+            assert nr >= 1
+            ylo = _src_lo(r0, sh, hi)
+            yhi = min(_src_lo(r0 + nr - 1, sh, hi) + 1, hi - 1)
+            assert yhi - ylo + 1 <= p.in_rows
+            for bi in range(b):
+                for rr in range(nr):
+                    for xc in range(0, ncol, chunk):
+                        w = (xc // chunk) % warps
+                        addr = base + ((bi * ho + r0 + rr) * wo + c0 + xc) \
+                            * nc * elt
+                        shift = (addr % 16) // elt
+                        n = min(chunk, ncol - xc) * nc
+                        assert shift + n <= cel  # the lanes' runs
+                        head = min(n, (v - shift) % v)
+                        nv = (n - head) // v
+                        if nv:  # the 16-byte stores
+                            assert (addr + head * elt) % 16 == 0
+                            assert (out_at + (w * cel + shift + head) * elt) \
+                                % 16 == 0
+                        assert head + nv * v <= n
+                        writes[bi, r0 + rr, c0 + xc:c0 + xc + n // nc] += 1
+    return writes
+
+
+def _check_tail_plan(p, b, hi, wi, ho, wo, g, nc, elt):
+    assert p.grid == (-(-ho // p.rows), b, -(-wo // p.cols))
+    assert len(p.as_ints()) == 9
+    sh, sw = tail_scales(hi, wi, ho, wo)
+    assert p.in_rows == min(hi, int((p.rows - 1) * sh) + 4)
+    assert p.in_cols == min(wi, int((p.cols - 1) * sw) + 4)
+    assert p.smem == tail_smem(p.rows, p.cols, p.ppt, p.in_rows,
+                               p.in_cols, g, nc, elt) <= SMEM_LIMIT
+    assert p.ppt == (2 if nc in (6, 7) and g == 2 else 1)
+
+
+# (b, g, nc, hi, ho, wo): serving at batch 8 and 32, the sweep's windows
+# (9 windows x 8 views at batch 1 and 4, LoveDA's 7 classes), stage 2's
+# evaluation views, and the GPU tests' shapes
+TAIL_SHAPES = [(8, 2, 6, 32, 512, 512), (32, 2, 6, 32, 512, 512),
+               (72, 2, 6, 32, 512, 512), (288, 2, 7, 32, 512, 512),
+               (2, 2, 6, 32, 512, 512), (2, 1, 7, 16, 48, 40),
+               (2, 2, 6, 8, 1, 9), (2, 2, 7, 7, 45, 37), (2, 1, 16, 8, 61, 33),
+               (2, 3, 6, 16, 100, 100), (1, 2, 17 // 2, 4, 8, 8)]
+
+
+@pytest.mark.parametrize("b,g,nc,hi,ho,wo", TAIL_SHAPES)
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_k3_plans_write_every_output_once(b, g, nc, hi, ho, wo, dtype):
+    """Every output element of every sample written once, every 16-byte
+    store on a 16-byte boundary of the staged row and of the output, the
+    input windows within the plan's bound, shared memory within 232,448 B;
+    at the serving shapes, the sweep's windows and every GPU test's shape
+    (an output of one row; rows of 45 x 7 bf16 values that start off 16
+    bytes; 16 classes; three heads)."""
+    elt = 2 if dtype == BF16 else 4
+    p = tail_plan(b, hi, hi, ho, wo, g, nc, dtype)
+    _check_tail_plan(p, b, hi, hi, ho, wo, g, nc, elt)
+    # the full batch only where it is small: samples repeat the first's
+    # pattern when a sample's output is whole 16-byte units
+    bb = b if (ho * wo * nc * elt) % 16 else min(b, 2)
+    assert (_tail_writes(p, bb, hi, hi, ho, wo, nc, elt) == 1).all()
+    # a destination off 16 bytes (a view), and misaligned rows in bf16
+    assert (_tail_writes(p, min(b, 2), hi, hi, ho, wo, nc, elt, base=elt)
+            == 1).all()
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_k3_pinned_plans_of_the_sweep_cover_the_serving_tile(rows, dtype):
+    """chip_smoke.py's design sweep at (8, 12, 32, 32) -> 512^2: every
+    plan of 1-16 rows a CTA fits and writes every output once."""
+    elt = 2 if dtype == BF16 else 4
+    p = tail_plan(8, 32, 32, TILE, TILE, 2, 6, dtype, rows=rows)
+    _check_tail_plan(p, 8, 32, 32, TILE, TILE, 2, 6, elt)
+    assert (p.rows, p.ppt, p.cols) == (rows, 2, TILE)
+    assert (_tail_writes(p, 1, 32, 32, TILE, TILE, 6, elt) == 1).all()
+
+
+def test_k3_plan_of_another_input_size_does_not_fit():
+    """The launcher works out the align_corners scales from the call's
+    shapes and refuses a plan whose window, shared memory or grid differ
+    from the ones they give: a plan made for 16 x 16 logits does not pass
+    for 32 x 32 ones with the same output (its window is 16 columns, not
+    32), nor one for another batch or output."""
+    p = tail_plan(8, 32, 32, TILE, TILE, 2, 6, BF16)
+    assert tail_plan(8, 16, 16, TILE, TILE, 2, 6, BF16).as_ints() \
+        != p.as_ints()
+    assert tail_plan(8, 32, 16, TILE, TILE, 2, 6, BF16).as_ints() \
+        != p.as_ints()
+    assert tail_plan(4, 32, 32, TILE, TILE, 2, 6, BF16).as_ints() \
+        != p.as_ints()
+    assert tail_plan(8, 32, 32, TILE // 2, TILE, 2, 6, BF16).as_ints() \
+        != p.as_ints()
+    src = (CSRC / "tail.cu").read_text()
+    assert "int Ho, int Wo, int g, int nc, int is_bf16,\n" in src
+    assert "const float sh = scale(Hi, Ho), sw = scale(Wi, Wo);" in src
+    assert "in_rows != window_bound(rows, sh, Hi) ||" in src
+    assert "in_cols != window_bound(cols, sw, Wi) ||" in src
+
+
+def test_k3_plan_of_the_flagship_by_hand():
+    """(8, 12, 32, 32) bf16 -> 512^2: 8 whole rows a CTA, 2 pixels a
+    thread, a window of at most 4 x 32 inputs; shared memory 36 KB of eight
+    H-rows (32 columns of 2 heads x logits and steps x 8 padded classes
+    and 4 floats of padding, 4 B each), 6 KB of window, 4 KB of column
+    table and 8 warps' chunks of 64 pixels x 6 bf16 and 14 of alignment
+    slack (392 bf16); 64 x 8 CTAs. Wide outputs split their columns."""
+    p = tail_plan(8, 32, 32, TILE, TILE, 2, 6, BF16)
+    assert (p.rows, p.cols, p.ppt, p.in_rows, p.in_cols, p.grid) == (
+        8, TILE, 2, 4, 32, (64, 8, 1))
+    assert p.smem == 8 * 32 * (2 * 2 * 8 + 4) * 4 + 4 * 32 * 12 * 4 \
+        + 8 * TILE + 8 * 392 * 2 == 53376
+    f = tail_plan(8, 32, 32, TILE, TILE, 2, 6, F32)
+    assert (f.rows, f.cols, f.grid) == (8, TILE, (64, 8, 1))
+    w = tail_plan(1, 40, 1000, 64, 8000, 2, 16, F32)
+    assert w.cols < 8000 and w.grid[2] == -(-8000 // w.cols)
+    _check_tail_plan(w, 1, 40, 1000, 64, 8000, 2, 16, 4)
+    assert (_tail_writes(w, 1, 40, 1000, 64, 8000, 16, 4) == 1).all()
+    assert tail_plan(8, 32, 32, TILE, TILE, 2, 5, BF16).ppt == 1
+
+
+def _tail_emulated(cat, ho, wo, g, nc, p):
+    """tail.cu's arithmetic on plan p in torch, CTA by CTA, on a (B, Hi,
+    Wi, g*nc) f32 array: the staged window, the H-lerp of each output row
+    and its steps from column to column, the column table, the W-lerp of
+    each pixel (an FFMA of lx, the step and the logit), exp2 of an FFMA of
+    v * log2e and m * log2e (f64 then rounded, as one FFMA), a reciprocal
+    per head times 1/g, and the heads' sum by FFMA. -> (B, Ho, Wo, nc)."""
+    x = torch.from_numpy(cat)
+    b, hi, wi, gc = x.shape
+    f32, log2e = torch.float32, np.float32(1.4426950408889634)
+    inv_g = torch.tensor(1.0, dtype=f32) / torch.tensor(float(g), dtype=f32)
+    out = torch.empty(b, ho, wo, nc)
+
+    def axis(o0, count, scale, n):
+        f = torch.arange(o0, o0 + count, dtype=f32) * torch.tensor(scale, dtype=f32)
+        i0 = torch.clamp(f.long(), max=n - 1)
+        return i0, torch.clamp(i0 + 1, max=n - 1), f - i0.to(f32)
+
+    sh, sw = tail_scales(hi, wi, ho, wo)
+    for gx in range(p.grid[0]):
+        r0 = gx * p.rows
+        nr = min(p.rows, ho - r0)
+        y0, y1, ly = axis(r0, nr, sh, hi)
+        ylo = int(y0[0])
+        for gz in range(p.grid[2]):
+            c0 = gz * p.cols
+            ncol = min(p.cols, wo - c0)
+            x0, x1, lx = axis(c0, ncol, sw, wi)
+            xlo = int(x0[0])
+            win = x[:, ylo:, xlo:]                    # the staged window
+            ly_, lx_ = ly[None, :, None, None], lx[None, None, :, None]
+            hrow = (1 - ly_) * win[:, y0 - ylo] + ly_ * win[:, y1 - ylo]
+            step = hrow[:, :, x1 - xlo] - hrow[:, :, x0 - xlo]
+            v = (lx_.double() * step.double()
+                 + hrow[:, :, x0 - xlo].double()).to(f32)
+            acc = torch.zeros(b, nr, ncol, nc, dtype=torch.float64)
+            for h in range(g):
+                vh = v[..., h * nc:(h + 1) * nc]
+                ml = vh.amax(-1, keepdim=True) * log2e
+                arg = (vh.double() * float(log2e) - ml.double()).to(f32)
+                e = torch.exp2(arg)
+                rg = (1 / e.sum(-1, keepdim=True)) * inv_g
+                acc = (e.double() * rg.double() + acc).to(f32).double()
+            out[:, r0:r0 + nr, c0:c0 + ncol] = acc.to(f32)
+    return out.numpy()
+
+
+@pytest.mark.parametrize("g,nc,hi,ho,wo,rows", [(2, 6, 8, 64, 64, None),
+                                                (2, 7, 16, 48, 40, 3),
+                                                (1, 6, 8, 32, 32, None),
+                                                (3, 6, 5, 29, 37, 5)])
+def test_k3_reciprocal_softmax_matches_the_jax_tail(g, nc, hi, ho, wo, rows):
+    """The kernel's f32 arithmetic, emulated on its plan, against
+    ``uemda_tpu.ops.pallas_tail.tail_upsample_softmax_mean`` in interpret
+    mode at atol 1e-5 (the GPU gate): the H-row shared by a CTA's pixels,
+    the max folded into the exponent's FFMA, one reciprocal per head."""
+    import jax.numpy as jnp
+
+    from uemda_tpu.ops.pallas_tail import tail_upsample_softmax_mean as jax_tail
+
+    rng = np.random.default_rng(g * 100 + nc * 10 + hi)
+    cat = (rng.normal(size=(2, hi, hi, g * nc)) * 3).astype(np.float32)
+    p = tail_plan(2, hi, hi, ho, wo, g, nc, F32, rows=rows)
+    got = _tail_emulated(cat, ho, wo, g, nc, p)
+    want = np.asarray(jax_tail(jnp.asarray(cat), (ho, wo), g, nc))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+# --- K8 ---------------------------------------------------------------------
+
+def _probs_t(shape, seed, layout="nchw"):
+    b, c, h, w = shape
+    r = np.random.default_rng(seed)
+    scale = r.choice([0.3, 2.0, 8.0], size=(b, 1, h, w))
+    x = torch.from_numpy((r.normal(size=shape) * scale).astype(np.float32))
+    p = torch.softmax(x, 1)
+    if layout == "channels_last":
+        p = p.contiguous(memory_format=torch.channels_last)
+    return p
+
+
+@pytest.mark.parametrize("case,route", [
+    ("nchw", "nchw"), ("channels_last", "channels_last"),
+    ("rot90", "strided"), ("fp16", "nchw"), ("fp16 channels_last",
+                                             "channels_last"),
+    ("hw % 4", "strided"), ("misaligned", "strided"), ("C 19", "strided"),
+    ("C 1", "strided"), ("C 16", "channels_last")])
+def test_k8_route_of_each_layout(case, route):
+    """NCHW planes and channels_last memory take the 16-byte routes; a
+    rot90 view, H*W not a multiple of 4, a base off 16 bytes (a view one
+    pixel in) and C outside 2..16 read through the strides; fp16 is cast
+    to f32 first, keeping its layout."""
+    shape = {"hw % 4": (2, 7, 37, 53), "C 19": (1, 19, 9, 300),
+             "C 1": (2, 1, 8, 8), "C 16": (2, 16, 8, 12)}.get(case,
+                                                             (2, 7, 16, 24))
+    p = _probs_t(shape, 1, "channels_last" if "channels_last" in case
+                 or case in ("rot90", "misaligned", "C 16") else "nchw")
+    ptr = 0
+    if case == "rot90":
+        p = torch.rot90(p, 1, (2, 3))
+    elif case.startswith("fp16"):
+        p = p.half().float()
+    elif case == "misaligned":  # one pixel (7 floats) into a buffer
+        flat = torch.empty(p.numel() + 7)
+        p = flat[7:].view(2, 16, 24, 7).permute(0, 3, 1, 2)
+        ptr = 7 * 4
+    b, c, h, w = p.shape
+    plan = uvem_mine_plan(b, c, h, w, p.stride(), ptr)
+    assert plan.route == route
+    ppt = 4 if route == "strided" else mine.MINE_PPT
+    assert plan.ppt == ppt
+    assert plan.blocks == -(-h * w // (256 * ppt)) and plan.grid == (plan.blocks, b)
+    assert plan.smem == (4 * c if route == "strided" else 0)
+    assert len(plan.as_ints()) == 5
+
+
+def test_k8_plan_of_the_flagship_by_hand():
+    """(8, 7, 512^2) f32 channels_last: the 16-byte route, 8 pixels a
+    thread, 128 CTAs of 256 threads a sample; NCHW planes likewise on their
+    route; a base off 16 bytes reads through the strides, 4 pixels a
+    thread, its C thresholds in shared memory."""
+    cl = (7 * TILE * TILE, 1, 7 * TILE, 7)
+    p = uvem_mine_plan(8, 7, TILE, TILE, cl, 0)
+    assert (p.route, p.ppt, p.blocks, p.grid, p.smem) == (
+        "channels_last", 8, 128, (128, 8), 0)
+    assert p.as_ints() == [0, 8, 128, 8, 0]
+    n = uvem_mine_plan(8, 7, TILE, TILE, (7 * TILE * TILE, TILE * TILE,
+                                          TILE, 1), 0)
+    assert (n.route, n.blocks) == ("nchw", 128)
+    m = uvem_mine_plan(8, 7, TILE, TILE, cl, 4)
+    assert (m.route, m.ppt, m.blocks, m.smem) == ("strided", 4, 256, 28)
+
+
+def _mine_pixels(plan, b, hw):
+    """How many times a pass visits each pixel (both walk the grid alike):
+    CTA (bx, by), thread t, iteration i on group q = bx * iters * 256 + i *
+    256 + t of 4 pixels (the strided route: q = bx * 256 + t)."""
+    seen = np.zeros((b, hw), np.int64)
+    iters = plan.ppt // 4
+    t = np.arange(MINE_THREADS_)
+    for by in range(plan.grid[1]):
+        for bx in range(plan.grid[0]):
+            for i in range(iters):
+                q = bx * iters * 256 + i * 256 + t
+                px = (4 * q[:, None] + np.arange(4)).reshape(-1)
+                np.add.at(seen[by], px[px < hw], 1)
+    return seen
+
+
+MINE_THREADS_ = 256
+
+
+@pytest.mark.parametrize("b,c,h,w,layout", [
+    (8, 7, TILE, TILE, "channels_last"), (3, 7, 64, 64, "nchw"),
+    (2, 6, 37, 53, "nchw"), (1, 19, 9, 300, "nchw"), (2, 7, 40, 48, "nchw")])
+@pytest.mark.parametrize("ppt", [None, 4, 16])
+def test_k8_plans_visit_every_pixel_once_in_both_passes(b, c, h, w, layout,
+                                                        ppt):
+    strides = torch.empty(
+        (b, c, h, w), device="meta",
+        memory_format=torch.channels_last if layout == "channels_last"
+        else torch.contiguous_format).stride()
+    route = mine.uvem_mine_route(c, h, w, strides, 0)
+    if route == "strided" and ppt not in (None, 4):
+        with pytest.raises(ValueError, match="pixels a thread"):
+            uvem_mine_plan(b, c, h, w, strides, 0, ppt=ppt)
+        return
+    bb = min(b, 2)
+    plan = uvem_mine_plan(bb, c, h, w, strides, 0, ppt=ppt)
+    assert plan.route == route
+    assert (_mine_pixels(plan, bb, h * w) == 1).all()
+
+
+def test_k8_launcher_bounds_match_the_cuda_source():
+    """mine.cu's thread count, largest C, vector-route class counts and
+    pixels a thread, the strided route's shared memory and the plan's int
+    layout are ops/mine.py's."""
+    src = (CSRC / "mine.cu").read_text()
+    for text in ("constexpr int kThreads = 256;",
+                 f"constexpr int kMaxC = {mine.MINE_MAX_C};",
+                 "!(ppt == 4 || ppt == 8 || ppt == 16) || C < 2 || C > 16",
+                 ": ppt != 4 || smem != 4 * C) ||",
+                 "!plan || n != 5)",
+                 "(route == 0 && (sC != 1 || sW != C || sH != "
+                 "static_cast<long long>(W) * C))",
+                 "(route == 1 && (sW != 1 || sH != W || sC % 4))",
+                 "static_cast<long long>(blocks) * kThreads * ppt < HW",
+                 "const int route = plan[0], ppt = plan[1], blocks = plan[2];",
+                 "const int smem = plan[4];"):
+        assert text in src
+    assert [int(n) for n in re.findall(r"UEMDA_MINE\((\d+)\)", src)] == \
+        list(mine.MINE_STATIC_C)
+    assert mine.MINE_THREADS == MINE_THREADS_ == 256
+    assert mine.MINE_ROUTES == {"channels_last": 0, "nchw": 1, "strided": 2}
+    tsrc = (CSRC / "tail.cu").read_text()
+    assert "constexpr int kThreads = 256;" in tsrc and TAIL_THREADS == 256
+    assert "constexpr int kWarps = kThreads / 32;" in tsrc
+    assert [tuple(int(v) for v in m) for m in re.findall(
+        r"UEMDA_TAIL\((\d+), (\d+), (\d+)\)", tsrc)] == [
+        (nc, 2, 2) for nc in TAIL_STATIC_NC] + [(0, 0, 1)]
+    assert "ppt != ((nc == 6 || nc == 7) && g == 2 ? 2 : 1) ||" in tsrc
+
+
+def _mine_emulated(probs, plan, top, low, m, t, gamma, ignore=-1):
+    """mine.cu's two passes on plan p in torch f32: pass 1's pixel entropy
+    u (each class's p * log(max(p, 1e-30)) added from 0 one class after the
+    other, each operation rounded), its per-CTA class maxima over the CTA's
+    run of pixels (NaN-propagating) and each pixel's candidate code (the
+    one class not at or under f32(low), none, or several) with the
+    candidate's value;
+    pass 2's reduction of the maxima and its thresholds f32(max * f32(top)),
+    NaN kept, else at least f32(low); a pixel's label from its candidate
+    (taken if strictly over its threshold), or for several candidates from
+    all its classes counted again; w with the branch picked first and one
+    pow."""
+    b, c, h, w = probs.shape
+    flat = probs.reshape(b, c, h * w)
+    run = MINE_THREADS_ * plan.ppt
+    pad = torch.full((b, c, plan.blocks * run - h * w), float("-inf"))
+    part = torch.cat([flat, pad], -1).reshape(b, c, plan.blocks, run).amax(-1)
+    x = part.amax(-1) * np.float32(top)
+    thr = torch.where(torch.isnan(x), x, torch.clamp(x, min=float(np.float32(low))))
+    # pass 1: the candidates
+    cand = ~(probs <= float(np.float32(low)))
+    count = cand.sum(1)
+    cls = torch.where(cand, torch.arange(c)[None, :, None, None], -1).amax(1)
+    val = torch.gather(probs, 1, cls.clamp(min=0)[:, None]).squeeze(1)
+    # pass 2: one candidate against its threshold; several counted again
+    thr_k = torch.gather(thr, 1, cls.clamp(min=0).reshape(b, -1)).reshape(b, h, w)
+    one = (count == 1) & (val > thr_k)
+    over = probs > thr[:, :, None, None]
+    again = (count > 1) & (over.sum(1) == 1)
+    idx = torch.where(over, torch.arange(c)[None, :, None, None], -1).amax(1)
+    label = torch.full_like(cls, ignore)
+    label = torch.where(one, cls, label)
+    label = torch.where(again, idx, label).to(torch.int32)
+    acc = torch.zeros(b, h, w)
+    for k in range(c):
+        v = probs[:, k]
+        acc = acc + v * torch.log(torch.clamp_min(v, 1e-30))
+    u = -acc
+    xs = u.clone()
+    cs = torch.full_like(u, -1.0 / ((t - m) ** 2) if m < t else 0.0)
+    fixed = torch.full_like(u, -1.0)
+    nan = torch.isnan(u)
+    left = ~nan & (u <= m) & (u < t)
+    fixed[left & (m <= 0)] = 1.0
+    cs[left] = -1.0 / (m * m) if m > 0 else 0.0
+    xs[nan] = 0.0
+    if m >= t:
+        fixed[nan] = 0.0
+    fixed[u >= t] = 0.0
+    d = xs - m
+    v = torch.clamp(cs * (d * d) + 1.0, 0.0, 1.0) ** (1.0 / gamma)
+    return label, torch.where(fixed >= 0, fixed, v), u, count
+
+
+@pytest.mark.parametrize("layout,shape", [("channels_last", (2, 7, 40, 48)),
+                                          ("nchw", (2, 6, 37, 53)),
+                                          ("nchw", (1, 19, 9, 300))])
+def test_k8_plain_entropy_is_deterministic(layout, shape):
+    """The plain version's u, which the K8 emulation is held to bit for
+    bit, is the same bits after a JAX computation in this process, with 1,
+    2 or 8 torch threads and for contiguous, channels_last and offset
+    copies of the probabilities."""
+    import jax.numpy as jnp
+
+    float(jnp.log(jnp.linspace(1e-30, 1.0, 1000)).sum())
+    p = _probs_t(shape, 5, layout)
+    p[1 % shape[0], 3, 5, 6] = float("nan")
+    ref = pixel_entropy(p)
+    views = [p.contiguous(), p.contiguous(memory_format=torch.channels_last),
+             torch.cat([torch.zeros((1,) + p.shape[1:]), p])[1:]]
+    threads = torch.get_num_threads()
+    try:
+        for n in (1, 2, 8):
+            torch.set_num_threads(n)
+            for v in [p] + views:
+                u = pixel_entropy(v)
+                assert torch.equal(torch.isnan(u), torch.isnan(ref))
+                assert torch.equal(torch.nan_to_num(u), torch.nan_to_num(ref))
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("m,t", [(0.2, 0.7), (0.0, 0.5), (0.6, 0.5)])
+@pytest.mark.parametrize("layout,shape", [("channels_last", (2, 7, 40, 48)),
+                                          ("nchw", (2, 6, 37, 53)),
+                                          ("nchw", (1, 19, 9, 300))])
+@pytest.mark.parametrize("cutoffs", [(0.8, 0.6), (0.4, 0.3)])
+def test_k8_two_pass_emulation_is_bit_equal_to_the_plain_version(
+        m, t, layout, shape, cutoffs):
+    """Block partial maxima, the threshold formed in pass 2, each pixel's
+    candidate carried from pass 1 to pass 2 and the one-pow branch
+    selection give the plain version's labels and w bit for bit: the three
+    branches, the degenerate (m, t) pairs (no left parabola; no right
+    one), a NaN probability (its u NaN, its class never selected in its
+    sample), one-hot pixels (u = 0) and, at the lowered cutoffs, pixels
+    with several candidates. The emulated u is the plain version's bit for
+    bit too."""
+    top, low = cutoffs
+    p = _probs_t(shape, 5, layout)
+    p[0, :, 0, 0] = torch.eye(shape[1])[0]
+    p[1 % shape[0], 3, 5, 6] = float("nan")
+    b, c, h, w = p.shape
+    plan = uvem_mine_plan(b, c, h, w, p.stride(), 0)
+    ref = uvem_mine_plain(p, top, low, m, t, 4.0)
+    got = _mine_emulated(p, plan, top, low, m, t, 4.0)
+    assert torch.equal(got[0], ref[0])
+    for i in (1, 2):
+        assert torch.equal(torch.isnan(got[i]), torch.isnan(ref[i]))
+        assert torch.equal(torch.nan_to_num(got[i]), torch.nan_to_num(ref[i]))
+    assert bool(torch.isnan(ref[2][1 % b, 5, 6]))
+    assert not bool((got[0][1 % b] == 3).any())
+    if cutoffs == (0.4, 0.3) and shape[1] < 19:
+        assert bool((got[3] > 1).any())  # several candidates: read again

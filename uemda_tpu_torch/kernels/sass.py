@@ -3,9 +3,10 @@
 For each kernel of a shared library (or of a ``.cu`` source, built here
 with the port's ``nvcc`` flags) whose name holds a pattern: its SASS
 instructions, the instructions inside each loop (from a backward branch's
-target to the branch), and the subroutines it calls (``CALL``; a 64-bit
-integer division is one) with their sizes. Run on the machine with the
-CUDA toolkit::
+target to the branch), the subroutines it calls (``CALL``) with their
+sizes, and its 64-bit integer divisions (each opens with the ``I2F.U64.RP``
+of its reciprocal estimate, inline or in a called subroutine). Run on the
+machine with the CUDA toolkit::
 
     python -m uemda_tpu_torch.kernels.sass segment_gather_kernel \\
         build/torch_ext/libsegment_*.so path/to/old/segment.cu
@@ -21,11 +22,12 @@ from typing import Dict, List
 _FUNC = re.compile(r"Function : (\S+)")
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?);")
 _TARGET = re.compile(r"\b(BRA|CALL\.REL(?:\.NOINC)?)\b.*?0x([0-9a-f]+)")
+_DIV64 = re.compile(r"\bI2F\.[US]64\.RP\b")
 
 
 def parse(listing: str) -> Dict[str, dict]:
     """{kernel name: {"insns": n, "loops": [(start, end, n)], "calls":
-    [subroutine size]}} from a ``cuobjdump -sass`` listing."""
+    [subroutine size], "div64": n}} from a ``cuobjdump -sass`` listing."""
     funcs: Dict[str, List] = {}
     cur = None
     for line in listing.splitlines():
@@ -52,7 +54,8 @@ def parse(listing: str) -> Dict[str, dict]:
                             any(w.startswith("RET") for w in s.split())),
                            addrs[-1])
                 calls.append(sum(dst <= x <= end for x in addrs))
-        out[name] = {"insns": len(insns), "loops": loops, "calls": calls}
+        out[name] = {"insns": len(insns), "loops": loops, "calls": calls,
+                     "div64": sum(bool(_DIV64.search(t)) for _, t in insns)}
     return out
 
 
@@ -86,7 +89,8 @@ def main(argv: List[str]) -> None:
             loops = ", ".join(f"{n} at {a:#x}-{b:#x}"
                               for a, b, n in s["loops"])
             print(f"{Path(path).name} {name}: {s['insns']} instructions; "
-                  f"loops: {loops or 'none'}; calls: {s['calls'] or 'none'}")
+                  f"loops: {loops or 'none'}; calls: {s['calls'] or 'none'}; "
+                  f"64-bit divisions: {s['div64']}")
 
 
 if __name__ == "__main__":
