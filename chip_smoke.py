@@ -142,32 +142,39 @@ def profile_rows(prof, n):
 WRAPPERS = []  # every kernel wrapper with a launch count, filled by main()
 
 
-def profile_steps(what, step_fn, state, src_it, tgt_it, dev, ms_step, n=3):
-    """``n`` more steps under the profiler: device time per step, the
-    device's idle share, device time by kernel and by operator, and the
-    host's operator time."""
+def profile_steps(what, step_fn, state, src_it, tgt_it, dev, ms_step, n=3,
+                  run=None):
+    """``n`` more steps under the profiler (eager steps of ``step_fn``, or
+    ``run()``, which takes ``n`` steps): device time per step, the device's
+    idle share, device time by kernel and by operator, and the host's
+    operator time. Returns the device ms a step and the idle share of the
+    event-timed step ``ms_step``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from uemda_tpu_torch.train.loop import batch_to_device
 
+    if run is None:
+        def run():
+            for _ in range(n):
+                step_fn(state, batch_to_device(next(src_it), dev),
+                        batch_to_device(next(tgt_it), dev), 2333)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n):
-            step_fn(state, batch_to_device(next(src_it), dev),
-                    batch_to_device(next(tgt_it), dev), 2333)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     rows, ops, total_us = profile_rows(prof, n)
     if total_us <= 0:
         phase("profile", f"{what}: device time not measured (profiler saw "
               "none)")
-        return None
+        return None, None
+    idle = max(0.0, 1 - total_us / 1e3 / ms_step)
     phase("profile", f"{what}, {n} steps: device time {total_us / 1e3:.3f} "
-          f"ms/step; idle share {max(0.0, 1 - total_us / 1e3 / ms_step):.3f} "
-          f"of the event-timed step, "
+          f"ms/step; idle share {idle:.3f} of the event-timed step "
+          f"{ms_step:.3f} ms, "
           f"{max(0.0, 1 - total_us / 1e3 / wall_ms):.3f} of the profiled wall "
           f"{wall_ms:.3f} ms/step; by kernel:")
     for key, t in rows[:15]:
@@ -187,7 +194,149 @@ def profile_steps(what, step_fn, state, src_it, tgt_it, dev, ms_step, n=3):
           f"{sum(c for _, _, c in host):.0f} operator calls; largest:")
     for key, t, c in host[:10]:
         phase("profile", f"  {t / 1e3:.4f} ms  {c:.0f} calls  {key}")
-    return total_us / 1e3
+    return total_us / 1e3, idle
+
+
+K_GRAPH = 10  # steps_per_call of the graph reruns
+
+
+def stream(dataset, seed, host_crop=None):
+    """A training batch stream behind its decode thread, as the trainers'
+    ``make_source_iter`` and ``make_target_iter`` build it."""
+    from uemda_tpu_torch.datasets.base import infinite_batches
+    from uemda_tpu_torch.datasets.prefetch import prefetch
+
+    return prefetch(infinite_batches(dataset, BATCH, seed=seed,
+                                     host_crop=host_crop))
+
+
+def copy_start(state):
+    """An independent copy of a train state before its first step: the
+    model (masters, BatchNorm buffers), a fresh optimizer like the
+    original's, the aligner and the balances."""
+    import dataclasses
+
+    import torch
+
+    from uemda_tpu_torch.train.optim import SGD
+
+    model = copy.deepcopy(state.model)
+    named = list(model.named_parameters())
+    o = state.opt
+    opt = SGD(named, o.schedule, o.momentum, o.weight_decay, o.clip_norm,
+              dict(zip(o.names, o.trainable)))
+    opt.count = o.count
+
+    def clone(x):
+        return None if x is None else dataclasses.replace(x, **{
+            f.name: getattr(x, f.name).clone()
+            for f in dataclasses.fields(x)
+            if isinstance(getattr(x, f.name), torch.Tensor)})
+
+    return dataclasses.replace(state, model=model, opt=opt,
+                               aligner=clone(state.aligner),
+                               balance_s=clone(state.balance_s),
+                               balance_t=clone(state.balance_t))
+
+
+def graph_rerun(name, what, make_step, state, src_it, tgt_it, steps, dev,
+                eager, eval_fn=None, gate=True):
+    """The flagship's ``steps`` again from ``state`` (a copy of its start
+    state), through ``run_training_loop`` with ``steps_per_call``
+    ``K_GRAPH`` and logs and evaluation at the end only: step 1 alone,
+    steps 2-11 and 12-21 in two calls (step 2 eager on the capture stream,
+    the capture, then replays), steps 22-30 alone. With ``gate``, steps
+    1-3's losses are held to the eager run's (``eager``: its metrics by
+    step) at 1e-4 relative. Prints the largest relative loss difference
+    over all steps, whether the runs are bit-equal, ms/step of the second
+    call (steps 12-21, replays only) by CUDA events, the capture time, the
+    graph's pool and the launches a replay holds; returns (ms/step, the
+    metrics by step)."""
+    import numpy as np
+    import torch
+
+    from uemda_tpu_torch.train.loop import run_training_loop
+
+    step_fn = make_step(state.model)
+    losses, events = [], []
+
+    def on_step(i, metrics):
+        losses.append(metrics)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = run_training_loop(state, step_fn, src_it, tgt_it, steps,
+                            logging.getLogger(f"chip_smoke.{name}.graph"),
+                            eval_every=steps, log_every=steps,
+                            eval_fn=eval_fn, seed=2333, on_step=on_step,
+                            steps_per_call=K_GRAPH)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss = [{k: float(v) for k, v in m.items()} for m in losses]
+    stats = out["graph"]
+    if len(loss) != steps or not all(np.isfinite(list(m.values())).all()
+                                     for m in loss):
+        fail(f"{what}: {len(loss)} steps, losses {loss}")
+    if stats is None or stats["replays"] != 2 * K_GRAPH - 1:
+        fail(f"{what}: the graph was not replayed as scheduled ({stats})")
+    rel = [abs(a["loss"] - b["loss"]) / max(abs(b["loss"]), 1e-30)
+           for a, b in zip(loss, eager)]
+    if gate:
+        for i in range(3):
+            for k in eager[i]:
+                r = abs(loss[i][k] - eager[i][k]) / max(abs(eager[i][k]),
+                                                        1e-30)
+                if not r <= 1e-4:  # the same kernels on the same inputs
+                    fail(f"{what}: step {i + 1} {k}: graph {loss[i][k]} vs "
+                         f"eager {eager[i][k]} (rel {r:.3g})")
+    ms_step = events[K_GRAPH].elapsed_time(events[2 * K_GRAPH]) / K_GRAPH
+    bit = all(a == b for a, b in zip(loss, eager))
+    phase(name, f"{what}: {steps} steps in {wall:.2f} s (steps_per_call "
+          f"{K_GRAPH}: steps 2-{2 * K_GRAPH + 1} in two calls, "
+          f"{stats['replays']} replays); capture {stats['capture_s']:.3f} s, "
+          f"graph pool {stats['pool_bytes'] / 2**30:.3f} GiB, peak memory "
+          f"{peak:.2f} GiB; launches a replay {json.dumps(stats['launches'])}")
+    if gate:
+        phase(name, f"{what} vs eager: steps 1-3 losses "
+              f"{json.dumps([[loss[i]['loss'], eager[i]['loss']] for i in range(3)])}"
+              f"; largest relative loss difference over {steps} steps "
+              f"{max(rel):.3g} (step {int(np.argmax(rel)) + 1}); bit-equal "
+              f"{bit}")
+    phase(name, f"{what}: losses by step: " + json.dumps(
+        [round(m["loss"], 5) for m in loss]))
+    phase(name, f"{what}: steps {K_GRAPH + 2}-{2 * K_GRAPH + 1} (replays): "
+          f"{ms_step:.3f} ms/step by CUDA events")
+    return ms_step, loss
+
+
+def graph_profile(name, what, make_step, state, src_it, tgt_it, dev, ms_step,
+                  n=3):
+    """``profile_steps`` over ``n`` replays of a captured step of
+    ``state``'s stage (its own capture, released after)."""
+    import torch
+
+    from uemda_tpu_torch.train.graph import ChunkRunner
+    from uemda_tpu_torch.train.loop import batch_to_device
+
+    step_fn = make_step(state.model)
+    runner = ChunkRunner(step_fn, 2333, dev)
+
+    def batches(k):
+        return ([batch_to_device(next(src_it), dev) for _ in range(k)],
+                [batch_to_device(next(tgt_it), dev) for _ in range(k)])
+
+    runner(state, zip(*batches(2)))  # warm-up, capture, one replay
+    pairs = list(zip(*batches(n)))
+    out = profile_steps(f"{what}, replays", None, None, None, None, dev,
+                        ms_step, n=n, run=lambda: runner(state, pairs))
+    runner.close()
+    torch.cuda.synchronize()
+    return out
 
 
 # kernels (a pattern of the name) of each source whose instantiations the
@@ -256,7 +405,6 @@ def train_phase(dev):
     import torch
 
     from uemda_tpu_torch.config import PRESETS
-    from uemda_tpu_torch.datasets.base import infinite_batches
     from uemda_tpu_torch.datasets.meta import LoveDA
     from uemda_tpu_torch.datasets.synthetic import synthetic_split
     from uemda_tpu_torch.train.loop import (
@@ -338,10 +486,12 @@ def train_phase(dev):
     model = build_model(cfg, device=dev,
                         generator=torch.Generator().manual_seed(0))
     state = build_state(model, cfg, steps)
-    step_fn = make_src_step(model, default_hparams(cfg, align_domain=True))
+    start = copy_start(state)  # for the rerun through the graph
+    hp = default_hparams(cfg, align_domain=True)
+    step_fn = make_src_step(model, hp)
     eval_fn, _ = make_eval_hook(cfg, None, dataset=val)
-    src_it = infinite_batches(src, batch, seed=0)
-    tgt_it = infinite_batches(tgt, batch, seed=1)
+    src_it = stream(src, 0)
+    tgt_it = stream(tgt, 1)
     losses, events = [], []
 
     def on_step(i, metrics):
@@ -391,8 +541,24 @@ def train_phase(dev):
     phase("launches", f"training path (30 steps + evaluation): "
           f"{json.dumps(counts)}")
 
-    profile_steps(f"stage-1 step (bf16, batch {batch}, CORAL)", step_fn,
-                  state, src_it, tgt_it, dev, ms_step)
+    dev_ms, idle = profile_steps(f"stage-1 step (bf16, batch {batch}, "
+                                 "CORAL)", step_fn, state, src_it, tgt_it,
+                                 dev, ms_step)
+
+    # (c) the same 30 steps from a copy of the start state through the
+    # captured step, against (b)
+    make = lambda m: make_src_step(m, hp)  # noqa: E731
+    ms_g, _ = graph_rerun("train", "flagship stage 1 through the CUDA graph",
+                          make, start, stream(src, 0), stream(tgt, 1), steps, dev,
+                          loss, eval_fn=eval_fn)
+    dev_g, idle_g = graph_profile("train", "stage-1 step", make, start,
+                                  src_it, tgt_it, dev, ms_g)
+    phase("train", f"stage 1, ms/step by CUDA events (device ms/step, idle "
+          f"share): steps_per_call 1 {ms_step:.3f} ({dev_ms}, {idle}); "
+          f"steps_per_call {K_GRAPH} through the graph {ms_g:.3f} "
+          f"({dev_g}, {idle_g})")
+    del start
+    torch.cuda.empty_cache()
     return counts, dict(cfg=cfg, model=model, src=src, tgt=tgt_sup, val=val)
 
 
@@ -410,7 +576,6 @@ def align_phase(dev, ctx):
     import torch
 
     from uemda_tpu_torch.datasets.augment import draw_augment
-    from uemda_tpu_torch.datasets.base import infinite_batches
     from uemda_tpu_torch.datasets.meta import LoveDA
     from uemda_tpu_torch.datasets.synthetic import synthetic_split
     from uemda_tpu_torch.tools.init_prototypes import init_prototypes
@@ -501,8 +666,8 @@ def align_phase(dev, ctx):
     hp = default_hparams(cfg, align_domain=True, refine=True,
                          refine_mode="all")
     eval_fn, _ = make_eval_hook(cfg, None, dataset=ctx["val"])
-    src_it = infinite_batches(ctx["src"], batch, seed=10)
-    tgt_it = infinite_batches(ctx["tgt"], batch, seed=11)
+    src_it = stream(ctx["src"], 10)
+    tgt_it = stream(ctx["tgt"], 11)
     losses, events = [], []
 
     def on_step(i, metrics):
@@ -529,6 +694,7 @@ def align_phase(dev, ctx):
              f"{bool(torch.isfinite(proto0).all())}")
     phase("align", f"init_prototypes: {n_proto} batches of {batch} in "
           f"{t_proto:.2f} s; class counts {cnt.tolist()}")
+    start = copy_start(state)  # for the rerun through the graph
     step_fn = make_align_step(model, hp)
     t0 = time.time()
     best = run_training_loop(state, step_fn, src_it, tgt_it, steps, logger,
@@ -568,8 +734,22 @@ def align_phase(dev, ctx):
           f"{peak:.2f} GiB")
     phase("launches", f"stage-2 path (init_prototypes + {steps} steps + "
           f"evaluation): {json.dumps(counts)}")
-    profile_steps(f"stage-2 step (bf16, batch {batch}, CORAL, refine 'all')",
-                  step_fn, state, src_it, tgt_it, dev, ms_step)
+    dev_ms, idle = profile_steps(f"stage-2 step (bf16, batch {batch}, "
+                                 "CORAL, refine 'all')", step_fn, state,
+                                 src_it, tgt_it, dev, ms_step)
+    make = lambda m: make_align_step(m, hp)  # noqa: E731
+    ms_g, _ = graph_rerun("align", "flagship stage 2 through the CUDA graph",
+                          make, start,
+                          stream(ctx["src"], 10), stream(ctx["tgt"], 11), steps,
+                          dev, loss, eval_fn=eval_fn)
+    dev_g, idle_g = graph_profile("align", "stage-2 step", make, start,
+                                  src_it, tgt_it, dev, ms_g)
+    phase("align", f"stage 2, ms/step by CUDA events (device ms/step, idle "
+          f"share): steps_per_call 1 {ms_step:.3f} ({dev_ms}, {idle}); "
+          f"steps_per_call {K_GRAPH} through the graph {ms_g:.3f} "
+          f"({dev_g}, {idle_g})")
+    del start
+    torch.cuda.empty_cache()
     return counts, state
 
 
@@ -710,7 +890,7 @@ def ssl_phase(dev, ctx):
     eval_fn, _ = make_eval_hook(cfg, None, dataset=ctx["val"])
     tgt = ctx["tgt"]
     st = NORM_STATS["LoveDA"]
-    src_it = infinite_batches(ctx["src"], batch, seed=20)
+    src_it = stream(ctx["src"], 20)
     losses, events = [], []
 
     def on_step(i, metrics):
@@ -771,7 +951,9 @@ def ssl_phase(dev, ctx):
           f"(sweep, {min(4, batch) * 72} window views a forward)")
 
     target = ArrayDataset(LoveDA, tgt.images, sup=tgt.sup, prob=prob)
-    tgt_it = infinite_batches(target, batch, seed=21)
+    tgt_it = stream(target, 21)
+    start = copy_start(state)     # the reruns through the graph: as (b),
+    start_hc = copy_start(state)  # and with the host crop
     step_fn = make_ssl_step(model, hp)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -819,24 +1001,97 @@ def ssl_phase(dev, ctx):
     phase("launches", f"stage-3 path (init_prototypes + sweep + {steps} "
           f"steps + evaluation): {json.dumps(counts)}")
     # the host's share of a step: assembling each domain's batch from the
-    # in-memory split (numpy) and its pinned upload, timed on their own
-    for what, it in (("source", src_it), ("target", tgt_it)):
-        t_np = t_up = 0.0
+    # in-memory split (numpy), whole tiles and cropped on the host, and its
+    # upload, from freshly pinned memory (batch_to_device) and through the
+    # upload stage's ring of reused pinned buffers, timed on their own
+    from uemda_tpu_torch.train.loop import PinnedRing
+
+    ring = PinnedRing(3)
+
+    def ring_upload(host):
+        for k, a in host.items():
+            buf, ev = ring.acquire(k, a.shape, a.dtype)
+            np.copyto(buf.numpy(), a)
+            buf.to(dev, non_blocking=True)
+            ev.record()
+        torch.cuda.synchronize()
+
+    hc = (TILE, TILE)
+    for what, it in (
+            ("source", infinite_batches(ctx["src"], batch, seed=20)),
+            ("target", infinite_batches(target, batch, seed=21)),
+            ("source, host crop",
+             infinite_batches(ctx["src"], batch, seed=20, host_crop=hc)),
+            ("target, host crop",
+             infinite_batches(target, batch, seed=21, host_crop=hc))):
+        for _ in range(3):  # the ring's slots are pinned at first use
+            ring_upload(next(it))
+        t_np = t_up = t_ring = 0.0
         for _ in range(5):
             t0 = time.perf_counter()
             host = next(it)
             t1 = time.perf_counter()
             batch_to_device(host, dev)
             torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            ring_upload(host)
             t_np += t1 - t0
-            t_up += time.perf_counter() - t1
+            t_up += t2 - t1
+            t_ring += time.perf_counter() - t2
         nbytes = sum(a.nbytes for a in host.values())
         phase("ssl", f"host data, {what} batch ({nbytes / 2**20:.1f} MiB: "
-              f"{', '.join(f'{k} {a.dtype}' for k, a in host.items())}): "
-              f"{t_np / 5 * 1e3:.3f} ms to assemble, {t_up / 5 * 1e3:.3f} ms "
-              "to pin and upload")
-    profile_steps(f"stage-3 step (bf16, batch {batch}, UVEM, refine 'all')",
-                  step_fn, state, src_it, tgt_it, dev, ms_step)
+              f"{', '.join(f'{k} {a.dtype} {a.shape[1:]}' for k, a in host.items())}"
+              f"): {t_np / 5 * 1e3:.3f} ms to assemble, {t_up / 5 * 1e3:.3f} "
+              f"ms to pin and upload, {t_ring / 5 * 1e3:.3f} ms to upload "
+              "through the pinned ring")
+    # the data path alone, as the loop runs it: decode thread, upload
+    # thread (pinned ring, own stream), batches taken as fast as they come
+    from uemda_tpu_torch.train.loop import device_batches
+
+    for what, ds, seed in (("source", ctx["src"], 20),
+                           ("target", target, 21)):
+        cells = []
+        for crop in (None, hc):
+            it = device_batches(stream(ds, seed, crop), dev)
+            for _ in range(3):
+                next(it)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                next(it)
+            torch.cuda.synchronize()
+            cells.append((time.perf_counter() - t0) * 1e2)
+            it.close()
+        phase("ssl", f"upload stage alone, {what} stream: {cells[0]:.3f} ms "
+              f"a batch of whole tiles, {cells[1]:.3f} ms cropped on the host")
+    src_hc, tgt_hc = stream(ctx["src"], 20, hc), stream(target, 21, hc)
+    dev_ms, idle = profile_steps(f"stage-3 step (bf16, batch {batch}, UVEM, "
+                                 "refine 'all')", step_fn, state, src_it,
+                                 tgt_it, dev, ms_step)
+
+    # (c) the 30 steps again from copies of the start state through the
+    # captured step: on the same batches, against (b); then with the host
+    # crop (other crops, so other losses: not held to (b))
+    make = lambda m: make_ssl_step(m, hp)  # noqa: E731
+    ms_g, _ = graph_rerun("ssl", "flagship stage 3 through the CUDA graph",
+                          make, start,
+                          stream(ctx["src"], 20), stream(target, 21), steps,
+                          dev, loss, eval_fn=eval_fn)
+    del start
+    torch.cuda.empty_cache()
+    ms_hc, _ = graph_rerun(
+        "ssl", "flagship stage 3 through the CUDA graph with --host-crop",
+        make, start_hc,
+        stream(ctx["src"], 20, hc), stream(target, 21, hc), steps, dev,
+        loss, gate=False)
+    dev_g, idle_g = graph_profile("ssl", "stage-3 step with --host-crop",
+                                  make, start_hc, src_hc, tgt_hc, dev, ms_hc)
+    phase("ssl", f"stage 3, ms/step by CUDA events (device ms/step, idle "
+          f"share): steps_per_call 1 {ms_step:.3f} ({dev_ms}, {idle}); "
+          f"steps_per_call {K_GRAPH} through the graph {ms_g:.3f}; with "
+          f"--host-crop {ms_hc:.3f} ({dev_g}, {idle_g})")
+    del start_hc
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -1149,15 +1404,19 @@ def main():
         for dt in (torch.uint8, torch.float32):
             dn = str(dt).split(".")[-1]
             xc = img.to(dev, dt)
-            got = crop_normalize(xc, off, chw, st_l["mean"], st_l["std"])
+            # the origins as the train step hands them over: int32 on the
+            # card (checked on the host before their upload)
+            off_d = off.to(dev)
+            got = crop_normalize(xc, off_d, chw, st_l["mean"], st_l["std"])
             ref = crop_normalize_plain(xc, off, chw, st_l["mean"], st_l["std"])
             torch.cuda.synchronize()
             e = check_close(f"crop_normalize {dn} {case}", got, ref, 0.0, 0.0)
             if case == "train":
                 errs[("crop_normalize", dn)] = e
-                raw[dn] = (xc, off)
+                raw[dn] = (xc, off_d)
             phase("kernel", f"crop_normalize {dn} {tuple(xc.shape)} -> "
-                  f"{tuple(got.shape)}: max abs err {e:.3g} (exact)")
+                  f"{tuple(got.shape)}, origins on the card: max abs err "
+                  f"{e:.3g} (exact)")
     inputs["crop"] = raw["uint8"]
     # K9 with the stage-3 clamp (the ISPRS target Normalize), exactly, at the
     # training shape, on statistics that push part of every tile past 1.0
@@ -1165,7 +1424,7 @@ def main():
     xc, off = raw["uint8"]
     got = crop_normalize(xc, off, (TILE, TILE), st_v["mean"], st_v["std"],
                          clamp=True)
-    ref = crop_normalize_plain(xc, off, (TILE, TILE), st_v["mean"],
+    ref = crop_normalize_plain(xc, off.cpu(), (TILE, TILE), st_v["mean"],
                                st_v["std"], clamp=True)
     torch.cuda.synchronize()
     e = check_close("crop_normalize clamp", got, ref, 0.0, 0.0)
@@ -1698,6 +1957,7 @@ def main():
     xr = xb.detach().requires_grad_()
     yr = F.instance_norm(xr, eps=1e-5)   # the library yardstick's graph
     crop_args = (xc, offc, (TILE, TILE), st_l["mean"], st_l["std"])
+    crop_host = (xc, offc.cpu(), (TILE, TILE), st_l["mean"], st_l["std"])
     p_mine = inputs["mine"]
     xt32 = inputs["tail32 bfloat16"]
     # K5-K7 at the 2urban stage-2 shape; the library yardsticks take the
@@ -1734,7 +1994,7 @@ def main():
             lambda: torch.autograd.grad(yr, xr, dyb, retain_graph=True)),
         "crop_normalize": (
             lambda: crop_normalize(*crop_args),
-            lambda: crop_normalize_plain(*crop_args), None),
+            lambda: crop_normalize_plain(*crop_host), None),
         "segment_max": (
             lambda: segment_max(sv, sid, n_seg),
             lambda: segment_max_plain(sv, sid, n_seg),

@@ -923,3 +923,155 @@ def test_fused_and_int8_fastpaths(dev):
             assert torch.isfinite(p.float()).all()
             np.testing.assert_allclose(p.float().sum(1).cpu().numpy(), 1.0,
                                        atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_crop_normalize_kernel_device_origins(dev, dtype):
+    """K9 reading its origins from a (B, 2) int32 tensor on the card equals
+    its plain version on the host's origins, exactly; a window outside the
+    image that reaches the kernel unchecked gives NaN rows, not a fault."""
+    r = np.random.default_rng(11)
+    img = torch.from_numpy(r.integers(0, 256, (4, 90, 100, 3)).astype(np.uint8))
+    x = img.to(dev, dtype)
+    off = torch.tensor([[0, 0], [58, 68], [7, 13], [31, 2]], dtype=torch.int32)
+    n = crop_normalize.launches
+    got = crop_normalize(x, off.to(dev), (32, 32), MEAN, STD)
+    assert crop_normalize.launches == n + 1
+    ref = crop_normalize_plain(x, off, (32, 32), MEAN, STD)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    bad = off.clone()
+    bad[2] = torch.tensor([59, 0])
+    out = crop_normalize(x, bad.to(dev), (32, 32), MEAN, STD)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[2]).all() and torch.equal(out[[0, 1, 3]],
+                                                      ref[[0, 1, 3]])
+    with pytest.raises(ValueError, match="int32"):
+        crop_normalize(x, off.to(dev, torch.int64), (32, 32), MEAN, STD)
+
+
+def _stage_case(stage, dev):
+    """A stage's step at a small size (resnet18, 64^2 crops of 80^2 tiles,
+    batch 2, bf16) with its state and a batch stream."""
+    from uemda_tpu_torch.config import PRESETS
+    from uemda_tpu_torch.train.loop import build_model, build_state, default_hparams
+    from uemda_tpu_torch.train.steps import (
+        make_align_step,
+        make_src_step,
+        make_ssl_step,
+    )
+
+    cfg = dataclasses.replace(PRESETS["2vaihingen"], model="resnet18",
+                              crop=(64, 64))
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    make, hp = {
+        "src": (make_src_step, dict(align_domain=True, balance_source=True)),
+        "align": (make_align_step, dict(align_domain=True)),
+        "ssl": (make_ssl_step, dict(balance_target=True)),
+    }[stage]
+    state = build_state(model, cfg, 10, prototypes=torch.randn(
+        6, 512, generator=torch.Generator().manual_seed(1)))
+    step = make(model, default_hparams(cfg, **hp))
+
+    def batches(seed):
+        r = np.random.default_rng(seed)
+        sup, _ = _grid_sup(2, 80, 80, 16, seed=seed)
+        while True:
+            bs = {"image": r.integers(0, 256, (2, 80, 80, 3)).astype(np.uint8),
+                  "label": r.integers(-1, 6, (2, 80, 80)).astype(np.int32)}
+            bt = {"image": r.integers(0, 256, (2, 80, 80, 3)).astype(np.uint8),
+                  "sup": sup.astype(np.int32)}
+            if stage == "ssl":
+                bt["prob"] = _mine_inputs((2, 6, 80, 80), int(r.integers(99)),
+                                          "cpu").permute(0, 2, 3, 1) \
+                    .contiguous().half().numpy()
+            yield ({k: torch.from_numpy(v).to(dev) for k, v in bs.items()},
+                   {k: torch.from_numpy(v).to(dev) for k, v in bt.items()})
+
+    return model, state, step, batches
+
+
+@pytest.mark.parametrize("stage", ["src", "align", "ssl"])
+def test_captured_step_equals_the_eager_step(dev, stage):
+    """From one start state and one batch stream, four steps of each stage
+    eager and through ``ChunkRunner`` (step 1 eager on the capture stream,
+    then three replays of the captured step, with the same (seed, step)
+    draws): the losses of every step within 1e-4 relative, the parameters,
+    prototypes and momentum within 1e-4 of their largest value; the
+    captured step holds the stage's kernel launches."""
+    import copy
+
+    from uemda_tpu_torch.train.graph import ChunkRunner
+
+    model, state, step, batches = _stage_case(stage, dev)
+    model2 = copy.deepcopy(model)
+    runs = []
+    for m in (model, model2):
+        st = dataclasses.replace(
+            state, model=m, opt=type(state.opt)(
+                list(m.named_parameters()), state.opt.schedule),
+            aligner=copy.deepcopy(state.aligner),
+            balance_s=copy.deepcopy(state.balance_s),
+            balance_t=copy.deepcopy(state.balance_t))
+        step.model = m
+        it = batches(5)
+        pairs = [next(it) for _ in range(4)]
+        if m is model:
+            out = [step(st, bs, bt, 0) for bs, bt in pairs]
+            stats = None
+        else:
+            runner = ChunkRunner(step, 0, dev)
+            out = runner(st, pairs)
+            assert runner.graph.replays == 3
+            stats = runner.close()
+        torch.cuda.synchronize()
+        runs.append(([{k: float(v) for k, v in o.items()} for o in out],
+                     [p.detach().clone() for p in m.parameters()],
+                     st.aligner.prototypes.clone(),
+                     [t.clone() for t in st.opt.trace], st.step, stats))
+    (l1, p1, q1, t1, s1, _), (l2, p2, q2, t2, s2, stats) = runs
+    assert s1 == s2 == 4
+    for a, b in zip(l1, l2):
+        for k in a:
+            assert abs(a[k] - b[k]) <= 1e-4 * max(abs(a[k]), 1e-6), (k, a, b)
+    for xs, ys in ((p1, p2), (t1, t2), ([q1], [q2])):
+        top = max(float(x.abs().max()) for x in xs)
+        assert max(float((x - y).abs().max()) for x, y in zip(xs, ys)) \
+            <= 1e-4 * top
+    assert stats["replays"] == 3 and stats["launches"]["crop_normalize"] == 2
+    assert stats["launches"]["instance_norm_backward"] >= 1
+
+
+def test_pinned_ring_never_hands_out_a_slot_in_flight(dev):
+    """The upload stage's staging ring: a slot whose copy is still in
+    flight (held back on its stream by a spinning kernel) is handed out
+    again only after that copy completes; and batches uploaded through
+    ``device_batches`` while the consumer's stream is kept busy arrive
+    intact and in order."""
+    from uemda_tpu_torch.train.loop import PinnedRing, device_batches
+
+    ring = PinnedRing(2)
+    stream = torch.cuda.Stream()
+    first = None
+    with torch.cuda.stream(stream):
+        for i in range(2):
+            host, ev = ring.acquire("x", (1 << 20,), np.float32)
+            host.fill_(i)
+            if i == 0:
+                torch.cuda._sleep(200_000_000)  # ~0.1 s on the stream
+                first = host
+            torch.empty_like(host, device=dev).copy_(host, non_blocking=True)
+            ev.record(stream)
+        host, ev = ring.acquire("x", (1 << 20,), np.float32)
+    assert host is first and ev.query() and ring.waits == 1
+
+    src = [{"x": np.full((64, 64), i, np.float32),
+            "y": np.full((8,), -i, np.int32)} for i in range(12)]
+    got = []
+    for b in device_batches(iter(src), dev):
+        torch.cuda._sleep(20_000_000)  # the step the batch would feed
+        got.append({k: v.clone() for k, v in b.items()})
+    torch.cuda.synchronize()
+    assert len(got) == 12
+    for i, b in enumerate(got):
+        assert bool((b["x"] == i).all()) and bool((b["y"] == -i).all())

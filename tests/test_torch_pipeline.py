@@ -78,8 +78,9 @@ def test_pipeline_twin_runs_the_five_steps_on_the_cpu(tmp_path):
 
 def test_stage3_refuses_what_is_not_ported(tmp_path, monkeypatch):
     """The stage-3 CLI refuses resume, accumulation, OHEM, the unported
-    target losses and the multi-process and profiling flags before it
-    touches a file; the pipeline refuses --method proca, --gate,
+    target losses and the multi-process flag before it touches a file
+    (``--steps-per-call``, ``--host-crop`` and ``--profile-dir`` run:
+    test_torch_loop.py); the pipeline refuses --method proca, --gate,
     --pretrained, --resume and --num-devices; the step refuses the
     unported target losses."""
     from uemda_tpu_torch.tools import run_pipeline, train_ssl_uem
@@ -89,9 +90,7 @@ def test_stage3_refuses_what_is_not_ported(tmp_path, monkeypatch):
               "--ckpt-proto", "p.pth", "--device", "cpu"]
     for flags in (["--resume", "auto"], ["--accum-steps", "2"],
                   ["--ls", "OhemCrossEntropy"], ["--lt", "ups"],
-                  ["--lt", "ghm"], ["--num-devices", "2"],
-                  ["--steps-per-call", "4"], ["--profile-dir", "x"],
-                  ["--host-crop", "1"]):
+                  ["--lt", "ghm"], ["--num-devices", "2"]):
         with pytest.raises(NotImplementedError):
             train_ssl_uem.main(common + flags)
     for flags in (["--method", "proca"], ["--gate", "1"],

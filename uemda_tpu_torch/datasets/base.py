@@ -3,7 +3,7 @@
 The port's copy of ``uemda_tpu/datasets/base.py``: a split of images with
 hard masks or stage 3's soft pseudo labels read from disk
 (:class:`SegDataset`), an in-memory split of arrays (:class:`ArrayDataset`),
-the shuffled training stream
+the shuffled training stream, whole tiles or cropped on the host
 (:func:`infinite_batches`) and the eval-order batch iterator
 (SequentialSampler, reference ``daLoader.py``). The host only reads and
 stacks raw uint8 tiles; augmentation runs on the device.
@@ -97,6 +97,15 @@ class ArrayDataset:
     def filename(self, idx: int) -> str:
         return f"tile_{idx:03d}.png"
 
+    def item(self, idx: int) -> Dict[str, np.ndarray]:
+        """Sample ``idx``'s arrays as views (no copy)."""
+        out = {"image": self.images[idx]}
+        for key, arr in (("label", self.labels), ("sup", self.sup),
+                         ("prob", self.prob)):
+            if arr is not None:
+                out[key] = arr[idx]
+        return out
+
     def batch(self, indices) -> Dict[str, np.ndarray]:
         idx = np.asarray(indices, np.int64)
         out = {"image": self.images[idx]}
@@ -107,28 +116,70 @@ class ArrayDataset:
         return out
 
 
+def _host_crop_batch(dataset, indices, u, crop_hw) -> Dict[str, np.ndarray]:
+    """A batch with each sample's spatial arrays cropped on the host to
+    ``crop_hw``, at origins mapped from the uniforms ``u`` (B, 2)
+    (``uemda_tpu/datasets/base.py:89-115``). Each window is a numpy view of
+    the sample (``item`` gives views of the RAM cache or of the in-memory
+    split); ``np.stack`` makes the only copy. A sample smaller than the crop
+    raises with its file named."""
+    ch, cw = crop_hw
+    items = []
+    for j, i in enumerate(indices):
+        it = dataset.item(int(i))
+        h, w = it["image"].shape[:2]
+        if h < ch or w < cw:
+            raise ValueError(
+                f"--host-crop: sample {dataset.filename(int(i))} is {h}x{w}, "
+                f"smaller than the crop {ch}x{cw}; tiles must be >= the crop "
+                "(the device crop has the same precondition)")
+        # floor(u * (range + 1)), clamped: the uniform-origin law of the
+        # device crop's randint(0, range + 1)
+        top = min(int(u[j, 0] * (h - ch + 1)), h - ch)
+        left = min(int(u[j, 1] * (w - cw + 1)), w - cw)
+        items.append({k: v[top:top + ch, left:left + cw]
+                      for k, v in it.items()})
+    return {k: np.stack([it[k] for it in items]) for k in items[0]}
+
+
 def infinite_batches(dataset, batch_size: int, seed: int = 0,
-                     skip_batches: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+                     skip_batches: int = 0, host_crop=None
+                     ) -> Iterator[Dict[str, np.ndarray]]:
     """Shuffled epoch-cycling batch iterator (DALoader semantics:
     RandomSampler + drop_last=True, ``daLoader.py:38-55``), the numpy
     stream of ``uemda_tpu/datasets/base.py:118-177`` without its multi-host
-    ``process_shard`` and ``host_crop``: the same seed and skip give the
-    same batch indices as the JAX package. ``skip_batches`` fast-forwards
-    the shuffle stream without reading any tile."""
+    ``process_shard``: the same seed and skip give the same batches as the
+    JAX package. ``skip_batches`` fast-forwards the shuffle stream without
+    reading any tile.
+
+    ``host_crop=(ch, cw)`` crops every sample on the host before it ships
+    (:func:`_host_crop_batch`): 4x fewer bytes to upload for 1024^2 tiles
+    cropped to 512^2. The origins are drawn per (seed, batch index) from
+    ``default_rng((seed, 9157, batch index))``, the index counting skipped
+    batches too, so a skip replays the same crops. The device crop then
+    takes the whole (crop-sized) tile; flips and rot90 stay on the
+    device."""
     rng = np.random.default_rng(seed)
     n = len(dataset)
     skipped = 0
+    b_index = 0
     while True:
         perm = rng.permutation(n)
         stop = (n // batch_size) * batch_size
         for i in range(0, max(stop, batch_size), batch_size):
+            this_b, b_index = b_index, b_index + 1
             if skipped < skip_batches:
                 skipped += 1
                 continue
             idx = perm[i:i + batch_size]
             if len(idx) < batch_size:
                 idx = np.concatenate([idx, perm[:batch_size - len(idx)]])
-            yield dataset.batch(idx)
+            if host_crop is None:
+                yield dataset.batch(idx)
+            else:
+                u = np.random.default_rng((seed, 9157, this_b)).random(
+                    (len(idx), 2))
+                yield _host_crop_batch(dataset, idx, u, host_crop)
 
 
 def sequential_batches(dataset, batch_size: int = 1):

@@ -21,9 +21,11 @@
 // bytes (coalesced). Where the row's source and destination addresses are
 // 16-byte aligned, each thread loads 16 bytes (16 uint8 or 4 f32 values) and
 // stores the matching f32 values as float4s; otherwise one element a thread.
-// The window origins travel by value in the kernel's parameters (like the
-// TPU kernel's scalar prefetch): no device copy of them, so a launch never
-// waits on a host-to-device transfer.
+// The window origins are read from a (B, 2) int32 array in device memory
+// (the TPU kernel's scalar prefetch), so a CUDA graph that captured the
+// launch replays it with whatever origins the step wrote there. The host
+// checks the windows before it uploads them; a window outside the image
+// that reaches the kernel all the same writes NaN rows and reads nothing.
 
 #include "common.cuh"
 
@@ -36,11 +38,6 @@ __device__ __forceinline__ float to_f32(unsigned char v) {
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kMaxBatch = 256;  // 2 KB of origins in the 4 KB of parameters
-
-struct Origins {
-  int yx[2 * kMaxBatch];
-};
 
 __device__ __forceinline__ float pick(int c, float a, float b, float d) {
   return c == 0 ? a : (c == 1 ? b : d);
@@ -48,19 +45,25 @@ __device__ __forceinline__ float pick(int c, float a, float b, float d) {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-crop_normalize_kernel(const T* __restrict__ img, const Origins off,
+crop_normalize_kernel(const T* __restrict__ img, const int* __restrict__ off,
                       float* __restrict__ out, int H, int W, int th, int tw,
                       float m0, float m1, float m2, float s0, float s1,
                       float s2, bool clamp) {
   constexpr int V = 16 / sizeof(T);  // elements in one 16-byte load
   const int r = blockIdx.x;
   const int b = blockIdx.y;
-  const int y = off.yx[2 * b] + r;
-  const int x0 = off.yx[2 * b + 1];
-  const T* src = img + (static_cast<size_t>(b) * H + y) * W * 3 +
-                 static_cast<size_t>(x0) * 3;
+  const int y0 = off[2 * b];
+  const int x0 = off[2 * b + 1];
+  const int y = y0 + r;
   float* dst = out + (static_cast<size_t>(b) * th + r) * tw * 3;
   const int n = tw * 3;
+  if (y0 < 0 || x0 < 0 || y0 > H - th || x0 > W - tw) {
+    for (int i = threadIdx.x; i < n; i += kThreads)
+      dst[i] = __int_as_float(0x7fc00000);
+    return;
+  }
+  const T* src = img + (static_cast<size_t>(b) * H + y) * W * 3 +
+                 static_cast<size_t>(x0) * 3;
 
   const bool vec = (reinterpret_cast<uintptr_t>(src) % 16 == 0) &&
                    (reinterpret_cast<uintptr_t>(dst) % 16 == 0) && (n % V == 0);
@@ -92,20 +95,20 @@ crop_normalize_kernel(const T* __restrict__ img, const Origins off,
 }  // namespace
 
 // img: (B, H, W, 3) contiguous uint8 (is_u8) or f32 on the device;
-// off: (B, 2) int32 in HOST memory, each window inside the image (the
-// wrapper checks), copied into the launch's parameters; out: (B, th, tw, 3)
-// f32 contiguous on the device; clamp != 0 caps every output at 1.0.
-extern "C" int uemda_crop_normalize(const void* img, const int* off, void* out,
-                                    int B, int H, int W, int th, int tw,
-                                    int is_u8, float m0, float m1, float m2,
-                                    float s0, float s1, float s2, int clamp,
-                                    void* stream) {
-  if (B <= 0 || B > kMaxBatch || th <= 0 || tw <= 0 || th > H || tw > W)
+// off: (B, 2) int32 (y, x) origins, contiguous, on the device, each window
+// inside the image (the host checks them before their upload); out:
+// (B, th, tw, 3) f32 contiguous on the device; clamp != 0 caps every output
+// at 1.0.
+extern "C" int uemda_crop_normalize(const void* img, const void* off,
+                                    void* out, int B, int H, int W, int th,
+                                    int tw, int is_u8, float m0, float m1,
+                                    float m2, float s0, float s1, float s2,
+                                    int clamp, void* stream) {
+  if (B <= 0 || B > 65535 || th <= 0 || tw <= 0 || th > H || tw > W)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(th, B);
-  Origins o;
-  for (int i = 0; i < 2 * B; ++i) o.yx[i] = off[i];
+  const int* o = static_cast<const int*>(off);
   float* dst = static_cast<float*>(out);
   if (is_u8)
     crop_normalize_kernel<unsigned char><<<grid, kThreads, 0, s>>>(

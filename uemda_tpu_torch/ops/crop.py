@@ -9,7 +9,9 @@ int32 (y, x) window origins, the (th, tw) window of every sample as
 stage-3 target Normalize of the ISPRS configs, ``uemda_tpu/datasets/
 augment.py:25-31``). The result is handed on as the
 (B, 3, th, tw) channels_last tensor the model takes (its memory is the
-(B, th, tw, 3) tile). The kernel is ``uemda_tpu_torch/kernels/csrc/crop.cu``.
+(B, th, tw, 3) tile). The kernel is ``uemda_tpu_torch/kernels/csrc/crop.cu``;
+it reads the origins from device memory, so a captured train step replays
+with each step's own windows.
 """
 
 from typing import Sequence, Tuple
@@ -19,7 +21,7 @@ import torch
 
 from uemda_tpu_torch import kernels
 
-MAX_BATCH = 256  # crop.cu kMaxBatch: the origins ride in the parameters
+MAX_BATCH = 65535  # crop.cu: one grid row of blocks a sample
 
 
 def _stats(mean: Sequence[float], std: Sequence[float]
@@ -71,10 +73,13 @@ def crop_normalize_plain(images: torch.Tensor, offsets: torch.Tensor,
 
 def crop_normalize(images: torch.Tensor, offsets: torch.Tensor, crop_hw,
                    mean, std, clamp: bool = False) -> torch.Tensor:
-    """(B, H, W, 3) uint8 or f32 images and (B, 2) integer offsets (on any
-    device; checked on the host) -> (B, 3, th, tw) f32 channels_last. A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel, with
-    the origins in its launch parameters (no host-to-device copy)."""
+    """(B, H, W, 3) uint8 or f32 images and (B, 2) integer offsets ->
+    (B, 3, th, tw) f32 channels_last. A CPU tensor takes the plain version.
+    A CUDA tensor launches the kernel, which reads the origins from device
+    memory: offsets on the CPU are checked here and uploaded; offsets
+    already on the card must be (B, 2) int32 that the caller checked before
+    their upload (``datasets/augment.py``'s ``upload_draws``), since
+    reading them here would wait for the device."""
     if images.device.type == "cpu":
         return crop_normalize_plain(images, offsets, crop_hw, mean, std, clamp)
     kernels.check_cuda_input(images, "crop_normalize images",
@@ -91,17 +96,23 @@ def crop_normalize(images: torch.Tensor, offsets: torch.Tensor, crop_hw,
     if b > MAX_BATCH:
         raise ValueError(f"crop_normalize: the kernel takes at most "
                          f"{MAX_BATCH} images a launch, got {b}")
-    # stays on the host: the launcher copies it into the kernel's parameters
-    off = check_offsets(offsets, (h, w), (th, tw))
+    if offsets.device.type == "cpu":
+        offsets = torch.from_numpy(check_offsets(offsets, (h, w), (th, tw))) \
+            .pin_memory().to(images.device, non_blocking=True)
+    elif (offsets.device != images.device or offsets.dtype != torch.int32
+          or not offsets.is_contiguous()):
+        raise ValueError(f"crop_normalize: device offsets must be contiguous "
+                         f"int32 on {images.device}, got {offsets.dtype} on "
+                         f"{offsets.device}")
     out = torch.empty((b, th, tw, 3), dtype=torch.float32,
                       device=images.device)
     m, inv = _stats(mean, std)
     fn = kernels.function("crop", "uemda_crop_normalize",
                           [kernels.P, kernels.P, kernels.P] + [kernels.I] * 6
                           + [kernels.F] * 6 + [kernels.I, kernels.P])
-    with torch.cuda.device(images.device):
-        err = fn(images.data_ptr(), off.ctypes.data, out.data_ptr(), b, h, w,
-                 th, tw, int(images.dtype == torch.uint8), *m.tolist(),
+    with kernels.on_device(images):
+        err = fn(images.data_ptr(), offsets.data_ptr(), out.data_ptr(), b, h,
+                 w, th, tw, int(images.dtype == torch.uint8), *m.tolist(),
                  *inv.tolist(), int(clamp), kernels.stream_of(images))
     kernels.check_launch("crop", "uemda_crop_normalize", err)
     crop_normalize.launches += 1

@@ -15,8 +15,9 @@ view reads the ``_sup_shrink`` maps), mines hard pseudo labels and adds PCL
 on both domains. Evaluates every ``EVAL_EVERY`` steps and at the end, and
 keeps ``<snapshot_dir>/align/<target>_best.pth`` and
 ``prototypes_best.pth``. ``--bcs 1`` weights the source CE by the EMA class
-balance (temperature ``--class-temp``). ``--device`` defaults to the card;
-``--device cpu`` runs the plain versions. Not ported yet, and refused:
+balance (temperature ``--class-temp``). ``--steps-per-call``,
+``--host-crop`` and ``--profile-dir`` as ``train_src``. ``--device``
+defaults to the card; ``--device cpu`` runs the plain versions. Not ported yet, and refused:
 ``--ls OhemCrossEntropy``, ``--accum-steps`` > 1, ``--resume``.
 """
 
@@ -24,14 +25,15 @@ import argparse
 import logging
 import os
 
-
 from uemda_tpu_torch.config import load_config
 from uemda_tpu_torch.models.port import load_checkpoint, load_prototypes
 from uemda_tpu_torch.tools.eval import str2bool
 from uemda_tpu_torch.train.loop import (
+    add_loop_flags,
     build_model,
     build_state,
     default_hparams,
+    host_crop_of,
     make_eval_hook,
     make_source_iter,
     make_target_iter,
@@ -65,6 +67,7 @@ def main(argv=None):
     parser.add_argument("--resume", type=str, default="")
     parser.add_argument("--device", type=str, default=None,
                         help="default: the card (cuda)")
+    add_loop_flags(parser)
     args = parser.parse_args(argv)
 
     if args.ls == "OhemCrossEntropy":
@@ -97,13 +100,16 @@ def main(argv=None):
         refine_temp=args.refine_temp, pcl_temp=args.pcl_temp,
         compute_dtype="bfloat16" if device.type == "cuda" else "float32")
     step_fn = make_align_step(model, hp)
-    src_iter, _ = make_source_iter(cfg)
+    crop = host_crop_of(args, cfg)
+    src_iter, _ = make_source_iter(cfg, host_crop=crop)
     need_sup = hp.refine and hp.refine_mode in ("all", "s")
-    tgt_iter, _ = make_target_iter(cfg, read_sup=need_sup)
+    tgt_iter, _ = make_target_iter(cfg, read_sup=need_sup, host_crop=crop)
     eval_fn, on_best = make_eval_hook(cfg, run_dir, logger=logger)
     return run_training_loop(state, step_fn, src_iter, tgt_iter, stop_steps,
                              logger, eval_every=cfg.eval_every,
-                             eval_fn=eval_fn, on_best=on_best, seed=args.seed)
+                             eval_fn=eval_fn, on_best=on_best, seed=args.seed,
+                             steps_per_call=args.steps_per_call,
+                             profile_dir=args.profile_dir)
 
 
 if __name__ == "__main__":

@@ -12,8 +12,11 @@ the first stage/20 steps) and cadence: log every 50 steps, evaluate every
 ``<snapshot_dir>/src/<target>_best.pth`` (the model's state dict under the
 reference's key names, which ``uemda_tpu_torch.tools.eval`` loads).
 ``--bcs 1`` weights the source CE by the EMA class balance (temperature
-``--class-temp``). ``--device`` defaults to the card; ``--device cpu`` runs
-the plain versions. The reference's OHEM (``--ls``) and ``--pretrained``
+``--class-temp``). ``--steps-per-call K`` runs K steps a call (on the
+card, replays of a CUDA graph of the step), ``--host-crop 1`` crops the
+samples on the host before their upload and ``--profile-dir`` traces steps
+10-15. ``--device`` defaults to the card; ``--device cpu`` runs the plain
+versions. The reference's OHEM (``--ls``) and ``--pretrained``
 come with later slices.
 """
 
@@ -26,9 +29,11 @@ import torch
 from uemda_tpu_torch.config import load_config
 from uemda_tpu_torch.tools.eval import str2bool
 from uemda_tpu_torch.train.loop import (
+    add_loop_flags,
     build_model,
     build_state,
     default_hparams,
+    host_crop_of,
     make_eval_hook,
     make_source_iter,
     make_target_iter,
@@ -50,6 +55,7 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=2333)
     parser.add_argument("--device", type=str, default=None,
                         help="default: the card (cuda)")
+    add_loop_flags(parser)
     args = parser.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -69,12 +75,16 @@ def main(argv=None):
                         generator=torch.Generator().manual_seed(args.seed))
     step_fn = make_src_step(model, hp)
     state = build_state(model, cfg, stop_steps, balance_temp=args.class_temp)
-    src_iter, _ = make_source_iter(cfg)
-    tgt_iter = make_target_iter(cfg)[0] if hp.align_domain else None
+    crop = host_crop_of(args, cfg)
+    src_iter, _ = make_source_iter(cfg, host_crop=crop)
+    tgt_iter = (make_target_iter(cfg, host_crop=crop)[0] if hp.align_domain
+                else None)
     eval_fn, on_best = make_eval_hook(cfg, run_dir, logger=logger)
     return run_training_loop(state, step_fn, src_iter, tgt_iter, stop_steps,
                              logger, eval_every=cfg.eval_every,
-                             eval_fn=eval_fn, on_best=on_best, seed=args.seed)
+                             eval_fn=eval_fn, on_best=on_best, seed=args.seed,
+                             steps_per_call=args.steps_per_call,
+                             profile_dir=args.profile_dir)
 
 
 if __name__ == "__main__":

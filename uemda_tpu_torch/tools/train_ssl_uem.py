@@ -17,11 +17,12 @@ on those soft labels, refined online (``--refine-mode``; the superpixel view
 reads the ``_sup_shrink`` maps), with the UVEM target loss (``--lt
 ours|uvem``), plain CE (``ce``) or none. Evaluates every ``EVAL_EVERY``
 steps and at the end, and keeps ``<snapshot_dir>/ssl/<target>_best.pth``,
-``prototypes_best.pth`` and ``best.json``. ``--device`` defaults to the
-card; ``--device cpu`` runs the plain versions. Not ported yet, and
-refused: ``--resume``, ``--accum-steps`` > 1, ``--ls OhemCrossEntropy``,
-``--lt`` ups/ohem/focal/ghm/gdp, ``--num-devices``, ``--steps-per-call`` >
-1, ``--host-crop 1``, ``--profile-dir``.
+``prototypes_best.pth`` and ``best.json``. ``--steps-per-call``,
+``--host-crop`` (which also crops the stored soft labels on the host) and
+``--profile-dir`` as ``train_src``. ``--device`` defaults to the card;
+``--device cpu`` runs the plain versions. Not ported yet, and refused:
+``--resume``, ``--accum-steps`` > 1, ``--ls OhemCrossEntropy``, ``--lt``
+ups/ohem/focal/ghm/gdp, ``--num-devices``.
 """
 
 import argparse
@@ -36,9 +37,11 @@ from uemda_tpu_torch.infer.pseudo_gen import generate_pseudo_labels
 from uemda_tpu_torch.models.port import load_checkpoint, load_prototypes
 from uemda_tpu_torch.tools.eval import str2bool
 from uemda_tpu_torch.train.loop import (
+    add_loop_flags,
     build_model,
     build_state,
     default_hparams,
+    host_crop_of,
     make_eval_hook,
     make_source_iter,
     make_target_iter,
@@ -59,9 +62,6 @@ def _refuse_unported(args) -> None:
         "--ls OhemCrossEntropy": args.ls == "OhemCrossEntropy",
         f"--lt {args.lt}": args.lt not in PORTED_LOSSES,
         "--num-devices": args.num_devices is not None,
-        "--steps-per-call > 1": args.steps_per_call > 1,
-        "--host-crop 1": bool(args.host_crop),
-        "--profile-dir": args.profile_dir is not None,
     }
     for flag, hit in refused.items():
         if hit:
@@ -95,12 +95,10 @@ def main(argv=None):
     parser.add_argument("--num-devices", type=int, default=None)
     parser.add_argument("--seed", type=int, default=2333)
     parser.add_argument("--accum-steps", type=int, default=1)
-    parser.add_argument("--steps-per-call", type=int, default=1)
-    parser.add_argument("--host-crop", type=str2bool, default=0)
     parser.add_argument("--resume", type=str, default="")
-    parser.add_argument("--profile-dir", type=str, default=None)
     parser.add_argument("--device", type=str, default=None,
                         help="default: the card (cuda)")
+    add_loop_flags(parser)
     args = parser.parse_args(argv)
     _refuse_unported(args)
 
@@ -143,13 +141,17 @@ def main(argv=None):
         uvem_t=args.uvem_t, uvem_g=args.uvem_g,
         compute_dtype="bfloat16" if on_card else "float32")
     step_fn = make_ssl_step(model, hp)
-    src_iter, _ = make_source_iter(cfg)
+    crop = host_crop_of(args, cfg)
+    src_iter, _ = make_source_iter(cfg, host_crop=crop)
     need_sup = hp.refine and hp.refine_mode in ("all", "s")
-    tgt_iter, _ = make_target_iter(cfg, read_sup=need_sup, prob_dir=pseudo_dir)
+    tgt_iter, _ = make_target_iter(cfg, read_sup=need_sup, prob_dir=pseudo_dir,
+                                   host_crop=crop)
     eval_fn, on_best = make_eval_hook(cfg, run_dir, logger=logger)
     return run_training_loop(state, step_fn, src_iter, tgt_iter, stop_steps,
                              logger, eval_every=cfg.eval_every,
-                             eval_fn=eval_fn, on_best=on_best, seed=args.seed)
+                             eval_fn=eval_fn, on_best=on_best, seed=args.seed,
+                             steps_per_call=args.steps_per_call,
+                             profile_dir=args.profile_dir)
 
 
 if __name__ == "__main__":

@@ -1,17 +1,26 @@
 """The trainers of stages 1-3: model and state construction, the data
-streams, and a minimal step loop with periodic evaluation and
-best-checkpoint tracking.
+streams, and the step loop with periodic evaluation and best-checkpoint
+tracking.
 
 The port's copy of ``build_model``, ``build_state``, ``default_hparams``,
-``_max_segments_for``, ``make_source_iter`` and ``make_target_iter``
-(``uemda_tpu/train/loop.py:44-116,615-675``), and a loop in the manner of
-``_run_training_loop`` (reference ``tools/train_src.py:108-165``): log
-every ``log_every`` steps, evaluate every ``eval_every`` steps and at the
-end through ``infer/evaluate.py``, keep the best checkpoint as a ``.pth``
-under the reference's key names, the prototypes beside it and ``best.json``
+``_max_segments_for``, ``add_loop_flags``, ``host_crop_of``,
+``make_source_iter`` and ``make_target_iter`` (``uemda_tpu/train/loop.py:
+44-116,278-299,615-675``), and of ``_run_training_loop`` (``loop.py:
+302-522``; reference ``tools/train_src.py:108-165``): log every
+``log_every`` steps, evaluate every ``eval_every`` steps and at the end
+through ``infer/evaluate.py``, keep the best checkpoint as a ``.pth`` under
+the reference's key names, the prototypes beside it and ``best.json``
 (``{"miou", "step"}``, as ``uemda_tpu/train/loop.py:382-397``), which the
-pipeline's regression check reads. Resume,
-the run-dir lock, the hang watchdog and several steps per call are not
+pipeline's regression check reads.
+
+The host path, as the JAX package's: a decode stage (``datasets/
+prefetch.py``) and an upload stage (:func:`device_batches`: a worker
+thread with its own CUDA stream and a ring of reused pinned buffers) feed
+the loop, ``--host-crop`` crops each sample on the host before its upload,
+and ``steps_per_call`` K runs chunks of K steps, on the card as replays of
+a CUDA graph of the step (``train/graph.py``), under the JAX package's
+chunk rule. ``profile_dir`` traces steps 10-15 with ``torch.profiler``.
+Resume, the run-dir lock, the hang watchdog and ``metrics.jsonl`` are not
 ported yet (ROADMAP.md queue A).
 """
 
@@ -21,7 +30,7 @@ import json
 import logging
 import os
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -30,10 +39,12 @@ from uemda_tpu_torch.alignment.balance import init_class_balance
 from uemda_tpu_torch.alignment.prototypes import init_aligner
 from uemda_tpu_torch.config import PairConfig
 from uemda_tpu_torch.datasets.base import SegDataset, infinite_batches
+from uemda_tpu_torch.datasets.prefetch import prefetch
 from uemda_tpu_torch.infer.evaluate import evaluate_dataset
 from uemda_tpu_torch.models.config import DeeplabV2Config, PPMConfig
 from uemda_tpu_torch.models.deeplabv2 import DeeplabV2
 from uemda_tpu_torch.models.resnet import ResNetEncoder
+from uemda_tpu_torch.train.graph import ChunkRunner
 from uemda_tpu_torch.train.lr import poly_warmup_schedule
 from uemda_tpu_torch.train.optim import SGD, freeze_mask
 from uemda_tpu_torch.train.state import TrainState
@@ -117,28 +128,62 @@ def max_segments_for(cfg: PairConfig) -> int:
     return (h // 16) * (w // 16) + 32
 
 
-def make_source_iter(cfg: PairConfig, seed: int = 0):
+def add_loop_flags(parser) -> None:
+    """The trainers' shared loop flags (``loop.py:278-293``)."""
+    from uemda_tpu_torch.tools.eval import str2bool
+
+    parser.add_argument("--steps-per-call", type=int, default=1,
+                        help="K steps per call: on the card, replays of a "
+                             "CUDA graph of the step, so the host dispatches "
+                             "once a step; math, draws and cadences as 1")
+    parser.add_argument("--host-crop", type=str2bool, default=0,
+                        help="crop each train sample to cfg.crop on the host "
+                             "before its upload instead of shipping the "
+                             "whole tile (4x less host-to-device traffic at "
+                             "1024^2 tiles); the same augmentation law, but "
+                             "the crop origins come from a host stream, so "
+                             "runs are bit-reproducible only against the "
+                             "same flag")
+    parser.add_argument("--profile-dir", type=str, default=None,
+                        help="write a torch.profiler trace of steps 10-15 "
+                             "here")
+
+
+def host_crop_of(args, cfg) -> object:
+    """``cfg.crop`` if the trainer was launched with --host-crop, else None
+    (what :func:`make_source_iter` and :func:`make_target_iter` take)."""
+    return cfg.crop if getattr(args, "host_crop", False) else None
+
+
+def make_source_iter(cfg: PairConfig, seed: int = 0, skip: int = 0,
+                     host_crop=None):
+    """The labelled source stream behind the decode stage's thread."""
     ds = SegDataset(cfg.meta, list(cfg.source.image_dir),
                     list(cfg.source.mask_dir)[0])
-    return infinite_batches(ds, cfg.source.batch_size, seed=seed), ds
+    return prefetch(infinite_batches(ds, cfg.source.batch_size, seed=seed,
+                                     skip_batches=skip,
+                                     host_crop=host_crop)), ds
 
 
 def make_target_iter(cfg: PairConfig, seed: int = 1, read_sup: bool = False,
-                     prob_dir: Optional[str] = None):
-    """The unlabelled target stream: images, with ``read_sup`` their
-    superpixel maps, and with ``prob_dir`` the soft pseudo labels stage 3's
-    sweep wrote there."""
+                     prob_dir: Optional[str] = None, skip: int = 0,
+                     host_crop=None):
+    """The unlabelled target stream behind the decode stage's thread:
+    images, with ``read_sup`` their superpixel maps, and with ``prob_dir``
+    the soft pseudo labels stage 3's sweep wrote there."""
     ds = SegDataset(cfg.meta, list(cfg.target.image_dir), prob_dir,
                     read_sup=read_sup,
                     label_type="prob" if prob_dir else "none")
-    return infinite_batches(ds, cfg.target.batch_size, seed=seed), ds
+    return prefetch(infinite_batches(ds, cfg.target.batch_size, seed=seed,
+                                     skip_batches=skip,
+                                     host_crop=host_crop)), ds
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """Raw host arrays -> tensors on ``device`` (uint8 images stay uint8:
-    the crop kernel casts them on load). To the card they go from pinned
-    memory without blocking: a copy from pageable memory would hold the
-    host until the device had finished the previous step."""
+    the crop kernel casts them on load), one batch on its own: to the card
+    from freshly pinned memory without blocking. The loop uploads through
+    :func:`device_batches` instead."""
     device = torch.device(device)
     out = {}
     for k, v in batch.items():
@@ -147,6 +192,81 @@ def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Ten
             t = t.pin_memory()
         out[k] = t.to(device, non_blocking=True)
     return out
+
+
+class PinnedRing:
+    """Pinned host staging buffers for the uploads, ``slots`` per (key,
+    shape, dtype), handed out in turn and reused: no page-locking per
+    batch. A slot is handed out again only once the copy that last read it
+    has completed (its event), so no pinned buffer is overwritten while a
+    copy of it is in flight."""
+
+    def __init__(self, slots: int = 3):
+        self.slots = slots
+        self._rings: Dict[tuple, list] = {}
+        self.waits = 0  # hand-outs that had to wait for a copy in flight
+
+    def acquire(self, key, shape, dtype: np.dtype):
+        """(pinned host tensor, its event) of the next slot for ``key``."""
+        ring = self._rings.setdefault((key, tuple(shape), np.dtype(dtype)),
+                                      [0, []])
+        turn, slots = ring
+        if len(slots) < self.slots:
+            host = torch.from_numpy(np.empty(shape, dtype)).pin_memory()
+            slots.append((host, torch.cuda.Event()))
+            ring[0] = len(slots) % self.slots
+            return slots[-1]
+        host, ev = slots[turn]
+        ring[0] = (turn + 1) % self.slots
+        if not ev.query():
+            self.waits += 1
+            ev.synchronize()
+        return host, ev
+
+
+def device_batches(iterator: Iterator[Dict[str, np.ndarray]], device,
+                   depth: int = 2) -> Iterator[Dict[str, torch.Tensor]]:
+    """The upload stage (the counterpart of ``_device_iter``, ``loop.py:
+    187-208``): host batches -> tensors on ``device``. To the card, a
+    worker thread copies each array into a slot of a :class:`PinnedRing`
+    and from there to the device on its own CUDA stream, without blocking;
+    the consumer's stream waits for the batch's copies (an event) and
+    records its use of the tensors, so the allocator never hands their
+    memory to the next upload while a step still reads them. On the CPU
+    the arrays are wrapped as they are."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        for batch in iterator:
+            yield {k: torch.from_numpy(np.ascontiguousarray(v))
+                   for k, v in batch.items()}
+        return
+    stream = torch.cuda.Stream(device)
+    ring = PinnedRing(depth + 1)
+
+    def upload(batch):
+        with torch.cuda.device(device), torch.cuda.stream(stream):
+            out = {}
+            for k, v in batch.items():
+                host, ev = ring.acquire(k, v.shape, v.dtype)
+                np.copyto(host.numpy(), v)
+                out[k] = torch.empty(v.shape, dtype=host.dtype,
+                                     device=device).copy_(host,
+                                                          non_blocking=True)
+                ev.record(stream)
+            done = torch.cuda.Event()
+            done.record(stream)
+        return out, done
+
+    staged = prefetch((upload(b) for b in iterator), depth)
+    try:
+        for out, done in staged:
+            cur = torch.cuda.current_stream(device)
+            cur.wait_event(done)
+            for t in out.values():
+                t.record_stream(cur)
+            yield out
+    finally:
+        staged.close()  # stops the worker: the caller may read on
 
 
 def make_eval_hook(cfg: PairConfig, run_dir: Optional[str], dataset=None,
@@ -186,38 +306,113 @@ def make_eval_hook(cfg: PairConfig, run_dir: Optional[str], dataset=None,
     return eval_fn, on_best
 
 
+def _start_profiler(device: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profiler(prof, device: torch.device, profile_dir: str,
+                   logger: logging.Logger) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)  # a truncated trace is worse than none
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    logger.info(f"profiler trace written to {path}")
+
+
 def run_training_loop(state: TrainState, step_fn: Callable, source_iter,
                       target_iter, stop_steps: int, logger: logging.Logger,
                       eval_every: int = 500, log_every: int = 50,
                       eval_fn: Optional[Callable] = None,
                       on_best: Optional[Callable] = None,
-                      seed: int = 2333, on_step: Optional[Callable] = None
-                      ) -> Dict[str, float]:
-    """Steps ``state.step`` up to ``stop_steps``; host batches go to the
-    model's device. Returns {'miou': best, 'step': its step}. ``on_step``
-    (step, metrics) sees every step's device metrics without a host
-    synchronisation."""
+                      seed: int = 2333, on_step: Optional[Callable] = None,
+                      steps_per_call: int = 1,
+                      profile_dir: Optional[str] = None) -> Dict[str, object]:
+    """Steps ``state.step`` up to ``stop_steps`` on host batches uploaded
+    to the model's device by :func:`device_batches`. ``on_step`` (step,
+    metrics) sees every step's device metrics without a host
+    synchronisation.
+
+    ``steps_per_call`` K > 1 runs chunks of K steps (``train/graph.py``:
+    replays of a CUDA graph of the step on the card, eager steps on the
+    CPU) under the JAX package's rule (``loop.py:412-453``): step 1 runs
+    alone, and a chunk runs only where all K steps fit before the next
+    log, evaluation and stop boundary, so every boundary lands on a step
+    that ends a call and logs fall on the same steps, with the same
+    metrics, as at K = 1. ``profile_dir``: a ``torch.profiler`` trace of
+    steps 10-15, counted from where the loop starts (none for a run of
+    fewer than 2 steps), written there; until it is written every step
+    runs alone.
+
+    Returns {'miou': best, 'step': its step, 'graph': the capture's
+    statistics (``ChunkRunner.close``) or None}."""
     dev = next(state.model.parameters()).device
+    k_max = max(1, int(steps_per_call))
+    runner = ChunkRunner(step_fn, seed, dev) if k_max > 1 else None
+    src = device_batches(source_iter, dev)
+    tgt = device_batches(target_iter, dev) if target_iter is not None else None
+    start = state.step
+    if profile_dir is not None and stop_steps - start < 2:
+        logger.info("profiler needs >= 2 steps; skipping trace")
+        profile_dir = None
+    trace_start = start + min(10, max(stop_steps - start - 2, 0))
+    trace_stop = start + min(15, max(stop_steps - start - 1, 1))
+    prof = None
     miou_max, iter_max = 0.0, 0
     t0 = time.time()
-    while state.step < stop_steps:
-        batch_s = batch_to_device(next(source_iter), dev)
-        batch_t = (batch_to_device(next(target_iter), dev)
-                   if target_iter is not None else None)
-        metrics = step_fn(state, batch_s, batch_t, seed)
-        i = state.step
-        if on_step is not None:
-            on_step(i, metrics)
-        if i == 1 or i % log_every == 0:
-            msg = ", ".join(f"{k}={float(v):.4g}" for k, v in metrics.items())
-            logger.info(f"iter={i}/{stop_steps}, {msg}")
-        if eval_fn is not None and (i % eval_every == 0 or i >= stop_steps):
-            miou = eval_fn(state)
-            if miou >= miou_max:
-                miou_max, iter_max = miou, i
-                if on_best is not None:
-                    on_best(state, i, miou)
-            logger.info(f"eval@{i}: mIoU={miou:.5f} (best {miou_max:.5f} @ "
-                        f"iter {iter_max})")
+    try:
+        while state.step < stop_steps:
+            i = state.step
+            if profile_dir is not None and i == trace_start:
+                prof = _start_profiler(dev)
+            if prof is not None and i == trace_stop:
+                _stop_profiler(prof, dev, profile_dir, logger)
+                prof = profile_dir = None
+            k = 1
+            if runner is not None and i > 0 and profile_dir is None:
+                fit = min(stop_steps - i, log_every - i % log_every,
+                          eval_every - i % eval_every)
+                if fit >= k_max:
+                    k = k_max
+            pairs = ((next(src), next(tgt) if tgt is not None else None)
+                     for _ in range(k))
+            if k > 1:
+                logger.debug(f"steps {i + 1}-{i + k} in one call")
+                chunk = runner(state, pairs)
+            else:
+                chunk = [step_fn(state, *next(pairs), seed)]
+            if on_step is not None:
+                for j, m in enumerate(chunk):
+                    on_step(i + j + 1, m)
+            metrics = chunk[-1]
+            i = state.step
+            if i == 1 or i % log_every == 0:
+                msg = ", ".join(f"{k}={float(v):.4g}"
+                                for k, v in metrics.items())
+                logger.info(f"iter={i}/{stop_steps}, {msg}")
+            if eval_fn is not None and (i % eval_every == 0
+                                        or i >= stop_steps):
+                miou = eval_fn(state)
+                if miou >= miou_max:
+                    miou_max, iter_max = miou, i
+                    if on_best is not None:
+                        on_best(state, i, miou)
+                logger.info(f"eval@{i}: mIoU={miou:.5f} (best "
+                            f"{miou_max:.5f} @ iter {iter_max})")
+    finally:
+        if prof is not None:  # never leave a profiler session open
+            _stop_profiler(prof, dev, profile_dir, logger)
+        src.close()
+        if tgt is not None:
+            tgt.close()
+        stats = runner.close() if runner is not None else None
     logger.info(f">>>> used {(time.time() - t0) / 3600:.3f} hours")
-    return {"miou": miou_max, "step": iter_max}
+    return {"miou": miou_max, "step": iter_max, "graph": stats}

@@ -15,8 +15,10 @@ weight_decay=5e-4)``, ``tools/train_src.py:106-141``). As optax does:
 * the schedule reads the number of updates made so far, so update k uses
   lr(k).
 
-The update runs in place on the f32 masters with ``torch._foreach`` ops and
-no host synchronisation. Gradient accumulation (``accum_steps > 1``,
+The update runs in place on the f32 masters and momentum buffers with
+``torch._foreach`` ops, reads the learning rate from a device scalar and
+makes no host synchronisation, so a CUDA graph can capture it
+(``train/graph.py``). Gradient accumulation (``accum_steps > 1``,
 optax.MultiSteps) is not ported yet and raises.
 """
 
@@ -72,11 +74,23 @@ class SGD:
                           for n in self.names]
         self.trace = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+        # the learning rate of the next update, on the parameters' device:
+        # written by set_lr before each update, read by update(), so a
+        # captured update replays with each step's rate
+        self.lr = torch.zeros((), dtype=torch.float32,
+                              device=self.params[0].device)
+
+    def set_lr(self) -> None:
+        """Write lr(count) into :attr:`lr` (a fill on the device, no host
+        synchronisation)."""
+        self.lr.fill_(self.schedule(self.count))
 
     @torch.no_grad()
-    def step(self) -> torch.Tensor:
-        """One update from the parameters' ``.grad``; returns the global
-        gradient norm (before clipping) as a device scalar."""
+    def update(self) -> torch.Tensor:
+        """The update from the parameters' ``.grad`` at the rate in
+        :attr:`lr`, all on the device and in place (masters and momentum
+        keep their addresses); returns the global gradient norm (before
+        clipping) as a device scalar. Does not advance :attr:`count`."""
         grads = [p.grad for p in self.params]
         if any(g is None for g in grads):
             missing = [n for n, g in zip(self.names, grads) if g is None]
@@ -90,11 +104,18 @@ class SGD:
             torch._foreach_div(grads, torch.where(keep, one, norm)),
             torch.where(keep, one, torch.full_like(norm, self.clip_norm)))
         u = torch._foreach_add(grads, self.params, alpha=self.weight_decay)
-        self.trace = torch._foreach_add(u, self.trace, alpha=self.momentum)
-        lr = self.schedule(self.count)
+        torch._foreach_add_(u, self.trace, alpha=self.momentum)
+        torch._foreach_copy_(self.trace, u)
         train = [i for i, t in enumerate(self.trainable) if t]
         torch._foreach_add_([self.params[i] for i in train],
                             torch._foreach_mul([self.trace[i] for i in train],
-                                               -lr))
+                                               -self.lr))
+        return norm
+
+    def step(self) -> torch.Tensor:
+        """One update at lr(count), then count + 1; returns the gradient
+        norm as a device scalar."""
+        self.set_lr()
+        norm = self.update()
         self.count += 1
         return norm

@@ -5,9 +5,10 @@ The port's copy of ``uemda_tpu/train/state.py:21-65`` without the GHM state
 the model (its f32 master parameters and BatchNorm running statistics), the
 optimizer (momentum buffers and update count), the prototype aligner and
 the source and target class balance. Unlike the JAX package's pytree, the
-state is updated in place: the optimizer writes the masters and BatchNorm
-its buffers, so no second copy of the model is held; a step swaps in the
-aligner's and the class balance's new states.
+state is updated in place: the optimizer writes the masters and momentum,
+BatchNorm its buffers, and a step copies the aligner's and the class
+balances' new values into their tensors, so every tensor of the state keeps
+its address from step to step (which a captured step needs).
 """
 
 import dataclasses
@@ -28,9 +29,9 @@ class TrainState:
     balance_s: Optional[ClassBalanceState] = None
     balance_t: Optional[ClassBalanceState] = None
 
-    def apply_gradients(self):
-        """One optimizer update from the parameters' ``.grad``; returns the
-        gradient norm."""
-        norm = self.opt.step()
+    def advance(self) -> None:
+        """The host's count of one step taken: the step index and the
+        optimizer's update count (``train/steps.py``'s ``_Step.run`` and a
+        replay of it make the update without counting it)."""
+        self.opt.count += 1
         self.step += 1
-        return norm

@@ -22,6 +22,11 @@ D4 ops, which the host needs to check the crop windows) and one on the
 model's device for the dropout masks -- so a step's draws do not depend on
 what ran before it, like JAX's ``fold_in(key, step)``. Tests inject the
 draws (:class:`StepDraws`) instead.
+
+A step is two parts: :meth:`_Step.prepare` (the host's: the draws, made
+and uploaded) and :meth:`_Step.run` (the device's: no host
+synchronisation, and every tensor of the state written in place), which
+``train/graph.py`` captures as a CUDA graph and replays.
 """
 
 import dataclasses
@@ -43,7 +48,13 @@ from uemda_tpu_torch.alignment.prototypes import (
     update_avg,
     update_prototype,
 )
-from uemda_tpu_torch.datasets.augment import AugDraws, augment_batch, draw_augment
+from uemda_tpu_torch.datasets.augment import (
+    AugDraws,
+    augment_batch,
+    draw_augment,
+    to_device,
+    upload_draws,
+)
 from uemda_tpu_torch.ops.insnorm import instance_norm
 from uemda_tpu_torch.ops.labels import downscale_label
 from uemda_tpu_torch.ops.mine import uvem_mine
@@ -87,7 +98,8 @@ class StageHParams:
 class StepDraws:
     """One step's random draws: augmentation per domain and, optionally,
     the PPM dropout keep-masks per forward ({head name: bool mask}); a
-    missing mask is drawn from the step's device generator."""
+    missing mask is drawn from the step's device generator
+    (:func:`draw_dropout_masks`)."""
 
     aug_s: AugDraws
     aug_t: Optional[AugDraws] = None
@@ -105,6 +117,25 @@ def step_generators(seed: int, step: int, device: torch.device
     return host, dev
 
 
+def draw_dropout_masks(model, batch: int, crop_hw, generator: torch.Generator
+                       ) -> Dict[str, torch.Tensor]:
+    """One train forward's PPM dropout keep-masks ({head name: bool}, on
+    the generator's device), drawn as the heads would draw them in the
+    forward (``heads.py``'s ``Dropout``): the same calls in the same order
+    (layer5, then layer6) on the (B, 512, h, w) activation at the feature
+    stride. The ASPP head has no dropout: nothing is drawn."""
+    cfg = model.config
+    if not cfg.use_ppm:
+        return {}
+    h, w = int(crop_hw[0]), int(crop_hw[1])
+    for _ in range(cfg.backbone.output_stride.bit_length() - 1):
+        h, w = -(-h // 2), -(-w // 2)   # every stride-2 layer pads to ceil
+    keep = 1.0 - model.layer5.conv_last[3].rate
+    return {name: torch.rand((batch, 512, h, w), generator=generator,
+                             device=generator.device) < keep
+            for name in ("layer5", "layer6")}
+
+
 def cast_params(model: torch.nn.Module, dtype: torch.dtype
                 ) -> Optional[Dict[str, torch.Tensor]]:
     """The compute copy of the f32 masters (None: compute in f32 on the
@@ -115,18 +146,18 @@ def cast_params(model: torch.nn.Module, dtype: torch.dtype
             for n, p in model.named_parameters()}
 
 
-def forward_train(model, params, images: torch.Tensor, generator,
-                  dropout_masks=None):
+def forward_train(model, params, images: torch.Tensor, dropout_masks):
     """Train-mode forward in the compute dtype of ``params`` (see
-    :func:`cast_params`); returns (x1, x2, feat) in f32. BatchNorm updates
-    the model's running statistics in place."""
+    :func:`cast_params`) with the given dropout masks; returns (x1, x2,
+    feat) in f32. BatchNorm updates the model's running statistics in
+    place."""
     if params is None:
-        out = model(images, generator, dropout_masks)
+        out = model(images, None, dropout_masks)
     else:
         dtype = next(iter(params.values())).dtype
         out = torch.func.functional_call(
             model, params, (images.to(dtype),),
-            {"generator": generator, "dropout_masks": dropout_masks})
+            {"generator": None, "dropout_masks": dropout_masks})
     return tuple(t.float() for t in out)
 
 
@@ -147,6 +178,26 @@ def forward_features(model, images: torch.Tensor, dtype: torch.dtype
     if model.config.is_ins_norm:
         feat = instance_norm(feat)
     return feat.float()
+
+
+# the state a step replaces with new values (the JAX package's functional
+# updates), written back into the tensors it had
+_SWAPPED = ("aligner", "balance_s", "balance_t")
+
+
+def _write_back(state: TrainState, kept) -> None:
+    """Copy the new values of ``state``'s swapped parts into the tensors
+    they had before the step (``kept``) and put those back, so that every
+    tensor of the state keeps its address across steps and replays."""
+    for name, old in kept.items():
+        new = getattr(state, name)
+        if new is old or old is None:
+            continue
+        for f in dataclasses.fields(old):
+            a, b = getattr(old, f.name), getattr(new, f.name)
+            if isinstance(a, torch.Tensor) and a is not b:
+                a.copy_(b)
+        setattr(state, name, old)
 
 
 class _Step:
@@ -172,18 +223,20 @@ class _Step:
         self.hp = hp
         self.dtype = getattr(torch, hp.compute_dtype)
 
-    def losses(self, state, bs, bt, params, dev_gen, draws
+    def losses(self, state, bs, bt, params, draws
                ) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
 
-    def __call__(self, state: TrainState, batch_s, batch_t, seed: int,
-                 draws: Optional[StepDraws] = None) -> Dict[str, torch.Tensor]:
-        """Forwards, losses, backward and the update. The masters' ``.grad``
-        keep this step's gradients afterwards. Returns the metrics as f32
-        device scalars."""
-        hp, model = self.hp, self.model
-        host_gen, dev_gen = step_generators(seed, state.step,
-                                            batch_s["image"].device)
+    def prepare(self, state: TrainState, batch_s, batch_t, seed: int,
+                draws: Optional[StepDraws] = None) -> StepDraws:
+        """The host's part of a step: its draws from (``seed``,
+        ``state.step``) where ``draws`` leaves them out -- augmentation on
+        the CPU, checked there, then uploaded; dropout masks from the
+        device generator, in the order the forwards would draw them -- all
+        on the batches' device."""
+        hp = self.hp
+        dev = batch_s["image"].device
+        host_gen, dev_gen = step_generators(seed, state.step, dev)
         if draws is None:
             def draw(batch, mode):
                 image = batch["image"]
@@ -193,6 +246,33 @@ class _Step:
             draws = StepDraws(
                 draw(batch_s, "oneof"),
                 draw(batch_t, self.target_mode) if self.needs_target else None)
+
+        def masks(given, batch):
+            if given is None:
+                return draw_dropout_masks(self.model, batch["image"].shape[0],
+                                          hp.crop, dev_gen)
+            return {k: to_device(m.bool(), dev) for k, m in given.items()}
+
+        def aug(d, batch):
+            return upload_draws(d, batch["image"].shape[1:3], hp.crop, dev)
+
+        drop_s = masks(draws.drop_s, batch_s)
+        if not self.needs_target:
+            return StepDraws(aug(draws.aug_s, batch_s), None, drop_s)
+        drop_t = masks(draws.drop_t, batch_t)
+        return StepDraws(aug(draws.aug_s, batch_s), aug(draws.aug_t, batch_t),
+                         drop_s, drop_t)
+
+    def run(self, state: TrainState, batch_s, batch_t, draws: StepDraws
+            ) -> Dict[str, torch.Tensor]:
+        """The device's part of a step, on draws from :meth:`prepare` and
+        the learning rate in ``state.opt.lr``: forwards, losses, backward
+        and the update, with no host synchronisation, every tensor of the
+        state written in place. The masters' ``.grad`` keep this step's
+        gradients afterwards. Returns the metrics as f32 device scalars.
+        This is what ``train/graph.py`` captures."""
+        hp, model = self.hp, self.model
+        kept = {k: getattr(state, k) for k in _SWAPPED}
         model.train()
         model.zero_grad(set_to_none=True)
         bs = augment_batch(batch_s, hp.crop, hp.src_mean, hp.src_std,
@@ -204,10 +284,21 @@ class _Step:
                                clamp=self.target_mode == "compose"
                                and hp.clamp_target)
         params = cast_params(model, self.dtype)
-        metrics = self.losses(state, bs, bt, params, dev_gen, draws)
+        metrics = self.losses(state, bs, bt, params, draws)
         metrics["loss"].backward()
-        state.apply_gradients()
+        state.opt.update()
+        _write_back(state, kept)
         return {k: v.detach() for k, v in metrics.items()}
+
+    def __call__(self, state: TrainState, batch_s, batch_t, seed: int,
+                 draws: Optional[StepDraws] = None) -> Dict[str, torch.Tensor]:
+        """One eager step: :meth:`prepare`, the learning rate, :meth:`run`
+        and the host's step count. ``state`` is updated in place."""
+        draws = self.prepare(state, batch_s, batch_t, seed, draws)
+        state.opt.set_lr()
+        metrics = self.run(state, batch_s, batch_t, draws)
+        state.advance()
+        return metrics
 
     def _source_loss(self, state, preds, label) -> torch.Tensor:
         """CE over both heads (``_source_loss_terms``, ``steps.py:106-122``),
@@ -242,14 +333,12 @@ class SrcStep(_Step):
     def needs_target(self):
         return self.hp.align_domain
 
-    def losses(self, state, bs, bt, params, dev_gen, draws):
+    def losses(self, state, bs, bt, params, draws):
         model = self.model
-        p1, p2, feat_s = forward_train(model, params, bs["image"], dev_gen,
-                                       draws.drop_s)
+        p1, p2, feat_s = forward_train(model, params, bs["image"], draws.drop_s)
         feat_t = None
         if self.hp.align_domain:
-            _, _, feat_t = forward_train(model, params, bt["image"], dev_gen,
-                                         draws.drop_t)
+            _, _, feat_t = forward_train(model, params, bt["image"], draws.drop_t)
         loss_seg, loss_dom = self._seg_and_domain(state, p1, p2, bs["label"],
                                                   feat_s, feat_t)
         return {"loss": loss_seg + loss_dom, "loss_seg": loss_seg,
@@ -274,14 +363,12 @@ class AlignStep(_Step):
         if hp.refine and hp.refine_mode not in ("all", "p", "l", "s", "n"):
             raise ValueError(f"unknown refine_mode {hp.refine_mode!r}")
 
-    def losses(self, state, bs, bt, params, dev_gen, draws):
+    def losses(self, state, bs, bt, params, draws):
         hp, model = self.hp, self.model
-        p1, p2, feat_s = forward_train(model, params, bs["image"], dev_gen,
-                                       draws.drop_s)
+        p1, p2, feat_s = forward_train(model, params, bs["image"], draws.drop_s)
         aligner, label_s_down = update_prototype(
             state.aligner, feat_s, bs["label"], hp.class_num, hp.scale_factor)
-        t1, t2, feat_t = forward_train(model, params, bt["image"], dev_gen,
-                                       draws.drop_t)
+        t1, t2, feat_t = forward_train(model, params, bt["image"], draws.drop_t)
         with torch.no_grad():
             soft = (torch.softmax(upsample_logits(t1, hp.crop), dim=1)
                     + torch.softmax(upsample_logits(t2, hp.crop), dim=1)) * 0.5
@@ -357,12 +444,10 @@ class SslStep(_Step):
                 lg, lb, hp.ignore_label, pixel_weight)
         return loss_calc(preds, label_hard, fn)
 
-    def losses(self, state, bs, bt, params, dev_gen, draws):
+    def losses(self, state, bs, bt, params, draws):
         hp, model = self.hp, self.model
-        p1, p2, feat_s = forward_train(model, params, bs["image"], dev_gen,
-                                       draws.drop_s)
-        t1, t2, feat_t = forward_train(model, params, bt["image"], dev_gen,
-                                       draws.drop_t)
+        p1, p2, feat_s = forward_train(model, params, bs["image"], draws.drop_s)
+        t1, t2, feat_t = forward_train(model, params, bt["image"], draws.drop_t)
         with torch.no_grad():
             soft = bt["prob"].permute(0, 3, 1, 2).float()
             if hp.refine:
