@@ -11,7 +11,8 @@ paths, and drives them (flagship ResNet-50 OS16 dual-PPM model, random
 weights from a seed):
 
 * serving: the standard eval forward, the fused-stem fast path and slide +
-  8-view TTA evaluation;
+  8-view TTA evaluation of a split with a padded last batch, through
+  ``device_batches`` and the captured predictor, held to eager calls;
 * ``[fused]`` the fast path with the identity bottlenecks of stages (1, 2)
   and of all four stages in the K4 kernel, and a slide + 8-view TTA
   evaluation through it; ``[int8]`` int8 serving: the dynamic int8 fast
@@ -27,6 +28,13 @@ weights from a seed):
   left: an f32 step against the CPU, then the pseudo-label sweep of the
   target tiles (slide + 8-view TTA, bf16) and 30 flagship UVEM steps, each
   mining its soft label once with the K8 kernel.
+
+``[serve-graph]`` takes every bf16 serving mode through the captured
+slide predictor (``infer/graph.py``) at batch 1, 8 and 32 on 512^2 tiles,
+against eager calls: the difference, ms/forward and tiles/s of both, the
+device's idle share under the graph, the capture's time, pool and kernel
+launches a replay. The sweep (``[ssl]``) is held to its eager calls too and
+timed on both routes.
 
 It prints the launch plan ("design") of each redesigned kernel, times
 kernels, forwards and steps with CUDA events, profiles the paths, and
@@ -337,6 +345,170 @@ def graph_profile(name, what, make_step, state, src_it, tgt_it, dev, ms_step,
     runner.close()
     torch.cuda.synchronize()
     return out
+
+
+def eval_against_eager(name, what, model, data, st, summary, miou):
+    """``evaluate_dataset`` of ``data`` again with eager predictor calls
+    (``capture=False``), held to the captured run's ``summary``: the same
+    confusion matrix and the mIoU within 1e-12 (the same kernels on the
+    same inputs). Returns the eager run's wall seconds."""
+    import torch
+
+    from uemda_tpu_torch.infer.evaluate import evaluate_dataset
+
+    t0 = time.time()
+    summary_e, miou_e = evaluate_dataset(
+        model, data, st["mean"], st["std"], tile=(TILE, TILE), tta=True,
+        batch_size=2, compute_dtype=torch.bfloat16, device="cuda",
+        capture=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    if summary_e["confusion_matrix"] != summary["confusion_matrix"] \
+            or not abs(miou_e - miou) <= 1e-12:
+        fail(f"{what}: evaluation through the graph (mIoU {miou}, confusion "
+             f"matrix {summary['confusion_matrix']}) differs from eager calls "
+             f"({miou_e}, {summary_e['confusion_matrix']})")
+    phase(name, f"{what}: evaluation through the captured predictor equals "
+          f"eager calls: confusion matrix equal "
+          f"({sum(map(sum, summary['confusion_matrix']))} pixels), mIoU "
+          f"{miou:.12f} vs {miou_e:.12f}")
+    return wall
+
+
+SERVE_BATCHES = (1, 8, 32)   # [serve-graph]: infer_single's case, 8, 32
+# the modes whose batch-8 forward [serve-graph] breaks down by kernel
+PROFILED = ("fast path", "fused (1, 2, 3, 4)", "fastpath_int8cal_all")
+
+
+def serve_graph_phase(modes):
+    """``[serve-graph]``: each serving mode (name: callable on bf16 (B, 3,
+    512, 512) tiles) through ``make_predictor`` on one 512^2 window, the
+    captured predictor against eager calls (``capture=False``) at batch 1,
+    8 and 32: after the first call (the warm-up and the capture), the max
+    abs diff of the f32 probabilities of two replays on two inputs (each
+    re-reads the static input; gate 2e-4), ms/forward and
+    tiles/s by CUDA events in turns (eager, graph, graph, eager), device
+    time and idle share under the graph from the profiler (and under eager
+    calls at batch 8; for the ``PROFILED`` modes at batch 8, the top
+    kernels under the graph and the top operators of eager calls), the
+    capture's time, pool and kernel launches a replay, and the peak
+    memory. Returns {mode: launches a replay} at
+    batch 8."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from uemda_tpu_torch.infer.slide import make_predictor
+
+    g = torch.Generator(device="cpu").manual_seed(11)
+    iters = {1: 20, 8: 5, 32: 3}
+    per_replay, table = {}, {}
+
+    def device_rows(fn, n=3):
+        """(by kernel, by operator, total) device us a forward."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return profile_rows(prof, n)
+
+    def breakdown(mode, b, rows_g, ops_e):
+        """Where a forward's device time goes: the top kernels under the
+        graph and the top operators of eager calls (a replay launches
+        its kernels with no operator around them)."""
+        total = sum(t for _, t in rows_g)
+        phase("profile", f"{mode} bf16 batch {b} through the graph, 3 "
+              f"forwards: device time {total / 1e3:.3f} ms/forward; by "
+              "kernel:")
+        for key, t in rows_g[:12]:
+            phase("profile", f"  {t / total * 100:5.1f}%  {t / 1e3:.4f} ms"
+                  f"  {key[:150]}")
+        total = sum(t for _, t in ops_e)
+        phase("profile", f"{mode} bf16 batch {b}, eager calls: by operator "
+              "(device time of the kernels each launched itself):")
+        for key, t in ops_e[:10]:
+            phase("profile", f"  {t / total * 100:5.1f}%  {t / 1e3:.4f} ms"
+                  f"  {key}")
+
+    for b in SERVE_BATCHES:
+        xs = [torch.randn(b, 3, TILE, TILE, generator=g).to("cuda")
+              .contiguous(memory_format=torch.channels_last) for _ in range(2)]
+        for mode, fm in modes.items():
+            kw = dict(tile=(TILE, TILE), image_hw=(TILE, TILE),
+                      compute_dtype=torch.bfloat16)
+            eager = make_predictor(fm, capture=False, **kw)
+            graph = make_predictor(fm, **kw)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            graph(xs[0])  # the warm-up and the capture
+            diffs = []
+            for x in (xs[1], xs[0]):  # two replays, the input changed
+                ref = eager(x)
+                got = graph(x)
+                if tuple(got.shape) != (b, NUM_CLASSES, TILE, TILE) \
+                        or not torch.isfinite(got).all():
+                    fail(f"[serve-graph] {mode} batch {b}: output "
+                         f"{tuple(got.shape)} not finite or misshaped")
+                diffs.append(max_err(got, ref))
+                del ref, got
+            if max(diffs) > 2e-4:
+                fail(f"[serve-graph] {mode} batch {b}: graph vs eager max abs "
+                     f"diff {diffs} over 2e-4")
+            x = xs[0]
+            n = iters[b]
+            turns = [cuda_ms(lambda: eager(x), n, 1),
+                     cuda_ms(lambda: graph(x), n, 1),
+                     cuda_ms(lambda: graph(x), n, 1),
+                     cuda_ms(lambda: eager(x), n, 1)]
+            ms_e, ms_g = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            rows_g, _, dev_g = device_rows(lambda: graph(x))
+            dev_g /= 1e3
+            dev_e = None
+            if b == BATCH:
+                _, ops_e, dev_e = device_rows(lambda: eager(x))
+                dev_e /= 1e3
+                if mode in PROFILED and dev_g > 0 and dev_e > 0:
+                    breakdown(mode, b, rows_g, ops_e)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            st = graph.close()
+            launches = {k: v for k, v in st["launches"].items() if v}
+            if b == BATCH:
+                per_replay[mode] = st["launches"]
+            idle_g = max(0.0, 1 - dev_g / ms_g) if dev_g > 0 else None
+            idle_e = (max(0.0, 1 - dev_e / ms_e) if dev_e else None)
+            table[f"{mode} b{b}"] = {
+                "max_abs_diff": max(diffs), "eager_ms": ms_e,
+                "graph_ms": ms_g, "eager_tiles_s": b / ms_e * 1e3,
+                "graph_tiles_s": b / ms_g * 1e3, "graph_device_ms": dev_g,
+                "graph_idle": idle_g, "eager_device_ms": dev_e,
+                "eager_idle": idle_e, "capture_s": st["capture_s"],
+                "pool_bytes": st["pool_bytes"], "peak_gib": peak,
+                "launches_per_replay": launches}
+            phase("serve-graph", f"{mode} batch {b}: graph vs eager max abs "
+                  f"diff {diffs[0]:.3g}, {diffs[1]:.3g} on the two replays "
+                  f"(gate 2e-4); eager {ms_e:.3f} ms/forward ({b / ms_e * 1e3:.2f} "
+                  f"tiles/s), graph {ms_g:.3f} ({b / ms_g * 1e3:.2f} "
+                  f"tiles/s), turns {[round(t, 3) for t in turns]}; graph "
+                  f"device time {dev_g:.3f} ms, idle share "
+                  f"{'not measured' if idle_g is None else f'{idle_g:.3f}'}"
+                  + ("" if dev_e is None else
+                     f"; eager device time {dev_e:.3f} ms, idle share "
+                     f"{idle_e:.3f}")
+                  + f"; capture {st['capture_s']:.3f} s, pool "
+                  f"{st['pool_bytes'] / 2**30:.3f} GiB, peak memory "
+                  f"{peak:.2f} GiB; launches a replay {json.dumps(launches)}")
+        del xs
+        torch.cuda.empty_cache()
+    for name in ("stem_pool", "tail_upsample_softmax_mean", "instance_norm"):
+        if per_replay["fast path"].get(name, 0) <= 0:
+            fail(f"[serve-graph] the fast path's replay holds no {name}")
+    if per_replay["fused (1, 2, 3, 4)"].get("bottleneck_identity", 0) != 12:
+        fail(f"[serve-graph] fused (1, 2, 3, 4): "
+             f"{per_replay['fused (1, 2, 3, 4)']} launches a replay, not 12 "
+             "K4")
+    phase("serve-graph", "summary " + json.dumps(table))
+    return per_replay
 
 
 # kernels (a pattern of the name) of each source whose instantiations the
@@ -789,7 +961,10 @@ def ssl_phase(dev, ctx):
     from uemda_tpu_torch.datasets.base import ArrayDataset, infinite_batches
     from uemda_tpu_torch.datasets.meta import LoveDA, NORM_STATS
     from uemda_tpu_torch.datasets.synthetic import synthetic_split
+    from uemda_tpu_torch.infer.fastpath import build_fastpath
     from uemda_tpu_torch.infer.pseudo_gen import generate_pseudo_labels
+    from uemda_tpu_torch.infer.slide import make_predictor
+    from uemda_tpu_torch.ops.mine import uvem_mine
     from uemda_tpu_torch.ops.pseudo import pseudo_selection
     from uemda_tpu_torch.tools.init_prototypes import init_prototypes
     from uemda_tpu_torch.train.loop import (
@@ -915,15 +1090,101 @@ def ssl_phase(dev, ctx):
     if not (torch.isfinite(proto0).all() and cnt.sum() > 0):
         fail(f"init_prototypes (stage 2's model): counts {cnt}")
     peak_proto = torch.cuda.max_memory_allocated() / 2**30
+    sweep_kw = dict(tile=(TILE, TILE), tta=True, batch_size=min(4, batch),
+                    cutoff_top=cfg.cutoff_top, cutoff_low=cfg.cutoff_low,
+                    compute_dtype=torch.bfloat16, device=dev)
     torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
     t0 = time.time()
-    sweep = generate_pseudo_labels(
-        model, tgt, st["mean"], st["std"], tile=(TILE, TILE), tta=True,
-        batch_size=min(4, batch), cutoff_top=cfg.cutoff_top,
-        cutoff_low=cfg.cutoff_low, compute_dtype=torch.bfloat16, device=dev)
+    sweep = generate_pseudo_labels(model, tgt, st["mean"], st["std"],
+                                   **sweep_kw)
     torch.cuda.synchronize()
     t_sweep = time.time() - t0
     peak_sweep = torch.cuda.max_memory_allocated() / 2**30
+    peak_over = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+    # comparisons, their launches not counted: the sweep with eager
+    # predictor calls (held equal), and the --gen-fastpath sweep (timed)
+    saved = [fn.launches for fn in WRAPPERS]
+    t0 = time.time()
+    sweep_e = generate_pseudo_labels(model, tgt, st["mean"], st["std"],
+                                     capture=False, **sweep_kw)
+    torch.cuda.synchronize()
+    t_sweep_e = time.time() - t0
+    t0 = time.time()
+    generate_pseudo_labels(model, tgt, st["mean"], st["std"], fastpath=True,
+                           **sweep_kw)
+    torch.cuda.synchronize()
+    t_sweep_f = time.time() - t0
+    # the sweep's predictor alone at its shape (a batch of 4 tiles of
+    # 1024^2: 9 windows x 8 views x 4 = 288 tiles a forward), with the
+    # sweep's epilogue and its colour labels (K8) inside the capture:
+    # replays against eager calls, equal outputs, ms in turns, standard
+    # forward and fast path
+    def epilogue(probs):
+        return (probs.to(torch.float16).permute(0, 2, 3, 1).contiguous(),
+                uvem_mine(probs, cfg.cutoff_top, cfg.cutoff_low)[0])
+
+    steady = {}
+    x4s = [torch.randn(min(4, batch), 3, 2 * TILE, 2 * TILE, device=dev)
+           .contiguous(memory_format=torch.channels_last) for _ in range(2)]
+    x4 = x4s[0]
+    for route, net in (("standard",
+                        copy.deepcopy(model).eval().to(torch.bfloat16)),
+                       ("fast path", build_fastpath(model,
+                                                    dtype=torch.bfloat16))):
+        kw = dict(tile=(TILE, TILE), image_hw=(2 * TILE, 2 * TILE), tta=True,
+                  compute_dtype=torch.bfloat16, epilogue=epilogue)
+        eager = make_predictor(net, capture=False, **kw)
+        graph = make_predictor(net, **kw)
+        graph(x4s[1])  # the warm-up and the capture
+        for a, b_ in zip(graph(x4), eager(x4)):  # a replay, another input
+            if not torch.equal(a, b_):
+                fail(f"sweep predictor ({route}) through the graph differs "
+                     f"from eager calls: {max_err(a, b_)}")
+        turns = [cuda_ms(lambda: eager(x4), 3, 1),
+                 cuda_ms(lambda: graph(x4), 3, 1),
+                 cuda_ms(lambda: graph(x4), 3, 1),
+                 cuda_ms(lambda: eager(x4), 3, 1)]
+        st_g = graph.close()
+        steady[route] = ((turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2,
+                         st_g["pool_bytes"],
+                         {k: v for k, v in st_g["launches"].items() if v})
+        del net, eager, graph
+    del x4, x4s
+    torch.cuda.empty_cache()
+    for fn, n in zip(WRAPPERS, saved):
+        fn.launches = n
+    if list(sweep_e) != list(sweep) or not all(
+            np.array_equal(sweep[k], sweep_e[k]) for k in sweep):
+        worst = max(float(np.abs(sweep[k].astype(np.float32)
+                                 - sweep_e[k].astype(np.float32)).max())
+                    for k in sweep)
+        fail(f"pseudo-label sweep through the graph differs from eager "
+             f"calls: max abs fp16 diff {worst}")
+    bf16_bytes = sum(t.numel() * 2 for t in list(model.parameters())
+                     + list(model.buffers()) if t.is_floating_point())
+    phase("ssl", f"sweep through the captured predictor: fp16 probabilities "
+          f"equal to eager calls' ({len(sweep)} tiles); peak memory "
+          f"{peak_sweep:.2f} GiB, {peak_over:.2f} GiB above what was "
+          f"allocated before it (the eager bf16 copy of the model "
+          f"{bf16_bytes / 2**30:.3f} GiB, the graph's pool (below), the "
+          f"warm-up's activations, the batches); 1024^2 tiles/s: standard forward "
+          f"{len(tgt) / t_sweep:.3f} through the graph, "
+          f"{len(tgt) / t_sweep_e:.3f} eager, --gen-fastpath "
+          f"{len(tgt) / t_sweep_f:.3f} through the graph (whole calls: the "
+          f"copy or fold, the warm-up and the capture included)")
+    nb = min(4, batch)
+    for route, (ms_e, ms_g, pool, launches) in steady.items():
+        phase("ssl", f"sweep predictor alone, {route}, a batch of {nb} tiles "
+              f"of {2 * TILE}^2 (288 window views a forward; the fp16 cast "
+              f"and the colour labels inside the capture, equal to eager "
+              f"calls'): eager {ms_e:.3f} ms ({nb / ms_e * 1e3:.3f} tiles/s), "
+              f"graph {ms_g:.3f} ms ({nb / ms_g * 1e3:.3f} tiles/s); pool "
+              f"{pool / 2**30:.3f} GiB; launches a replay "
+              f"{json.dumps(launches)}")
+        if launches.get("uvem_mine") != 1:
+            fail(f"sweep predictor ({route}): K8 not in the replay "
+                 f"({launches})")
     names = [tgt.filename(i) for i in range(len(tgt))]
     prob = np.stack([sweep[n] for n in names])
     if prob.shape != (len(tgt), 2 * TILE, 2 * TILE, nc) \
@@ -1004,7 +1265,7 @@ def ssl_phase(dev, ctx):
     # in-memory split (numpy), whole tiles and cropped on the host, and its
     # upload, from freshly pinned memory (batch_to_device) and through the
     # upload stage's ring of reused pinned buffers, timed on their own
-    from uemda_tpu_torch.train.loop import PinnedRing
+    from uemda_tpu_torch.datasets.prefetch import PinnedRing
 
     ring = PinnedRing(3)
 
@@ -1046,13 +1307,13 @@ def ssl_phase(dev, ctx):
               "through the pinned ring")
     # the data path alone, as the loop runs it: decode thread, upload
     # thread (pinned ring, own stream), batches taken as fast as they come
-    from uemda_tpu_torch.train.loop import device_batches
+    from uemda_tpu_torch.datasets.prefetch import upload_batches
 
     for what, ds, seed in (("source", ctx["src"], 20),
                            ("target", target, 21)):
         cells = []
         for crop in (None, hc):
-            it = device_batches(stream(ds, seed, crop), dev)
+            it = upload_batches(stream(ds, seed, crop), dev)
             for _ in range(3):
                 next(it)
             torch.cuda.synchronize()
@@ -1755,7 +2016,9 @@ def main():
     fast_bf16 = build_fastpath(model, dtype=torch.bfloat16)
     x_flag = randn(BATCH, 3, TILE, TILE).to(dev, torch.bfloat16) \
         .contiguous(memory_format=CL)
-    data = synthetic_split(IsprsDA, n=2, hw=2 * TILE, seed=0)
+    # three images at batch 2: the last batch is padded, so one captured
+    # predictor serves the split
+    data = synthetic_split(IsprsDA, n=3, hw=2 * TILE, seed=0)
     st = NORM_STATS["Vaihingen"]
     wrappers = (instance_norm, stem_pool, tail_upsample_softmax_mean)
     for fn in wrappers:
@@ -1767,12 +2030,15 @@ def main():
     t0 = time.time()
     summary, miou = evaluate_dataset(
         fast_bf16, data, st["mean"], st["std"], tile=(TILE, TILE), tta=True,
-        batch_size=1, compute_dtype=torch.bfloat16, device=dev)
+        batch_size=2, compute_dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
     t_eval = time.time() - t0
     launches = {fn.__name__: fn.launches for fn in wrappers}
-    # the f32 fast path on the same batch (TF32 off), a comparison made after
-    # the main path's counts were read
+    # comparisons, made after the main path's counts were read: the same
+    # evaluation with eager predictor calls, and the f32 fast path on the
+    # flagship batch (TF32 off)
+    t_eval_e = eval_against_eager("eval", "the fast path", fast_bf16, data,
+                                  st, summary, miou)
     with torch.no_grad():
         p_f32 = fp32(x_flag.float())
 
@@ -1799,9 +2065,10 @@ def main():
               f"{d_mean:.3g} (limit 0.03), argmax agreement {agree:.5f}")
     if not (0.0 <= miou <= 1.0):
         fail(f"evaluate_dataset mIoU {miou}")
-    phase("eval", f"2 synthetic IsprsDA images {2 * TILE}^2, tile {TILE}, "
-          f"8-view TTA through the fast path: mIoU {miou:.5f} (random "
-          f"weights) in {t_eval:.2f} s")
+    phase("eval", f"3 synthetic IsprsDA images {2 * TILE}^2 at batch 2, "
+          f"tile {TILE}, 8-view TTA through the fast path (device_batches, "
+          f"the captured predictor): mIoU {miou:.5f} (random weights) in "
+          f"{t_eval:.2f} s (eager calls {t_eval_e:.2f} s)")
     phase("launches", f"one fast-path forward {json.dumps(per_forward)}; "
           f"main path {json.dumps(launches)}")
     for name, n in per_forward.items():
@@ -1848,12 +2115,15 @@ def main():
             p_fused[stages] = fm(x_flag)
             k4_per_forward[stages] = bottleneck_identity.launches - n0
     t0 = time.time()
-    _, miou_f = evaluate_dataset(
+    summary_f, miou_f = evaluate_dataset(
         fused[(1, 2, 3, 4)], data, st["mean"], st["std"], tile=(TILE, TILE),
-        tta=True, batch_size=1, compute_dtype=torch.bfloat16, device=dev)
+        tta=True, batch_size=2, compute_dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
     t_eval_f = time.time() - t0
     fused_launches = {fn.__name__: fn.launches for fn in fwrappers}
+    t_eval_fe = eval_against_eager("fused", "fused_stages (1, 2, 3, 4)",
+                                   fused[(1, 2, 3, 4)], data, st, summary_f,
+                                   miou_f)
     for stages, n_want in (((1, 2), 5), ((1, 2, 3, 4), 12)):
         if k4_per_forward[stages] != n_want:
             fail(f"fused_stages {stages}: K4 launched "
@@ -1869,9 +2139,10 @@ def main():
               f"1| {s_err:.3g}")
     if not (0.0 <= miou_f <= 1.0):
         fail(f"evaluate_dataset through the fused fast path: mIoU {miou_f}")
-    phase("fused", f"2 synthetic IsprsDA images {2 * TILE}^2, 8-view TTA "
-          f"through fused_stages (1, 2, 3, 4): mIoU {miou_f:.5f} (unfused "
-          f"{miou:.5f}) in {t_eval_f:.2f} s")
+    phase("fused", f"3 synthetic IsprsDA images {2 * TILE}^2 at batch 2, "
+          f"8-view TTA through fused_stages (1, 2, 3, 4) (the captured "
+          f"predictor): mIoU {miou_f:.5f} (unfused {miou:.5f}) in "
+          f"{t_eval_f:.2f} s (eager calls {t_eval_fe:.2f} s)")
     phase("launches", f"fused path (two forwards + evaluation): "
           f"{json.dumps(fused_launches)}")
     for name, n in fused_launches.items():
@@ -2111,6 +2382,7 @@ def main():
             "uemda_tpu_torch/kernels/csrc/resblock.cu",
             "uemda_tpu/ops/pallas_resblock.py:165", "bottleneck_identity")
     record = []
+    rec_fn = {name: m[2] for name, m in meta.items()}
     for name, (k_fn, plain_fn, lib_fn) in timed.items():
         with torch.no_grad():
             ms = kernel_ms(k_fn)
@@ -2311,69 +2583,19 @@ def main():
               f"{TILE}^2, S {n_seg}: {t_lr:.4f} ms device, {t_lr_host:.4f} ms "
               "back to back with its host work")
 
-    with torch.no_grad():
-
-        # serving modes in turns within this run: unfused, fused (1, 2),
-        # fused (1, 2, 3, 4), unfused again, at batch 8 and 32; then the
-        # int8 modes and the standard forward at batch 8
-        fast_ms = {}
-        serving = [("fast path", fast_bf16),
-                   ("fused (1, 2)", fused[(1, 2)]),
-                   ("fused (1, 2, 3, 4)", fused[(1, 2, 3, 4)]),
-                   ("fast path again", fast_bf16)]
-        for b in (BATCH, 32):
-            xq = torch.randn(b, 3, TILE, TILE, device=dev,
-                             dtype=torch.bfloat16).contiguous(memory_format=CL)
-            for mode, fm in serving:
-                torch.cuda.reset_peak_memory_stats()
-                fast_ms[(mode, b)] = ms = cuda_ms(lambda: fm(xq), iters=5,
-                                                  warmup=2)
-                peak = torch.cuda.max_memory_allocated() / 2**30
-                phase("time", f"{mode} bf16 batch {b}: {ms:.3f} ms/forward, "
-                      f"{b / ms * 1e3:.2f} tiles/s, peak memory {peak:.2f} GiB")
-        del xq
-        for mode, fm in list(int8_modes.items()) + [("standard", model_bf16)]:
-            fast_ms[(mode, BATCH)] = ms = cuda_ms(lambda: fm(x_flag), iters=5,
-                                                  warmup=2)
-            phase("time", f"{mode} bf16 batch {BATCH}: {ms:.3f} ms/forward, "
-                  f"{BATCH / ms * 1e3:.2f} tiles/s")
-
-        # where a forward's device time goes (batch 8): the unfused fast
-        # path, all stages fused, and int8 calibrated on every stage
-        from torch.profiler import ProfilerActivity, profile
-
-        for mode, fm in (("fast path", fast_bf16),
-                         ("fused (1, 2, 3, 4)", fused[(1, 2, 3, 4)]),
-                         ("fastpath_int8cal_all",
-                          int8_modes["fastpath_int8cal_all"])):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(3):
-                    fm(x_flag)
-                torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t0) * 1e6
-            rows, ops, total = profile_rows(prof, 3)
-            if total <= 0:
-                phase("profile", f"{mode}: device time not measured "
-                      "(profiler saw none)")
-                continue
-            dev_ms = total / 1e3
-            phase("profile", f"{mode} bf16 batch {BATCH}, 3 forwards: device "
-                  f"time {dev_ms:.3f} ms/forward; idle share "
-                  f"{max(0.0, 1 - dev_ms / fast_ms[(mode, BATCH)]):.3f} of "
-                  f"the event-timed back-to-back forward, "
-                  f"{max(0.0, 1 - total * 3 / wall_us):.3f} of the profiled "
-                  f"wall {wall_us / 3e3:.3f} ms/forward; by kernel:")
-            for key, t in rows[:12]:
-                phase("profile", f"  {t / total * 100:5.1f}%  "
-                      f"{t / 1e3:.4f} ms  {key[:150]}")
-            phase("profile", "by operator (device time of the kernels each "
-                  "launched itself):")
-            for key, t in ops[:10]:
-                phase("profile", f"  {t / total * 100:5.1f}%  "
-                      f"{t / 1e3:.4f} ms  {key}")
+    # the serving modes through the captured predictor against eager calls,
+    # at batch 1, 8 and 32, each mode built once
+    mark("serve graph")
+    serve_modes = {"fast path": fast_bf16,
+                   "fused (1, 2)": fused[(1, 2)],
+                   "fused (1, 2, 3, 4)": fused[(1, 2, 3, 4)],
+                   **int8_modes, "standard": model_bf16}
+    replay_launches = serve_graph_phase(serve_modes)
+    for rec in record:
+        per_mode = {m: n[rec_fn[rec["name"]]]
+                    for m, n in replay_launches.items()
+                    if n.get(rec_fn[rec["name"]], 0) > 0}
+        rec["launches_per_replay_serve_b8"] = per_mode
 
     t_end = time.time()
     spans = [(n, (sections[i + 1][1] if i + 1 < len(sections) else t_end) - t)

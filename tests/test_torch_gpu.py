@@ -6,8 +6,9 @@ routes (with and without the clamp), every route of each segment kernel,
 the mining kernel in every layout and branch, the fused
 bottleneck kernel in both dtypes at odd shapes and dilations, the int8 conv
 on the card against the CPU, the fused and int8 fast paths, training
-steps that go through the kernels, and the card as the entry points'
-default.
+steps that go through the kernels, the captured serving predictor against
+eager calls (and its pool, and a capture that fails), and the card as the
+entry points' default.
 
 These tests need an NVIDIA GPU and skip without one. They import neither JAX
 nor the JAX package, so they run where only PyTorch is installed; the
@@ -16,6 +17,7 @@ repository's conftest imports JAX, so on such a machine run::
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -q
 """
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -1046,9 +1048,9 @@ def test_pinned_ring_never_hands_out_a_slot_in_flight(dev):
     """The upload stage's staging ring: a slot whose copy is still in
     flight (held back on its stream by a spinning kernel) is handed out
     again only after that copy completes; and batches uploaded through
-    ``device_batches`` while the consumer's stream is kept busy arrive
+    ``upload_batches`` while the consumer's stream is kept busy arrive
     intact and in order."""
-    from uemda_tpu_torch.train.loop import PinnedRing, device_batches
+    from uemda_tpu_torch.datasets.prefetch import PinnedRing, upload_batches
 
     ring = PinnedRing(2)
     stream = torch.cuda.Stream()
@@ -1068,10 +1070,146 @@ def test_pinned_ring_never_hands_out_a_slot_in_flight(dev):
     src = [{"x": np.full((64, 64), i, np.float32),
             "y": np.full((8,), -i, np.int32)} for i in range(12)]
     got = []
-    for b in device_batches(iter(src), dev):
+    for b in upload_batches(iter(src), dev):
         torch.cuda._sleep(20_000_000)  # the step the batch would feed
         got.append({k: v.clone() for k, v in b.items()})
     torch.cuda.synchronize()
     assert len(got) == 12
     for i, b in enumerate(got):
         assert bool((b["x"] == i).all()) and bool((b["y"] == -i).all())
+
+
+def _serving_modes(model):
+    """The bf16 serving modes the captured-predictor tests hold to eager
+    calls: the fast path, all four stages in K4, and the int8 fast path
+    with dynamic scales."""
+    from uemda_tpu_torch.infer.fastpath import build_fastpath
+
+    return {"fast path": build_fastpath(model, dtype=torch.bfloat16),
+            "fused (1, 2, 3, 4)": build_fastpath(
+                model, dtype=torch.bfloat16, fused_stages=(1, 2, 3, 4)),
+            "int8 dynamic": build_fastpath(model, dtype=torch.bfloat16,
+                                           int8=True)}
+
+
+@pytest.mark.parametrize("mode", ["fast path", "fused (1, 2, 3, 4)",
+                                  "int8 dynamic"])
+def test_captured_predictor_equals_eager_calls(dev, mode):
+    """ResNet-50 OS16 in bf16, a 96x96 image in 64^2 windows with 8-view
+    TTA at batch 2 (4 windows x 8 views x 2 = 64 tiles a forward): the
+    captured predictor's f32 probabilities equal eager calls' within 2e-4
+    (the same kernels on the same inputs): the first call (the warm-up on
+    the capture stream, then the capture) and two replays, the second with
+    another input than the first (the static input is re-read); the replay
+    holds K1, K2 and K3 (and 12 K4 launches when fused), and the first
+    call's capture is the only one. The wrappers' counts are the device's
+    launches: over the three calls, three times a replay's launches (the
+    warm-up's and two replays'; the capture adds none)."""
+    from uemda_tpu_torch.infer.graph import kernel_wrappers
+    from uemda_tpu_torch.infer.slide import make_predictor
+
+    model = DeeplabV2(DeeplabV2Config.uemda_default(6),
+                      generator=torch.Generator().manual_seed(0))
+    fm = _serving_modes(model)[mode]
+    kw = dict(tile=(64, 64), image_hw=(96, 96), tta=True,
+              compute_dtype=torch.bfloat16)
+    eager = make_predictor(fm, capture=False, **kw)
+    graph = make_predictor(fm, **kw)
+    wrappers = kernel_wrappers()
+    counted = collections.Counter()
+    outs = []
+    for seed in (1, 2, 1):
+        x = _randn((2, 3, 96, 96), seed, dev, torch.float32) \
+            .contiguous(memory_format=CL)
+        ref = eager(x)
+        before = {w.__name__: w.launches for w in wrappers}
+        got = graph(x)
+        counted.update({w.__name__: w.launches - before[w.__name__]
+                        for w in wrappers})
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape == (2, 6, 96, 96)
+        assert float((got - ref).abs().max()) <= 2e-4, seed
+        outs.append(got.clone())
+    assert float((outs[1] - outs[2]).abs().max()) > 1e-3
+    st = graph.close()
+    assert st["replays"] == 2 and eager.stats() is None
+    for name in ("instance_norm", "stem_pool", "tail_upsample_softmax_mean"):
+        assert st["launches"][name] >= 1, st
+    assert st["launches"]["bottleneck_identity"] == (
+        12 if mode.startswith("fused") else 0)
+    assert all(counted[name] == 3 * n for name, n in st["launches"].items()), (
+        counted, st)
+
+
+def test_predictor_close_returns_the_pool(dev):
+    """The graph's private pool is released by ``close()``: the device
+    memory reserved falls by at least 90% of the pool the capture
+    reserved."""
+    from uemda_tpu_torch.infer.fastpath import build_fastpath
+    from uemda_tpu_torch.infer.slide import make_predictor
+
+    model = DeeplabV2(DeeplabV2Config.uemda_default(6),
+                      generator=torch.Generator().manual_seed(0))
+    graph = make_predictor(build_fastpath(model, dtype=torch.bfloat16),
+                           (64, 64), (64, 64), compute_dtype=torch.bfloat16)
+    x = _randn((4, 3, 64, 64), 3, dev, torch.float32)
+    graph(x)
+    torch.cuda.synchronize()
+    pool = graph.stats()["pool_bytes"]
+    live = torch.cuda.memory_reserved()
+    assert pool > 0
+    graph.close()
+    assert graph.graph is None
+    assert live - torch.cuda.memory_reserved() >= 0.9 * pool
+
+
+def test_evaluation_and_sweep_through_the_graph_equal_eager_calls(dev):
+    """``evaluate_dataset`` and the pseudo-label sweep of three 96^2 images
+    at batch 2 (a padded last batch), 64^2 windows, TTA, on a ResNet-18
+    fast path in bf16: through the captured predictor the confusion matrix
+    and the fp16 probabilities equal those of eager calls."""
+    from uemda_tpu_torch.datasets.meta import IsprsDA
+    from uemda_tpu_torch.datasets.synthetic import synthetic_split
+    from uemda_tpu_torch.infer.evaluate import evaluate_dataset
+    from uemda_tpu_torch.infer.fastpath import build_fastpath
+    from uemda_tpu_torch.infer.pseudo_gen import generate_pseudo_labels
+
+    model = DeeplabV2(DeeplabV2Config.uemda_default(6, resnet_type="resnet18"),
+                      generator=torch.Generator().manual_seed(0))
+    data = synthetic_split(IsprsDA, n=3, hw=96, seed=1)
+    kw = dict(tile=(64, 64), tta=True, batch_size=2,
+              compute_dtype=torch.bfloat16, device=dev)
+    fm = build_fastpath(model, dtype=torch.bfloat16)
+    runs = [evaluate_dataset(fm, data, MEAN, STD, capture=c, **kw)
+            for c in (True, False)]
+    assert runs[0][0]["confusion_matrix"] == runs[1][0]["confusion_matrix"]
+    assert runs[0][1] == runs[1][1]
+    sweeps = [generate_pseudo_labels(model, data, MEAN, STD, capture=c, **kw)
+              for c in (True, False)]
+    assert list(sweeps[0]) == list(sweeps[1]) == [
+        data.filename(i) for i in range(3)]
+    for name in sweeps[0]:
+        np.testing.assert_array_equal(sweeps[0][name], sweeps[1][name])
+
+
+def test_capture_failure_raises_and_never_falls_back(dev):
+    """A predictor whose model reads a value back to the host cannot be
+    captured: the call raises, no graph is kept, and the next call raises
+    again instead of running eagerly."""
+    from uemda_tpu_torch.infer.slide import make_predictor
+
+    calls = []
+
+    def model(x):  # a host read inside the forward
+        calls.append(float(x.abs().max()))
+        return torch.softmax(x[:, :1].repeat(1, 6, 1, 1).float(), dim=1)
+
+    graph = make_predictor(model, (32, 32), (32, 32),
+                           compute_dtype=torch.float32)
+    x = _randn((2, 3, 32, 32), 4, dev, torch.float32)
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            graph(x)
+        assert graph.graph is None
+    torch.cuda.synchronize()
+    assert len(calls) == 2  # each call's warm-up; its capture fails at the read

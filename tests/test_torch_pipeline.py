@@ -80,9 +80,10 @@ def test_stage3_refuses_what_is_not_ported(tmp_path, monkeypatch):
     """The stage-3 CLI refuses resume, accumulation, OHEM, the unported
     target losses and the multi-process flag before it touches a file
     (``--steps-per-call``, ``--host-crop`` and ``--profile-dir`` run:
-    test_torch_loop.py); the pipeline refuses --method proca, --gate,
-    --pretrained, --resume and --num-devices; the step refuses the
-    unported target losses."""
+    test_torch_loop.py); the pipeline refuses --method proca,
+    --pretrained, --resume and --num-devices (--gate runs:
+    test_torch_serving.py); the step refuses the unported target
+    losses."""
     from uemda_tpu_torch.tools import run_pipeline, train_ssl_uem
 
     monkeypatch.chdir(tmp_path)
@@ -93,7 +94,7 @@ def test_stage3_refuses_what_is_not_ported(tmp_path, monkeypatch):
                   ["--lt", "ghm"], ["--num-devices", "2"]):
         with pytest.raises(NotImplementedError):
             train_ssl_uem.main(common + flags)
-    for flags in (["--method", "proca"], ["--gate", "1"],
+    for flags in (["--method", "proca"],
                   ["--pretrained", "x.pth"], ["--resume", "auto"],
                   ["--num-devices", "2"]):
         with pytest.raises(NotImplementedError):

@@ -119,6 +119,14 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(monkeypatch):
             cli.main(["--config-path", "2urban"] + ckpt)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         generate_pseudo_labels(None, None, (0, 0, 0), (1, 1, 1))
+    from uemda_tpu_torch.tools import infer_dir, infer_single, serving_gate
+
+    for cli, args in ((infer_single, ["--image-path", "x.png"]),
+                      (infer_dir, ["--img-dir", ".", "--out-dir", "o"]),
+                      (serving_gate, [])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(["--config-path", "2vaihingen", "--ckpt-path", "m.pth"]
+                     + args)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_aligner(7)
     assert resolve_device("cpu") == torch.device("cpu")

@@ -271,8 +271,9 @@ def test_eval_cli_int8_on_cpu(tmp_path, capsys):
         "_v = SplitConfig(({img!r},), ({ann!r},), (120.0, 82.0, 81.0), "
         "(55.0, 39.0, 38.0), batch_size=2)\n"
         "CONFIG = dataclasses.replace(PRESETS['2vaihingen'], model='resnet18', "
-        "val=_v, test=_v, crop=(64, 64))\n".format(
-            img=str(root / "img_dir" / "val"), ann=str(root / "ann_dir" / "val")))
+        "val=_v, test=_v, crop=(64, 64), snapshot_dir={log!r})\n".format(
+            img=str(root / "img_dir" / "val"), ann=str(root / "ann_dir" / "val"),
+            log=str(tmp_path / "log")))
     model = eval_cli.build_model(eval_cli.load_config(str(cfg_file)), "cpu")
     ckpt = save_npz(str(tmp_path / "w.npz"), model.state_dict())
     base = ["--config-path", str(cfg_file), "--ckpt-path", ckpt, "--device", "cpu"]

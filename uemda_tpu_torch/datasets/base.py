@@ -182,8 +182,26 @@ def infinite_batches(dataset, batch_size: int, seed: int = 0,
                 yield _host_crop_batch(dataset, idx, u, host_crop)
 
 
-def sequential_batches(dataset, batch_size: int = 1):
-    """Eval-order iterator of ``(indices, batch)``."""
-    for i in range(0, len(dataset), batch_size):
-        idx = list(range(i, min(i + batch_size, len(dataset))))
-        yield idx, dataset.batch(idx)
+def sequential_batches(dataset, batch_size: int = 1,
+                       decode_workers: int = 1):
+    """Eval-order iterator of ``(indices, batch)`` (``uemda_tpu/datasets/
+    base.py:180-204``). ``decode_workers > 1`` decodes the items of each
+    batch on a thread pool: PNG/TIFF decompression releases the GIL, so on
+    a multi-core serving host the decode stops serializing the pipeline."""
+    ex = None
+    if decode_workers > 1:
+        from concurrent.futures import ThreadPoolExecutor
+
+        ex = ThreadPoolExecutor(decode_workers)
+    try:
+        for i in range(0, len(dataset), batch_size):
+            idx = list(range(i, min(i + batch_size, len(dataset))))
+            if ex is None:
+                yield idx, dataset.batch(idx)
+            else:
+                items = list(ex.map(lambda j: dataset.item(int(j)), idx))
+                yield idx, {k: np.stack([it[k] for it in items])
+                            for k in items[0]}
+    finally:
+        if ex is not None:
+            ex.shutdown(wait=False)

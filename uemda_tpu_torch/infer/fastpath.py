@@ -521,8 +521,14 @@ def _map_int8_entries(tree, fn):
 @torch.no_grad()
 def _amax_visit(meta, params, x) -> np.ndarray:
     """One calibration forward: every dynamic int8 site's amax, in
-    forward-visit order (their weight shapes go to ``_LAST_VISIT_SIGS``)."""
+    forward-visit order (their weight shapes go to ``_LAST_VISIT_SIGS``).
+    It reads the amaxes back to the host, so it runs eagerly: never under
+    a CUDA graph capture."""
     global _AMAX_COLLECTOR, _SIG_COLLECTOR, _LAST_VISIT_SIGS
+    if x.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("int8 calibration reads activation maxima back "
+                           "to the host and cannot run under a CUDA graph "
+                           "capture; calibrate before making a predictor")
     _AMAX_COLLECTOR, _SIG_COLLECTOR = [], []
     try:
         serving_forward(meta, params, x)

@@ -15,7 +15,7 @@ unusable (an odd tile side), the port raises: a sweep never runs another
 path than the one asked for. ``color_dir`` writes the mined hard labels
 (K8's strict-threshold selection, ``ops/mine.py``) as palette PNGs, as the
 reference's ``_color`` directory. The multi-host sweep waits for the port's
-data parallelism (ROADMAP.md queue A item 9).
+data parallelism (ROADMAP.md queue A8).
 """
 
 import copy
@@ -25,11 +25,10 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from uemda_tpu_torch.datasets.augment import normalize
-from uemda_tpu_torch.datasets.base import sequential_batches
 from uemda_tpu_torch.datasets.io import save_prob
+from uemda_tpu_torch.datasets.prefetch import HostReadback
+from uemda_tpu_torch.infer.evaluate import predict_batches
 from uemda_tpu_torch.infer.fastpath import build_fastpath
-from uemda_tpu_torch.infer.slide import make_predictor
 from uemda_tpu_torch.ops.mine import uvem_mine
 from uemda_tpu_torch.utils.runtime import resolve_device
 
@@ -52,13 +51,19 @@ def generate_pseudo_labels(
     device=None,
     logger=None,
     fastpath: bool = False,
+    capture: bool = True,
 ) -> Dict[str, np.ndarray]:
     """``model``: the trained ``DeeplabV2`` on ``device`` (left as it is:
     the sweep runs an eval-mode copy in ``compute_dtype``, or its folded
     fast path). ``dataset``: anything with ``meta``, ``__len__``,
     ``filename(i)`` and ``batch(indices)`` giving uint8 (B, H, W, 3) images.
     Returns {filename: (H, W, C) fp16} when ``keep_in_memory``, and writes
-    ``<out_dir>/<filename>.npy`` when ``out_dir`` is set."""
+    ``<out_dir>/<filename>.npy`` when ``out_dir`` is set. Batches come
+    through ``predict_batches`` (padded to ``batch_size``); on the card the
+    predictor, the fp16 cast and the mining are one captured CUDA graph
+    (``capture=False``: eager calls), released when the sweep ends, and
+    the results come back through reused pinned buffers one batch late
+    (``HostReadback``), so the next replay is never held back."""
     device = resolve_device(device)
     if fastpath:
         if tile[0] % 2 or tile[1] % 2:
@@ -75,29 +80,40 @@ def generate_pseudo_labels(
         from uemda_tpu_torch.utils.viz import VisualizeSegmm
 
         viz = VisualizeSegmm(color_dir, dataset.meta.palette)
-    predictor, hw = None, None
-    result: Dict[str, np.ndarray] = {}
-    for indices, batch in sequential_batches(dataset, batch_size):
-        images = torch.from_numpy(np.ascontiguousarray(batch["image"])) \
-            .to(device).permute(0, 3, 1, 2)
-        if predictor is None or tuple(images.shape[2:]) != hw:
-            hw = tuple(images.shape[2:])
-            predictor = make_predictor(net, tile, hw, tta=tta,
-                                       compute_dtype=compute_dtype)
-        probs = predictor(normalize(images, mean, std))      # (n, C, H, W)
-        host = probs.permute(0, 2, 3, 1).to(torch.float16).cpu().numpy()
-        hard = None
-        if viz is not None:
-            hard = uvem_mine(probs, cutoff_top, cutoff_low,
-                             ignore_label=dataset.meta.ignore_label)[0].cpu()
+    mine = viz is not None
+    ignore = dataset.meta.ignore_label
+
+    def epilogue(probs):
+        # inside the capture: the fp16 HWC probabilities (half the bytes
+        # cross to the host) and, for color_dir, K8's hard labels
+        p16 = probs.to(torch.float16).permute(0, 2, 3, 1).contiguous()
+        hard = (uvem_mine(probs, cutoff_top, cutoff_low,
+                          ignore_label=ignore)[0] if mine else None)
+        return p16, hard
+
+    def take(item):
+        if item is None:
+            return
+        indices, arrays = item
         for j, idx in enumerate(indices):
             fname = dataset.filename(idx)
-            if keep_in_memory:
-                result[fname] = host[j]
+            if keep_in_memory:  # the pinned buffer is reused: a copy
+                result[fname] = arrays["prob"][j].copy()
             if out_dir:
-                save_prob(os.path.join(out_dir, fname), host[j])
-            if viz is not None:
-                viz(hard[j].numpy(), fname.replace(".tif", ".png"))
+                save_prob(os.path.join(out_dir, fname), arrays["prob"][j])
+            if mine:
+                viz(arrays["hard"][j], fname.replace(".tif", ".png"))
+
+    result: Dict[str, np.ndarray] = {}
+    readback = HostReadback()
+    for indices, n, _, (p16, hard) in predict_batches(
+            net, dataset, mean, std, tile, tta, batch_size, compute_dtype,
+            device, capture=capture, epilogue=epilogue):
+        host = {"prob": p16[:n]}
+        if mine:
+            host["hard"] = hard[:n]
+        take(readback.push(indices, host))
+    take(readback.flush())
     if logger is not None:
         logger.info(f"pseudo labels generated for {len(dataset)} images"
                     + (f" -> {out_dir}" if out_dir else " (in memory)"))

@@ -82,3 +82,17 @@ class Int8Model:
 def int8_apply(model: nn.Module, x: torch.Tensor, *args, **kwargs):
     """Functional form of :class:`Int8Model`."""
     return Int8Model(model)(x, *args, **kwargs)
+
+
+def serving_model(model, fastpath: bool, int8: bool, dtype: torch.dtype,
+                  **fastpath_kw):
+    """The serving callable the CLIs' ``--fastpath`` and ``--int8`` pick:
+    the folded fast path (``build_fastpath``, with ``fastpath_kw``), int8
+    on its GEMMs with ``int8``; else ``model`` in ``dtype``, every conv int8
+    (:class:`Int8Model`) with ``int8``."""
+    if fastpath:
+        from uemda_tpu_torch.infer.fastpath import build_fastpath
+
+        return build_fastpath(model, dtype=dtype, int8=int8, **fastpath_kw)
+    model = model.to(dtype)
+    return Int8Model(model) if int8 else model

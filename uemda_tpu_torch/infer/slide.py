@@ -4,13 +4,17 @@ Port of ``uemda_tpu/infer/slide.py`` (reference ``uemda/utils/tools.py:
 61-97`` ``pre_slide`` and ``:132-152`` ``tta_predict``): all windows of a
 batch of images and all 8 dihedral TTA views go through ONE batched forward;
 the views are inverse-transformed and averaged and the windows stitched with
-count-normalized overlap accumulation. Layout: NCHW.
+count-normalized overlap accumulation. Layout: NCHW. On the card the whole
+predictor is one captured CUDA graph, replayed a batch (``infer/graph.py``),
+as the JAX package jits it into one XLA program.
 """
 
 import math
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
+
+from uemda_tpu_torch.infer.graph import Predictor
 
 
 def window_grid(hw: Tuple[int, int], tile: Tuple[int, int], overlap: float = 0.5):
@@ -63,16 +67,25 @@ def make_predictor(
     tta: bool = False,
     overlap: float = 0.5,
     compute_dtype: torch.dtype = torch.bfloat16,
-) -> Callable:
-    """Returns fn(images_norm (B, 3, H, W)) -> probs (B, C, H, W) f32.
-    ``model`` maps (N, 3, th, tw) in ``compute_dtype`` to (N, C, th, tw)
-    probabilities; its weights are the caller's, already in the dtype it
-    wants (the fast path's biases stay f32 on purpose)."""
+    capture: bool = True,
+    epilogue: Optional[Callable] = None,
+) -> Predictor:
+    """Returns a :class:`Predictor`: images_norm (B, 3, H, W) -> probs (B,
+    C, H, W) f32, the whole slide(+TTA) pipeline (window slicing, views,
+    one forward, inverse views, count-normalised stitching), on the card one
+    captured CUDA graph (``capture=False``: eager calls). As in the JAX
+    package, the batch is the caller's fixed (padded) batch; the caller
+    slices the valid rows. ``model`` maps (N, 3, th, tw) in
+    ``compute_dtype`` to (N, C, th, tw) probabilities; its weights are the
+    caller's, already in the dtype it wants (the fast path's biases stay
+    f32 on purpose). ``epilogue``, a function of the stitched
+    probabilities, runs inside the same capture, and the call returns its
+    result instead (the sweep's fp16 cast and mining)."""
     coords = window_grid(image_hw, tile, overlap)
     th, tw = tile
 
     @torch.no_grad()
-    def predict(images: torch.Tensor) -> torch.Tensor:
+    def predict(images: torch.Tensor):
         b = images.shape[0]
         x = images.to(compute_dtype)
         tiles = torch.cat([x[:, :, y1:y1 + th, x1:x1 + tw] for y1, x1 in coords])
@@ -93,6 +106,7 @@ def make_predictor(
         for i, (y1, x1) in enumerate(coords):
             full[:, :, y1:y1 + th, x1:x1 + tw] += probs[i * b:(i + 1) * b]
             count[:, :, y1:y1 + th, x1:x1 + tw] += 1.0
-        return full / count
+        out = full / count
+        return out if epilogue is None else epilogue(out)
 
-    return predict
+    return Predictor(predict, capture)

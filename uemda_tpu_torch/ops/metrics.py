@@ -17,15 +17,20 @@ def confusion_matrix(y_true: torch.Tensor, y_pred: torch.Tensor,
                      num_classes: int,
                      valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dense (C, C) int64 matrix; rows = true class, cols = predicted.
-    Pixels with y_true < 0 or a False ``valid_mask`` are dropped."""
+    Pixels with y_true < 0 or a False ``valid_mask`` are dropped (counted
+    in a spill bin past the matrix). The counts go into a fixed ``C*C + 1``
+    buffer with ``index_add_``: no host synchronisation, where
+    ``torch.bincount`` on the card reads the input's maximum back to size
+    its output."""
     t = y_true.reshape(-1).long()
     p = y_pred.reshape(-1).long()
     valid = t >= 0
     if valid_mask is not None:
         valid = valid & valid_mask.reshape(-1)
-    idx = torch.where(valid, t * num_classes + p,
-                      torch.full_like(t, num_classes * num_classes))
-    counts = torch.bincount(idx, minlength=num_classes * num_classes + 1)
+    n = num_classes * num_classes
+    idx = torch.where(valid, t * num_classes + p, torch.full_like(t, n))
+    counts = torch.zeros(n + 1, dtype=torch.int64, device=idx.device)
+    counts.index_add_(0, idx, idx.new_ones(()).expand_as(idx))
     return counts[:-1].reshape(num_classes, num_classes)
 
 

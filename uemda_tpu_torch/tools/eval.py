@@ -12,12 +12,18 @@ serving: ``--fastpath 1 --int8 1`` quantizes the fast path's heads and the
 3x3s of ``--int8-stages`` (default 3,4), with static activation scales
 calibrated on ``--calib-batches`` eval batches when that is above 0;
 ``--int8 1`` alone runs the standard forward with every conv in int8
-(``infer/quant.py``). Prints one JSON line with the mean metrics.
+(``infer/quant.py``). ``--vis 1`` (the default, as JAX's) writes palette
+PNGs of the predictions to ``<snapshot_dir>/vis-<checkpoint name>``;
+``--decode-workers`` decodes each batch's images on a thread pool. Logs to
+the console and to the run directory (``snapshot_dir``); prints one JSON
+line with the mean metrics. On the card the predictor is one captured CUDA
+graph, fed by the double-buffered ``device_batches``.
+``--num-devices`` waits for the port's data parallelism (ROADMAP.md A8).
 """
 
 import argparse
 import json
-import logging
+import os
 
 import torch
 
@@ -26,10 +32,11 @@ from uemda_tpu_torch.datasets.base import SegDataset
 from uemda_tpu_torch.infer.evaluate import evaluate_dataset
 from uemda_tpu_torch.models.port import load_checkpoint
 from uemda_tpu_torch.train.loop import build_model
-
-
-def str2bool(v) -> bool:
-    return str(v).lower() in ("1", "true", "yes", "y")
+from uemda_tpu_torch.utils.log import (
+    get_console_file_logger,
+    logging_args,
+    str2bool,
+)
 
 
 def main(argv=None):
@@ -54,6 +61,12 @@ def main(argv=None):
                         help="with --fastpath --int8: comma list of backbone "
                         "stages whose 3x3s are quantized (default 3,4)")
     parser.add_argument("--batch-size", type=int, default=None)
+    parser.add_argument("--vis", type=str2bool, default=1,
+                        help="write palette PNGs of the predictions to "
+                        "<snapshot_dir>/vis-<checkpoint name>")
+    parser.add_argument("--decode-workers", type=int, default=1,
+                        help="host-side image-decode thread pool (>1 pays "
+                        "off on multi-core hosts)")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 
@@ -62,9 +75,10 @@ def main(argv=None):
     int8_stages = parse_int8_stages_flag(args.int8_stages, bool(args.int8),
                                          bool(args.fastpath))
 
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
-    logger = logging.getLogger("uemda_tpu_torch.eval")
     cfg = load_config(args.config_path)
+    run_dir = cfg.snapshot_dir
+    logger = get_console_file_logger("eval", run_dir)
+    logging_args(args, logger)
     model = build_model(cfg, args.device)
     model.load_state_dict(load_checkpoint(args.ckpt_path))
     dtype = (torch.bfloat16 if torch.device(args.device).type == "cuda"
@@ -73,6 +87,8 @@ def main(argv=None):
     split = cfg.test if args.test else cfg.val
     dataset = SegDataset(cfg.meta, list(split.image_dir), list(split.mask_dir)[0])
     batch_size = args.batch_size or split.batch_size
+    vis_dir = (os.path.join(run_dir, f"vis-{os.path.basename(args.ckpt_path)}")
+               if args.vis else None)
     if args.fastpath:
         from uemda_tpu_torch.infer.fastpath import build_fastpath, check_fastpath_tile
 
@@ -96,7 +112,8 @@ def main(argv=None):
     summary, miou = evaluate_dataset(
         model, dataset, split.mean, split.std, tile=cfg.crop,
         tta=bool(args.tta), batch_size=batch_size,
-        compute_dtype=dtype, device=args.device, logger=logger)
+        compute_dtype=dtype, device=args.device, logger=logger,
+        vis_dir=vis_dir, decode_workers=args.decode_workers)
     print(json.dumps({"miou": miou, **{k: summary[k] for k in
                                        ("mf1", "mprecision", "mrecall")}}))
     return summary

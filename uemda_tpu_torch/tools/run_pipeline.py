@@ -15,12 +15,14 @@ directory::
 
 ``--steps`` picks a subset, ``--stage-steps`` overrides every training
 stage's steps (smoke runs), ``--dry-run`` prints the commands, and
-``--device`` goes to every step (``cpu`` runs the plain versions). After the
-chain, a stage whose best mIoU (``best.json``) falls below the stage it
-started from is reported. Not ported yet, and refused: ``--method proca``
-(needs ``train_align``, ROADMAP.md queue A item 8), ``--gate`` (needs
-``serving_gate``, item 2), ``--pretrained``, ``--resume``,
-``--num-devices``.
+``--device`` goes to every step (``cpu`` runs the plain versions).
+``--gate 1`` runs the serving-mode quality gate (``serving_gate``) after
+the chain on every stage-best checkpoint that exists, with
+``--gate-tolerance`` and ``--gate-class-tolerance``; a breach fails the
+run. After the chain, a stage whose best mIoU (``best.json``) falls below
+the stage it started from is reported. Not ported yet, and refused:
+``--method proca`` (needs ``train_align``, ROADMAP.md queue A6),
+``--pretrained``, ``--resume``, ``--num-devices``.
 """
 
 import argparse
@@ -29,7 +31,7 @@ import os
 import subprocess
 import sys
 
-from uemda_tpu_torch.tools.eval import str2bool
+from uemda_tpu_torch.utils.log import str2bool
 
 
 # the checkout's root, so the steps import this package wherever they start
@@ -58,7 +60,12 @@ def main(argv=None):
     parser.add_argument("--gen-fastpath", type=str2bool, default=0,
                         help="step 5: run the pseudo-label sweep on the "
                              "folded serving fast path")
-    parser.add_argument("--gate", type=str2bool, default=0)
+    parser.add_argument("--gate", type=str2bool, default=0,
+                        help="after the final stage, run the serving-mode "
+                             "quality gate on every stage-best checkpoint; "
+                             "a mode past tolerance fails the run")
+    parser.add_argument("--gate-tolerance", type=float, default=0.005)
+    parser.add_argument("--gate-class-tolerance", type=float, default=0.02)
     parser.add_argument("--pretrained", type=str, default=None)
     parser.add_argument("--resume", type=str, default="")
     parser.add_argument("--num-devices", type=int, default=None)
@@ -68,7 +75,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     refused = {"--method proca": args.method == "proca",
-               "--gate 1": bool(args.gate),
                "--pretrained": args.pretrained is not None,
                "--resume": bool(args.resume),
                "--num-devices": args.num_devices is not None}
@@ -115,6 +121,20 @@ def main(argv=None):
         run(tool("train_ssl_uem") + cfg_arg + flags
             + ["--ckpt-model", f"{log}/align/{tset}_best.pth",
                "--ckpt-proto", f"{log}/align/prototypes_init.pth"] + ov + dev,
+            args.dry_run)
+    if args.gate:
+        # every stage-best checkpoint that exists: the int8 error depends on
+        # the feature distribution, one checkpoint is not evidence
+        candidates = [f"{log}/{stage}/{tset}_best.pth"
+                      for stage in ("src", "align", "ssl")]
+        ckpts = (candidates if args.dry_run
+                 else [p for p in candidates if os.path.exists(p)])
+        if not ckpts:
+            raise SystemExit(f"--gate: no stage-best checkpoints under {log}")
+        run(tool("serving_gate") + cfg_arg
+            + ["--ckpt-path", ",".join(ckpts),
+               "--tolerance", str(args.gate_tolerance),
+               "--class-tolerance", str(args.gate_class_tolerance)] + dev,
             args.dry_run)
     if not args.dry_run:
         _warn_on_stage_regression(log)

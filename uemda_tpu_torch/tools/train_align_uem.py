@@ -27,7 +27,7 @@ import os
 
 from uemda_tpu_torch.config import load_config
 from uemda_tpu_torch.models.port import load_checkpoint, load_prototypes
-from uemda_tpu_torch.tools.eval import str2bool
+from uemda_tpu_torch.utils.log import str2bool
 from uemda_tpu_torch.train.loop import (
     add_loop_flags,
     build_model,

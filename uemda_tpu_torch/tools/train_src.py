@@ -27,7 +27,7 @@ import os
 import torch
 
 from uemda_tpu_torch.config import load_config
-from uemda_tpu_torch.tools.eval import str2bool
+from uemda_tpu_torch.utils.log import str2bool
 from uemda_tpu_torch.train.loop import (
     add_loop_flags,
     build_model,

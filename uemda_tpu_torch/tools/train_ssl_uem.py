@@ -35,7 +35,7 @@ from uemda_tpu_torch.config import load_config
 from uemda_tpu_torch.datasets.base import SegDataset
 from uemda_tpu_torch.infer.pseudo_gen import generate_pseudo_labels
 from uemda_tpu_torch.models.port import load_checkpoint, load_prototypes
-from uemda_tpu_torch.tools.eval import str2bool
+from uemda_tpu_torch.utils.log import str2bool
 from uemda_tpu_torch.train.loop import (
     add_loop_flags,
     build_model,

@@ -25,12 +25,15 @@ back to eager steps.
 
 import collections
 import dataclasses
-import gc
-import time
 from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 
+from uemda_tpu_torch.infer.graph import (
+    capture,
+    count_replay,
+    kernel_wrappers,
+)
 from uemda_tpu_torch.train.state import TrainState
 
 # replays the host may run ahead of the device: each holds a batch upload's
@@ -72,26 +75,6 @@ def _load(dst, src, what: str) -> None:
                   f"{what}.{f.name}")
 
 
-def kernel_wrappers():
-    """The port's kernel wrappers a train step can launch (each counts its
-    launches)."""
-    from uemda_tpu_torch.ops.crop import crop_normalize
-    from uemda_tpu_torch.ops.insnorm import (
-        instance_norm,
-        instance_norm_backward,
-    )
-    from uemda_tpu_torch.ops.mine import uvem_mine
-    from uemda_tpu_torch.ops.segment import (
-        segment_gather,
-        segment_max,
-        segment_sum,
-    )
-    from uemda_tpu_torch.ops.tail import tail_upsample_softmax_mean
-
-    return (crop_normalize, instance_norm, instance_norm_backward, segment_max,
-            segment_sum, segment_gather, tail_upsample_softmax_mean, uvem_mine)
-
-
 class StepGraph:
     """One train step of ``step`` (a ``_Step`` with ``prepare`` and ``run``)
     captured on ``stream`` from the shapes of ``batch_s``, ``batch_t`` and
@@ -101,34 +84,22 @@ class StepGraph:
     its synchronisations included), ``pool_bytes`` (device memory the
     capture reserved: the graph's private pool), ``launches`` ({kernel
     wrapper: launches a replay}, from the wrappers' counts during capture)
-    and ``replays``."""
+    and ``replays``. Each replay adds its launches to the wrappers'
+    counts."""
 
     def __init__(self, step, state: TrainState, batch_s, batch_t, draws,
                  stream: torch.cuda.Stream, wrappers=()):
         self.step = step
+        self.wrappers = wrappers
         self.static_s = _clone(batch_s)
         self.static_t = _clone(batch_t)
         self.static_draws = _clone(draws)
-        self.graph = torch.cuda.CUDAGraph()
-        before = [fn.launches for fn in wrappers]
-        t0 = time.perf_counter()
-        # what torch.cuda.graph does first, done here so that the memory
-        # reserved during the capture is the graph's pool alone
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved()
-        # thread_local: the upload stage's worker thread keeps copying on
-        # its own stream while this thread captures
-        with torch.cuda.graph(self.graph, stream=stream,
-                              capture_error_mode="thread_local"):
-            self.metrics = step.run(state, self.static_s, self.static_t,
-                                    self.static_draws)
-        torch.cuda.synchronize()
-        self.capture_s = time.perf_counter() - t0
-        self.pool_bytes = torch.cuda.memory_reserved() - reserved
-        self.launches = {fn.__name__: fn.launches - b
-                         for fn, b in zip(wrappers, before)}
+        self.graph, self.metrics, stats = capture(
+            lambda: step.run(state, self.static_s, self.static_t,
+                             self.static_draws), stream, wrappers)
+        self.capture_s = stats["capture_s"]
+        self.pool_bytes = stats["pool_bytes"]
+        self.launches = stats["launches"]
         # the gradients the graph writes: an eager step in between points
         # .grad elsewhere, a replay points it back
         self.grads = [p.grad for p in state.opt.params]
@@ -145,6 +116,7 @@ class StepGraph:
         _load(self.static_draws, draws, "draws")
         state.opt.set_lr()
         self.graph.replay()
+        count_replay(self.wrappers, self.launches)
         for p, g in zip(state.opt.params, self.grads):
             p.grad = g
         state.advance()

@@ -14,7 +14,7 @@ the reference's key names, the prototypes beside it and ``best.json``
 pipeline's regression check reads.
 
 The host path, as the JAX package's: a decode stage (``datasets/
-prefetch.py``) and an upload stage (:func:`device_batches`: a worker
+prefetch.py``) and an upload stage (``upload_batches`` there: a worker
 thread with its own CUDA stream and a ring of reused pinned buffers) feed
 the loop, ``--host-crop`` crops each sample on the host before its upload,
 and ``steps_per_call`` K runs chunks of K steps, on the card as replays of
@@ -30,7 +30,7 @@ import json
 import logging
 import os
 import time
-from typing import Callable, Dict, Iterator, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -39,7 +39,7 @@ from uemda_tpu_torch.alignment.balance import init_class_balance
 from uemda_tpu_torch.alignment.prototypes import init_aligner
 from uemda_tpu_torch.config import PairConfig
 from uemda_tpu_torch.datasets.base import SegDataset, infinite_batches
-from uemda_tpu_torch.datasets.prefetch import prefetch
+from uemda_tpu_torch.datasets.prefetch import prefetch, upload_batches
 from uemda_tpu_torch.infer.evaluate import evaluate_dataset
 from uemda_tpu_torch.models.config import DeeplabV2Config, PPMConfig
 from uemda_tpu_torch.models.deeplabv2 import DeeplabV2
@@ -130,7 +130,7 @@ def max_segments_for(cfg: PairConfig) -> int:
 
 def add_loop_flags(parser) -> None:
     """The trainers' shared loop flags (``loop.py:278-293``)."""
-    from uemda_tpu_torch.tools.eval import str2bool
+    from uemda_tpu_torch.utils.log import str2bool
 
     parser.add_argument("--steps-per-call", type=int, default=1,
                         help="K steps per call: on the card, replays of a "
@@ -183,7 +183,7 @@ def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Ten
     """Raw host arrays -> tensors on ``device`` (uint8 images stay uint8:
     the crop kernel casts them on load), one batch on its own: to the card
     from freshly pinned memory without blocking. The loop uploads through
-    :func:`device_batches` instead."""
+    ``datasets.prefetch.upload_batches`` instead."""
     device = torch.device(device)
     out = {}
     for k, v in batch.items():
@@ -192,81 +192,6 @@ def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Ten
             t = t.pin_memory()
         out[k] = t.to(device, non_blocking=True)
     return out
-
-
-class PinnedRing:
-    """Pinned host staging buffers for the uploads, ``slots`` per (key,
-    shape, dtype), handed out in turn and reused: no page-locking per
-    batch. A slot is handed out again only once the copy that last read it
-    has completed (its event), so no pinned buffer is overwritten while a
-    copy of it is in flight."""
-
-    def __init__(self, slots: int = 3):
-        self.slots = slots
-        self._rings: Dict[tuple, list] = {}
-        self.waits = 0  # hand-outs that had to wait for a copy in flight
-
-    def acquire(self, key, shape, dtype: np.dtype):
-        """(pinned host tensor, its event) of the next slot for ``key``."""
-        ring = self._rings.setdefault((key, tuple(shape), np.dtype(dtype)),
-                                      [0, []])
-        turn, slots = ring
-        if len(slots) < self.slots:
-            host = torch.from_numpy(np.empty(shape, dtype)).pin_memory()
-            slots.append((host, torch.cuda.Event()))
-            ring[0] = len(slots) % self.slots
-            return slots[-1]
-        host, ev = slots[turn]
-        ring[0] = (turn + 1) % self.slots
-        if not ev.query():
-            self.waits += 1
-            ev.synchronize()
-        return host, ev
-
-
-def device_batches(iterator: Iterator[Dict[str, np.ndarray]], device,
-                   depth: int = 2) -> Iterator[Dict[str, torch.Tensor]]:
-    """The upload stage (the counterpart of ``_device_iter``, ``loop.py:
-    187-208``): host batches -> tensors on ``device``. To the card, a
-    worker thread copies each array into a slot of a :class:`PinnedRing`
-    and from there to the device on its own CUDA stream, without blocking;
-    the consumer's stream waits for the batch's copies (an event) and
-    records its use of the tensors, so the allocator never hands their
-    memory to the next upload while a step still reads them. On the CPU
-    the arrays are wrapped as they are."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        for batch in iterator:
-            yield {k: torch.from_numpy(np.ascontiguousarray(v))
-                   for k, v in batch.items()}
-        return
-    stream = torch.cuda.Stream(device)
-    ring = PinnedRing(depth + 1)
-
-    def upload(batch):
-        with torch.cuda.device(device), torch.cuda.stream(stream):
-            out = {}
-            for k, v in batch.items():
-                host, ev = ring.acquire(k, v.shape, v.dtype)
-                np.copyto(host.numpy(), v)
-                out[k] = torch.empty(v.shape, dtype=host.dtype,
-                                     device=device).copy_(host,
-                                                          non_blocking=True)
-                ev.record(stream)
-            done = torch.cuda.Event()
-            done.record(stream)
-        return out, done
-
-    staged = prefetch((upload(b) for b in iterator), depth)
-    try:
-        for out, done in staged:
-            cur = torch.cuda.current_stream(device)
-            cur.wait_event(done)
-            for t in out.values():
-                t.record_stream(cur)
-            yield out
-    finally:
-        staged.close()  # stops the worker: the caller may read on
 
 
 def make_eval_hook(cfg: PairConfig, run_dir: Optional[str], dataset=None,
@@ -337,7 +262,7 @@ def run_training_loop(state: TrainState, step_fn: Callable, source_iter,
                       steps_per_call: int = 1,
                       profile_dir: Optional[str] = None) -> Dict[str, object]:
     """Steps ``state.step`` up to ``stop_steps`` on host batches uploaded
-    to the model's device by :func:`device_batches`. ``on_step`` (step,
+    to the model's device by ``upload_batches``. ``on_step`` (step,
     metrics) sees every step's device metrics without a host
     synchronisation.
 
@@ -357,8 +282,8 @@ def run_training_loop(state: TrainState, step_fn: Callable, source_iter,
     dev = next(state.model.parameters()).device
     k_max = max(1, int(steps_per_call))
     runner = ChunkRunner(step_fn, seed, dev) if k_max > 1 else None
-    src = device_batches(source_iter, dev)
-    tgt = device_batches(target_iter, dev) if target_iter is not None else None
+    src = upload_batches(source_iter, dev)
+    tgt = upload_batches(target_iter, dev) if target_iter is not None else None
     start = state.step
     if profile_dir is not None and stop_steps - start < 2:
         logger.info("profiler needs >= 2 steps; skipping trace")
