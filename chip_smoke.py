@@ -27,7 +27,15 @@ weights from a seed):
 * ``init_prototypes`` again and stage 3 (``[ssl]``) on the model stage 2
   left: an f32 step against the CPU, then the pseudo-label sweep of the
   target tiles (slide + 8-view TTA, bf16) and 30 flagship UVEM steps, each
-  mining its soft label once with the K8 kernel.
+  mining its soft label once with the K8 kernel;
+* ``[resume]`` on stage 2's flagship setup: 20 steps uninterrupted against
+  10, a snapshot of the whole train state, ``maybe_resume`` into a fresh
+  state and 10 more (steps 11-20 through the graph in both runs), held at
+  1e-4 relative; the snapshot's cost and size; the run-dir lock;
+* ``[mix]`` the mix and combo self-training (``train_ssl_mix``): an f32
+  combo step (ClassMix, UVEM, refine 'all') against the CPU, then 30
+  flagship combo steps on the soft labels the ``[ssl]`` sweep left in RAM
+  and 30 legacy CutMix steps, each eagerly and through the graph.
 
 ``[serve-graph]`` takes every bf16 serving mode through the captured
 slide predictor (``infer/graph.py``) at batch 1, 8 and 32 on 512^2 tiles,
@@ -148,6 +156,7 @@ def profile_rows(prof, n):
 
 
 WRAPPERS = []  # every kernel wrapper with a launch count, filled by main()
+CARD = [""]    # nvidia-smi's name and power limit, filled by main()
 
 
 def profile_steps(what, step_fn, state, src_it, tgt_it, dev, ms_step, n=3,
@@ -208,14 +217,15 @@ def profile_steps(what, step_fn, state, src_it, tgt_it, dev, ms_step, n=3,
 K_GRAPH = 10  # steps_per_call of the graph reruns
 
 
-def stream(dataset, seed, host_crop=None):
+def stream(dataset, seed, host_crop=None, skip=0):
     """A training batch stream behind its decode thread, as the trainers'
-    ``make_source_iter`` and ``make_target_iter`` build it."""
+    ``make_source_iter`` and ``make_target_iter`` build it (``skip``: a
+    resumed run's, from batch ``skip`` on)."""
     from uemda_tpu_torch.datasets.base import infinite_batches
     from uemda_tpu_torch.datasets.prefetch import prefetch
 
     return prefetch(infinite_batches(dataset, BATCH, seed=seed,
-                                     host_crop=host_crop))
+                                     skip_batches=skip, host_crop=host_crop))
 
 
 def copy_start(state):
@@ -867,6 +877,7 @@ def align_phase(dev, ctx):
     phase("align", f"init_prototypes: {n_proto} batches of {batch} in "
           f"{t_proto:.2f} s; class counts {cnt.tolist()}")
     start = copy_start(state)  # for the rerun through the graph
+    resume_starts = (copy_start(state), copy_start(state))  # for [resume]
     step_fn = make_align_step(model, hp)
     t0 = time.time()
     best = run_training_loop(state, step_fn, src_it, tgt_it, steps, logger,
@@ -922,7 +933,131 @@ def align_phase(dev, ctx):
           f"({dev_g}, {idle_g})")
     del start
     torch.cuda.empty_cache()
+    saved = [fn.launches for fn in WRAPPERS]  # [resume] is not the path
+    resume_phase(dev, ctx, hp, *resume_starts)
+    for fn, n in zip(WRAPPERS, saved):
+        fn.launches = n
+    del resume_starts
+    torch.cuda.empty_cache()
     return counts, state
+
+
+def resume_phase(dev, ctx, hp, first, second):
+    """``[resume]`` on stage 2's flagship setup, from two copies of its
+    start state: 20 steps uninterrupted at ``steps_per_call`` 10 (step 1,
+    steps 2-10 alone, 11-20 in one call through the graph); 10 steps with
+    ``state_path`` set, which snapshot the state at step 10; then a fresh
+    state (other random weights), ``maybe_resume`` into it and steps 11-20
+    on streams skipped by 10, again in one call through the graph. Steps
+    11-20's losses are held to the uninterrupted run's at 1e-4 relative;
+    prints the largest difference, the masters' after step 20, the
+    snapshot's caller-thread ms, the worker's write seconds and the
+    file's MiB, and the caller's ms of a snapshot through a saver whose
+    buffers are pinned already; and shows that the loop refuses a run dir
+    another live trainer holds."""
+    import shutil
+
+    import torch
+
+    from uemda_tpu_torch.train.checkpoints import AsyncSaver, RunDirLock
+    from uemda_tpu_torch.train.loop import (
+        build_model,
+        build_state,
+        maybe_resume,
+        run_training_loop,
+    )
+    from uemda_tpu_torch.train.steps import make_align_step
+
+    cfg = ctx["cfg"]
+    run_dir = os.path.join(ROOT, "build", "smoke_resume")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    logger = logging.getLogger("chip_smoke.resume")
+    steps, cut = 20, 10
+
+    def run(state, stop, skip=0, state_path=None):
+        losses = {}
+        out = run_training_loop(
+            state, make_align_step(state.model, hp),
+            stream(ctx["src"], 10, skip=skip),
+            stream(ctx["tgt"], 11, skip=skip), stop, logger, log_every=10,
+            eval_every=steps, seed=2333,
+            on_step=lambda i, m: losses.__setitem__(i, m),
+            steps_per_call=K_GRAPH, state_path=state_path)
+        torch.cuda.synchronize()
+        return {i: float(m["loss"]) for i, m in losses.items()}, out
+
+    try:
+        l1, _ = run(first, steps)
+        path = os.path.join(run_dir, "state_curr.pth")
+        _, out = run(second, cut, state_path=path)
+        saver, mib = out["saver"], os.path.getsize(path) / 2**20
+        # the same snapshot three times through one new saver: the first
+        # allocates its pinned buffers (from PyTorch's cache of freed
+        # pinned blocks where it holds them), the others reuse them (a
+        # run's later evaluations); each write drained before the next
+        again = AsyncSaver()
+        fetch = []
+        for _ in range(3):
+            again.save(os.path.join(run_dir, "again.pth"), second.state_dict())
+            again.wait()
+            fetch.append(again.fetch_s * 1e3)
+        again.close()
+        del second
+        torch.cuda.empty_cache()
+        model = build_model(cfg, device=dev,
+                            generator=torch.Generator().manual_seed(1))
+        fresh = build_state(model, cfg, 30)
+        t0 = time.time()
+        fresh, start, path = maybe_resume(fresh, run_dir, "auto", logger)
+        t_load = time.time() - t0
+        if start != cut or fresh.opt.count != cut:
+            fail(f"[resume]: maybe_resume gave step {start}, count "
+                 f"{fresh.opt.count} (expected {cut})")
+        held = RunDirLock(run_dir).acquire()
+        try:
+            run_training_loop(fresh, None, None, None, steps, logger,
+                              state_path=path)
+            fail("[resume]: the loop ran on a run dir another trainer holds")
+        except RuntimeError as e:
+            if "locked by live pid" not in str(e):
+                raise
+            refused = str(e).split(":")[0]
+        finally:
+            held.release()
+        l3, out3 = run(fresh, steps, skip=start, state_path=path)
+        if sorted(l3) != list(range(cut + 1, steps + 1)):
+            fail(f"[resume]: the resumed run took steps {sorted(l3)}")
+        rel = {i: abs(l3[i] - l1[i]) / max(abs(l1[i]), 1e-30) for i in l3}
+        worst = max(rel, key=rel.get)
+        if not rel[worst] <= 1e-4:
+            fail(f"[resume]: step {worst} loss {l3[worst]} resumed vs "
+                 f"{l1[worst]} uninterrupted (rel {rel[worst]:.3g})")
+        masters = max(float((p - q).abs().max()) for p, q in
+                      zip(fresh.opt.params, first.opt.params))
+        bit = all(l3[i] == l1[i] for i in l3) and masters == 0.0
+        phase("resume", f"stage 2 flagship, {steps} steps uninterrupted vs "
+              f"{cut} + snapshot + maybe_resume into a fresh state + "
+              f"{steps - cut} (steps {cut + 1}-{steps} in one call through "
+              f"the graph, both runs): largest relative loss difference "
+              f"{rel[worst]:.3g} (step {worst}); masters' max abs difference "
+              f"after step {steps} {masters:.3g}; bit-equal {bit}")
+        phase("resume", f"snapshot of the state at step {cut}: "
+              f"{saver['nbytes'] / 2**20:.1f} MiB of tensors, file "
+              f"{mib:.1f} MiB; {saver['fetch_s'] * 1e3:.3f} ms on the "
+              f"caller's thread (the device-to-host copies enqueued), "
+              f"{saver['write_s']:.3f} s on the writer's thread (copies, "
+              f"serialization, write); the resumed run's final snapshot "
+              f"{out3['saver']['fetch_s'] * 1e3:.3f} ms / "
+              f"{out3['saver']['write_s']:.3f} s; one saver three times: "
+              f"{', '.join(f'{x:.3f}' for x in fetch)} ms on the caller's "
+              f"thread (the first allocates its pinned buffers), the last "
+              f"write "
+              f"{again.write_s:.3f} s; load into the fresh state "
+              f"{t_load:.3f} s; {CARD[0]}")
+        phase("resume", f"a second trainer on the run dir is refused: "
+              f"{refused}")
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
 
 
 def soft_labels(labels, nc, seed):
@@ -1353,6 +1488,206 @@ def ssl_phase(dev, ctx):
           f"--host-crop {ms_hc:.3f} ({dev_g}, {idle_g})")
     del start_hc
     torch.cuda.empty_cache()
+    return counts, dict(target=target, prototypes=proto0)
+
+
+def mix_phase(dev, ctx, sctx):
+    """``[mix]``: the mix and combo self-training step. (a) One f32 combo
+    step (ClassMix, UVEM, refine 'all', the target class balance) on the
+    card against the same step on the CPU's plain path. (b) At the
+    flagship, on the model the chain left, the prototypes stage 3 started
+    from and the soft labels its sweep left in RAM: 30 bf16 combo steps
+    through ``run_training_loop`` and an evaluation, every launch count
+    set to 0 just before and read just after (returned); then again from
+    a copy of the start state through the graph. (c) 30 legacy CutMix
+    steps eagerly and through the graph. Graph runs are held to eager
+    ones on steps 1-3 at 1e-4 relative."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from uemda_tpu_torch.datasets.augment import draw_augment
+    from uemda_tpu_torch.datasets.meta import LoveDA
+    from uemda_tpu_torch.datasets.synthetic import synthetic_split
+    from uemda_tpu_torch.ops.mixing import draw_mix
+    from uemda_tpu_torch.train.loop import (
+        batch_to_device,
+        build_model,
+        build_state,
+        default_hparams,
+        make_eval_hook,
+        run_training_loop,
+    )
+    from uemda_tpu_torch.train.steps import MixStepDraws, make_mix_step
+
+    cfg = ctx["cfg"]
+    nc = cfg.class_num
+
+    # (a) f32, TF32 off: ResNet-50 OS16 dual PPM at 128^2, batch 2, the
+    # stage-3 check's model, batches, soft labels and prototypes; the
+    # augmentation, class subset and three sets of dropout masks drawn
+    # once on the host, the same on both devices, at step 1
+    small = dataclasses.replace(cfg, crop=(128, 128))
+    g = torch.Generator().manual_seed(1)
+    cpu_model = build_model(small, device="cpu",
+                            generator=torch.Generator().manual_seed(0))
+    gpu_model = build_model(small, device=dev,
+                            generator=torch.Generator().manual_seed(0))
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    hp32 = default_hparams(small, refine=True, refine_mode="all",
+                           target_loss="uvem", balance_target=True,
+                           compute_dtype="float32")
+    data = synthetic_split(LoveDA, n=4, hw=160, seed=2, with_sup=True)
+    bs = {"image": data.images[:2], "label": data.labels[:2]}
+    bt = {"image": data.images[2:], "sup": data.sup[2:],
+          "prob": soft_labels(data.labels[2:], nc, seed=1)}
+    drop = [{h: torch.rand(2, 512, 8, 8, generator=g) < 0.9
+             for h in ("layer5", "layer6")} for _ in range(3)]
+    draws = MixStepDraws(
+        draw_augment(g, 2, (160, 160), small.crop),
+        draw_augment(g, 2, (160, 160), small.crop, "compose"),
+        drop[0], drop[1], mix=draw_mix(g, "classmix", small.crop, nc),
+        drop_m=drop[2])
+    proto = torch.randn(nc, cpu_model.config.inchannels, generator=g)
+    out = {}
+    for name, model, d in (("cpu", cpu_model, "cpu"), ("gpu", gpu_model, dev)):
+        state = build_state(model, small, 100, prototypes=proto)
+        state.step = state.opt.count = 1
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        metrics = make_mix_step(model, hp32, "classmix", combo=True)(
+            state, batch_to_device(bs, d), batch_to_device(bt, d), 0,
+            draws=draws)
+        out[name] = (
+            {k: float(v) for k, v in metrics.items()},
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            {n: (p.detach() - before[n]).cpu()
+             for n, p in model.named_parameters()},
+            state.aligner.prototypes.cpu(), state.balance_t.freq.cpu())
+    (m_c, g_c, u_c, p_c, f_c), (m_g, g_g, u_g, p_g, f_g) = \
+        out["cpu"], out["gpu"]
+    for k in m_c:
+        rel = abs(m_g[k] - m_c[k]) / max(abs(m_c[k]), 1e-30)
+        if not rel <= 1e-4:  # f32 sums in other orders, as stages 1-3
+            fail(f"f32 combo mix step {k}: card {m_g[k]} vs CPU {m_c[k]} "
+                 f"(rel {rel:.3g})")
+    if not m_c["loss_target"] > 0:
+        fail(f"f32 combo mix step: the target loss is 0 ({m_c})")
+
+    def rel_max(a, b):
+        num = max(float((a[n] - b[n]).abs().max()) for n in a)
+        return num / max(float(b[n].abs().max()) for n in b)
+
+    e_g, e_u = rel_max(g_g, g_c), rel_max(u_g, u_c)
+    e_p = float((p_g - p_c).abs().max()) / float(p_c.abs().max())
+    e_f = float(((f_g - f_c).abs() / f_c.abs()).max())
+    if not (e_g <= 2e-2 and e_u <= 2e-2 and e_p <= 1e-5 and e_f <= 1e-6):
+        fail(f"f32 combo mix step: gradients {e_g:.3g}, updates {e_u:.3g} of "
+             f"max |g| (limit 2e-2); prototypes {e_p:.3g} of max |p| (limit "
+             f"1e-5); class-balance frequencies {e_f:.3g} relative (limit "
+             "1e-6)")
+    phase("mix", f"f32 combo mix step on the card vs the CPU plain path "
+          f"(ResNet-50 OS16, 128^2, batch 2, ClassMix, UVEM, refine 'all', "
+          f"target class balance, step 1): "
+          f"{json.dumps({k: [m_g[k], m_c[k]] for k in m_c})}; gradients max "
+          f"abs err / max |g| {e_g:.3g}, updates {e_u:.3g}; prototypes "
+          f"{e_p:.3g} of max |p|; frequencies {e_f:.3g}")
+    del cpu_model, gpu_model, out, g_c, g_g, u_c, u_g
+
+    # (b) the flagship combo: 30 steps with the schedule's horizon at 30,
+    # ClassMix, UVEM, refine 'all' with the 2urban grid superpixels, the
+    # sweep's soft labels
+    steps, batch = 30, BATCH
+    model = ctx["model"]
+    target = sctx["target"]
+    hp = default_hparams(cfg, refine=True, refine_mode="all",
+                         target_loss="uvem")
+    eval_fn, _ = make_eval_hook(cfg, None, dataset=ctx["val"])
+    logger = logging.getLogger("chip_smoke.mix")
+
+    def eager(what, make, state, log_every, eval_fn=None):
+        losses, events = [], []
+
+        def on_step(i, metrics):
+            losses.append(metrics)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        best = run_training_loop(state, make(state.model), stream(ctx["src"], 30),
+                                 stream(target, 31), steps, logger,
+                                 eval_every=steps, log_every=log_every,
+                                 eval_fn=eval_fn, seed=2333, on_step=on_step)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        loss = [{k: float(v) for k, v in m.items()} for m in losses]
+        if len(loss) != steps or not all(np.isfinite(list(m.values())).all()
+                                         for m in loss):
+            fail(f"{what}: {len(loss)} steps, losses {loss}")
+        w0 = 5
+        ms = events[w0 - 1].elapsed_time(events[-1]) / (steps - w0)
+        phase("mix", f"{what} (ResNet-50 OS16 dual PPM, 2urban, batch "
+              f"{batch} per domain, bf16) {steps} steps in {wall:.2f} s; loss "
+              f"{loss[0]['loss']:.5g} -> {loss[-1]['loss']:.5g} (source "
+              f"{loss[0]['loss_source']:.5g} -> {loss[-1]['loss_source']:.5g}"
+              f", target {loss[0]['loss_target']:.5g} -> "
+              f"{loss[-1]['loss_target']:.5g}); steps {w0 + 1}-{steps}: "
+              f"{ms:.3f} ms/step by CUDA events; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {CARD[0]}")
+        return loss, ms, best
+
+    state = build_state(model, cfg, steps, prototypes=sctx["prototypes"])
+    start = copy_start(state)
+    legacy = (copy_start(state), copy_start(state))
+    combo = lambda m: make_mix_step(m, hp, "classmix", combo=True)  # noqa: E731
+    for fn in WRAPPERS:
+        fn.launches = 0
+    loss, ms_step, best = eager("flagship combo (ClassMix, UVEM, refine "
+                                "'all')", combo, state, 10, eval_fn)
+    counts = {fn.__name__: fn.launches for fn in WRAPPERS}
+    if counts["uvem_mine"] != steps:
+        fail(f"uvem_mine launched {counts['uvem_mine']} times in {steps} "
+             "combo steps (once per step)")
+    for name in ("segment_max", "segment_gather", "instance_norm",
+                 "instance_norm_backward", "crop_normalize"):
+        if counts[name] <= 0:
+            fail(f"{name} was not launched on the mix path")
+    phase("mix", f"flagship combo: mIoU {best['miou']:.5f} (random init)")
+    phase("launches", f"mix path ({steps} combo steps + evaluation): "
+          f"{json.dumps(counts)}")
+    src_it, tgt_it = stream(ctx["src"], 30), stream(target, 31)
+    dev_ms, idle = profile_steps(f"combo mix step (bf16, batch {batch}, "
+                                 "ClassMix, UVEM, refine 'all')", combo(model),
+                                 state, src_it, tgt_it, dev, ms_step)
+    saved = [fn.launches for fn in WRAPPERS]
+    ms_g, _ = graph_rerun("mix", "flagship combo through the CUDA graph",
+                          combo, start, stream(ctx["src"], 30),
+                          stream(target, 31), steps, dev, loss,
+                          eval_fn=eval_fn)
+    dev_g, idle_g = graph_profile("mix", "combo mix step", combo, start,
+                                  src_it, tgt_it, dev, ms_g)
+    del start
+    torch.cuda.empty_cache()
+
+    # (c) the reference's mix trainer: CutMix, CE on both mixed batches
+    hp_l = default_hparams(cfg, refine=False, target_loss="ce")
+    make_l = lambda m: make_mix_step(m, hp_l, "cutmix")  # noqa: E731
+    loss_l, ms_l, _ = eager("flagship legacy CutMix", make_l, legacy[0], 10)
+    ms_lg, _ = graph_rerun("mix", "flagship legacy CutMix through the CUDA "
+                           "graph", make_l, legacy[1], stream(ctx["src"], 30),
+                           stream(target, 31), steps, dev, loss_l)
+    for fn, n in zip(WRAPPERS, saved):
+        fn.launches = n
+    phase("mix", f"ms/step by CUDA events (device ms/step, idle share): "
+          f"combo steps_per_call 1 {ms_step:.3f} ({dev_ms}, {idle}), "
+          f"steps_per_call {K_GRAPH} through the graph {ms_g:.3f} ({dev_g}, "
+          f"{idle_g}); legacy CutMix steps_per_call 1 {ms_l:.3f}, through "
+          f"the graph {ms_lg:.3f}; {CARD[0]}")
+    del legacy
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -1431,6 +1766,7 @@ def main():
     if smi.returncode:
         fail(f"nvidia-smi: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
+    CARD[0] = card
     print(card, flush=True)
     phase("card", f"{card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, devices {torch.cuda.device_count()}")
@@ -2215,10 +2551,17 @@ def main():
     # 8. init_prototypes and stage 3 on the model stage 2 left: the f32 step
     #    against the CPU, then the sweep and the flagship steps with their
     #    own counts
-    ssl_launches = ssl_phase(dev, ctx)
+    ssl_launches, sctx = ssl_phase(dev, ctx)
+
+    mark("mix")
+    # 9. the mix and combo self-training on the chain's model and the
+    #    sweep's soft labels: the f32 step against the CPU, the flagship
+    #    combo and legacy CutMix, eager and through the graph
+    mix_launches = mix_phase(dev, ctx, sctx)
+    del sctx
 
     mark("timing")
-    # 9. timing (bf16, the serving and training dtype; K9 on uint8 tiles,
+    # 10. timing (bf16, the serving and training dtype; K9 on uint8 tiles,
     #    K5-K7 on f32 probabilities), CUDA events after warm-up
     xi, xs, ws, bs, xt = inputs["bfloat16"]
     xb, dyb, mb, rb = inputs["bwd bfloat16"]
@@ -2403,12 +2746,15 @@ def main():
         n_train = train_launches[fn_name]
         n_align = align_launches[fn_name]
         n_ssl = ssl_launches[fn_name]
+        n_mix = mix_launches[fn_name]
         record.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": n_serve + n_fused + n_int8 + n_train + n_align + n_ssl,
+            "launches": (n_serve + n_fused + n_int8 + n_train + n_align
+                         + n_ssl + n_mix),
             "launches_serve": n_serve, "launches_fused": n_fused,
             "launches_int8": n_int8, "launches_train": n_train,
             "launches_align": n_align, "launches_ssl": n_ssl,
+            "launches_mix": n_mix,
             "max_abs_err": errs[(name, dn)], "ms": ms,
             "ms_with_host": host_ms,
             "plain_ms": plain_ms, "bound_ms": bound,

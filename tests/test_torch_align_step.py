@@ -6,6 +6,7 @@ twins end to end on synthetic PNGs and ``.tif`` superpixel maps."""
 
 import dataclasses
 import json
+import shutil
 
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ import jax
 import jax.numpy as jnp
 
 from tests.torch_port_helpers import jax_and_torch_models, jax_aug_draws
+from tests.torch_port_helpers import one_cpu_thread  # noqa: F401 (fixture)
 from uemda_tpu.alignment.prototypes import init_avg as jax_init_avg
 from uemda_tpu.train.lr import poly_warmup_schedule as jax_schedule
 from uemda_tpu.train.optim import make_optimizer
@@ -36,6 +38,8 @@ from uemda_tpu_torch.train.steps import (
     make_align_step,
     make_init_proto_step,
 )
+
+pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 C, HW, CROP, K = 6, 72, 64, 512
 LR = 1e-3
@@ -242,8 +246,9 @@ def test_stage2_clis_on_the_cpu(tmp_path):
     steps, CORAL, refine 'all' reading the .tif superpixel maps and the
     prototypes from a .npy copy) with --device cpu: finite prototypes over
     every full batch, an evaluation, and the best model and prototypes
-    saved under <snapshot>/align, with best.json; the flags not ported yet
-    raise."""
+    saved under <snapshot>/align, with best.json and the state snapshot;
+    ``--steps 3 --resume auto`` goes on from step 2 and ends at step 3;
+    the flags not ported yet raise."""
     from uemda_tpu_torch.models.port import load_prototypes
     from uemda_tpu_torch.tools import init_prototypes, train_align_uem, train_src
 
@@ -271,10 +276,14 @@ def test_stage2_clis_on_the_cpu(tmp_path):
     assert saved.shape == (6, 512) and not torch.equal(saved, p)
     assert (run / "Vaihingen_best.pth").exists()
     assert json.loads((run / "best.json").read_text())["step"] == 2
-    for flags in (["--ls", "OhemCrossEntropy"], ["--accum-steps", "2"],
-                  ["--resume", "auto"]):
-        with pytest.raises(NotImplementedError):
+    assert torch.load(run / "state_curr.pth", weights_only=True)["step"] == 2
+    train_align_uem.main(common + ["--align-domain", "1", "--steps", "3",
+                                   "--refine-mode", "all", "--resume", "auto"])
+    assert torch.load(run / "state_curr.pth", weights_only=True)["step"] == 3
+    for flags in (["--ls", "OhemCrossEntropy"], ["--accum-steps", "2"]):
+        with pytest.raises(NotImplementedError, match="queue A5"):
             train_align_uem.main(common + flags)
+    shutil.rmtree(tmp_path / "log")  # ~1 GB of checkpoints
 
 
 def test_stage2_hparams_match_jax():

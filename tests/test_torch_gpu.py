@@ -1044,6 +1044,75 @@ def test_captured_step_equals_the_eager_step(dev, stage):
     assert stats["launches"]["instance_norm_backward"] >= 1
 
 
+def test_snapshot_of_a_replaying_step_equals_a_synchronous_copy(
+        dev, tmp_path):
+    """``AsyncSaver`` while a captured stage-2 step replays: the state
+    after step 3 copied with ``.cpu()``, then a spinner holding the
+    stream, the snapshot enqueued behind it and three more replays
+    enqueued behind the snapshot, which write the state in place. The file
+    equals the synchronous copy exactly: the snapshot's copies sit on the
+    steps' stream, before the next step's kernels."""
+    from uemda_tpu_torch.train.checkpoints import AsyncSaver, load_checkpoint
+    from uemda_tpu_torch.train.graph import ChunkRunner
+
+    _, state, step, batches = _stage_case("align", dev)
+    it = batches(3)
+    runner = ChunkRunner(step, 0, dev)
+    runner(state, [next(it) for _ in range(3)])
+    ref = {k: v.cpu() for k, v in state.model.state_dict().items()}
+    ref_trace = [t.cpu() for t in state.opt.trace]
+    ref_proto = state.aligner.prototypes.cpu()
+    saver = AsyncSaver()
+    torch.cuda._sleep(500_000_000)  # ~0.25 s on the stream
+    saver.save(str(tmp_path / "s.pth"), state.state_dict())
+    runner(state, [next(it) for _ in range(3)])
+    saver.wait()
+    saver.close()
+    got = load_checkpoint(str(tmp_path / "s.pth"))
+    assert got["step"] == got["opt"]["count"] == 3 and state.step == 6
+    assert all(torch.equal(got["model"][k], v) for k, v in ref.items())
+    assert all(torch.equal(a, b) for a, b in zip(got["opt"]["trace"],
+                                                 ref_trace))
+    assert torch.equal(got["aligner"]["prototypes"], ref_proto)
+    assert not torch.equal(state.aligner.prototypes.cpu(), ref_proto)
+    runner.close()
+
+
+def test_resume_into_a_captured_state_replays_from_the_loaded_values(dev):
+    """A stage-2 step captured on a state, replayed to step 4; the state
+    of step 2 loaded back into the same tensors (``load_state_dict``); the
+    same batches again: the replays go on from the loaded values and give
+    steps 3-4's losses and parameters again, bit for bit."""
+    from uemda_tpu_torch.train.graph import ChunkRunner
+
+    _, state, step, batches = _stage_case("align", dev)
+    it = batches(4)
+    pairs = [next(it) for _ in range(4)]
+    runner = ChunkRunner(step, 0, dev)
+    runner(state, pairs[:2])
+    saved = _cpu_tree(state.state_dict())  # copies, on the host
+    first = runner(state, pairs[2:])
+    params = [p.detach().clone() for p in state.opt.params]
+    state.load_state_dict(saved)
+    assert state.step == state.opt.count == 2
+    again = runner(state, pairs[2:])
+    assert runner.graph.replays == 5
+    for a, b in zip(first, again):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    assert all(torch.equal(p, q) for p, q in zip(params, state.opt.params))
+    runner.close()
+
+
+def _cpu_tree(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, dict):
+        return {k: _cpu_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cpu_tree(v) for v in tree]
+    return tree
+
+
 def test_pinned_ring_never_hands_out_a_slot_in_flight(dev):
     """The upload stage's staging ring: a slot whose copy is still in
     flight (held back on its stream by a spinning kernel) is handed out

@@ -9,6 +9,7 @@ tested on the card (test_torch_gpu.py)."""
 import dataclasses
 import itertools
 import logging
+import shutil
 import time
 from typing import NamedTuple
 
@@ -19,6 +20,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_port_helpers import one_cpu_thread  # noqa: F401 (fixture)
 from uemda_tpu.datasets.base import SegDataset as JaxSegDataset
 from uemda_tpu.datasets.base import infinite_batches as jax_infinite_batches
 from uemda_tpu.datasets.prefetch import prefetch as jax_prefetch
@@ -41,6 +43,8 @@ from uemda_tpu_torch.datasets.synthetic import (
 )
 from uemda_tpu_torch.ops.crop import crop_normalize_plain
 from uemda_tpu_torch.train.loop import run_training_loop
+
+pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 MEAN, STD = (120.0, 82.0, 81.0), (55.0, 39.0, 38.0)
 
@@ -410,9 +414,12 @@ def test_trainer_cli_runs_the_loop_flags(tmp_path, monkeypatch, caplog, tool,
     """Each trainer CLI on a tiny synthetic config (resnet18, 64^2 crops of
     80^2 tiles) with ``--host-crop 1 --steps-per-call 2 --device cpu`` and
     3 steps: step 1, then a chunk of 2 (the stage-3 one after its
-    pseudo-label sweep); each ends at step 3 with its best model and
-    ``best.json``. With ``--profile-dir`` a run this short profiles its
-    second step and runs every step alone."""
+    pseudo-label sweep); each ends at step 3 with its best model,
+    ``best.json`` and its state snapshot. With ``--profile-dir`` a run this
+    short profiles its second step and runs every step alone. Then
+    ``--steps 6 --resume auto``: the run restores step 3 (stage 3 without
+    a second sweep), runs steps 4-5 in one call and step 6, and leaves the
+    step-6 snapshot and ``metrics.jsonl`` records of both runs."""
     import importlib
     import json
 
@@ -444,3 +451,25 @@ def test_trainer_cli_runs_the_loop_flags(tmp_path, monkeypatch, caplog, tool,
     chunks = [m for m in caplog.messages if m.endswith("in one call")]
     assert chunks == ([] if profile else ["steps 2-3 in one call"])
     assert (tmp_path / "trace" / "trace.json").exists() == profile
+    snap = torch.load(run_dir / "state_curr.pth", weights_only=True)
+    assert snap["step"] == snap["opt"]["count"] == 3
+    if profile:
+        shutil.rmtree(tmp_path / "log")  # ~0.6 GB of checkpoints
+        return
+    caplog.clear()
+    sweeps = len(list((tmp_path / "log" / "pseudo_label").glob("*.npy")))
+    main(argv[:3] + ["6"] + argv[4:] + ["--resume", "auto"])
+    assert any(m.startswith("resumed full train state from") and
+               m.endswith("at step 3") for m in caplog.messages)
+    assert [m for m in caplog.messages if m.endswith("in one call")] == [
+        "steps 4-5 in one call"]
+    assert not any("generating pseudo labels" in m for m in caplog.messages)
+    assert len(list((tmp_path / "log" / "pseudo_label").glob("*.npy"))) \
+        == sweeps
+    snap = torch.load(run_dir / "state_curr.pth", weights_only=True)
+    assert snap["step"] == snap["opt"]["count"] == 6
+    recs = [json.loads(x) for x in
+            (run_dir / "metrics.jsonl").read_text().splitlines()]
+    assert [(r["step"], "miou" in r) for r in recs] == [
+        (1, False), (3, True), (6, True)]
+    shutil.rmtree(tmp_path / "log")

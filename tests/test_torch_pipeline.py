@@ -5,6 +5,7 @@ pseudo-label sweep) on synthetic PNGs; what is not ported is refused; the
 stage-3 hyperparameters match the JAX package's."""
 
 import json
+import shutil
 import subprocess
 import sys
 
@@ -12,11 +13,14 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_port_helpers import one_cpu_thread  # noqa: F401 (fixture)
 from uemda_tpu_torch.config import PRESETS
 from uemda_tpu_torch.datasets.meta import IsprsDA
 from uemda_tpu_torch.datasets.synthetic import make_synthetic_dataset
 from uemda_tpu_torch.models import DeeplabV2, DeeplabV2Config
 from uemda_tpu_torch.train.steps import StageHParams, make_ssl_step
+
+pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 C = 6
 
@@ -74,35 +78,45 @@ def test_pipeline_twin_runs_the_five_steps_on_the_cpu(tmp_path):
     assert arr.dtype == np.float16 and arr.shape == (80, 80, C)
     np.testing.assert_allclose(arr.astype(np.float32).sum(-1), 1.0, atol=1e-2)
     assert len(list((log / "pseudo_label_color").glob("*.png"))) == 4
+    shutil.rmtree(log)  # ~2 GB of checkpoints
 
 
-def test_stage3_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    """The stage-3 CLI refuses resume, accumulation, OHEM, the unported
-    target losses and the multi-process flag before it touches a file
-    (``--steps-per-call``, ``--host-crop`` and ``--profile-dir`` run:
-    test_torch_loop.py); the pipeline refuses --method proca,
-    --pretrained, --resume and --num-devices (--gate runs:
-    test_torch_serving.py); the step refuses the unported target
+def test_stage3_refuses_what_is_not_ported(tmp_path, monkeypatch, capsys):
+    """The stage-3 CLI refuses accumulation, OHEM, the unported target
+    losses and the multi-process flag before it touches a file, naming
+    each one's ROADMAP queue item (``--steps-per-call``, ``--host-crop``,
+    ``--profile-dir`` and ``--resume`` run: test_torch_loop.py); the
+    pipeline refuses --method proca, --pretrained and --num-devices
+    (--gate runs: test_torch_serving.py) and forwards ``--resume auto`` to
+    its three training steps; the step refuses the unported target
     losses."""
     from uemda_tpu_torch.tools import run_pipeline, train_ssl_uem
 
     monkeypatch.chdir(tmp_path)
     common = ["--config-path", "2vaihingen", "--ckpt-model", "m.pth",
               "--ckpt-proto", "p.pth", "--device", "cpu"]
-    for flags in (["--resume", "auto"], ["--accum-steps", "2"],
-                  ["--ls", "OhemCrossEntropy"], ["--lt", "ups"],
-                  ["--lt", "ghm"], ["--num-devices", "2"]):
-        with pytest.raises(NotImplementedError):
+    for flags, item in ((["--accum-steps", "2"], "A5"),
+                        (["--ls", "OhemCrossEntropy"], "A5"),
+                        (["--lt", "ups"], "A5"), (["--lt", "ghm"], "A5"),
+                        (["--num-devices", "2"], "A8")):
+        with pytest.raises(NotImplementedError, match=f"queue {item}"):
             train_ssl_uem.main(common + flags)
-    for flags in (["--method", "proca"],
-                  ["--pretrained", "x.pth"], ["--resume", "auto"],
-                  ["--num-devices", "2"]):
-        with pytest.raises(NotImplementedError):
+    for flags, item in ((["--method", "proca"], "A6"),
+                        (["--pretrained", "x.pth"], "A5"),
+                        (["--num-devices", "2"], "A8")):
+        with pytest.raises(NotImplementedError, match=f"queue {item}"):
             run_pipeline.main(["--dry-run"] + flags)
+    run_pipeline.main(["--dry-run", "--resume", "auto"])
+    cmds = [line.split() for line in capsys.readouterr().out.splitlines()
+            if line.startswith("+")]
+    assert [c[3].rsplit(".", 1)[1] for c in cmds
+            if c[-2:] == ["--resume", "auto"]] == [
+        "train_src", "train_align_uem", "train_ssl_uem"]
+    assert len(cmds) == 5
     model = DeeplabV2(DeeplabV2Config.uemda_default(C, resnet_type="resnet18"),
                       device="cpu")
     for loss in ("ups", "ohem", "focal", "ghm", "gdp"):
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(NotImplementedError, match="queue A5"):
             make_ssl_step(model, StageHParams(class_num=C, target_loss=loss))
     assert not any(tmp_path.iterdir())
 

@@ -5,6 +5,7 @@ with its checkpoint read back by the eval tool."""
 
 import dataclasses
 import json
+import shutil
 
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ import jax.numpy as jnp
 import optax
 
 from tests.torch_port_helpers import jax_and_torch_models, jax_aug_draws
+from tests.torch_port_helpers import one_cpu_thread  # noqa: F401 (fixture)
 from uemda_tpu.train.lr import poly_warmup_schedule as jax_schedule
 from uemda_tpu.train.optim import freeze_mask as jax_freeze_mask
 from uemda_tpu.train.optim import make_optimizer
@@ -31,6 +33,8 @@ from uemda_tpu_torch.train.loop import build_state
 from uemda_tpu_torch.train.lr import poly_warmup_schedule
 from uemda_tpu_torch.train.optim import SGD, freeze_mask
 from uemda_tpu_torch.train.steps import StageHParams, StepDraws, make_src_step
+
+pytestmark = pytest.mark.usefixtures("one_cpu_thread")
 
 C, HW, CROP = 6, 72, 64
 
@@ -222,6 +226,7 @@ def test_train_src_twin_on_the_cpu(tmp_path, capsys):
     np.testing.assert_allclose(out["miou"], best["miou"], atol=1e-6)
     cfg = load_config(str(cfg_file), snapshot_postfix="/src")
     assert cfg.snapshot_dir.endswith("log/src")
+    shutil.rmtree(tmp_path / "log")  # ~0.6 GB of checkpoints
 
 
 def test_config_training_fields_match_jax():

@@ -5,6 +5,7 @@ weights handed to both packages."""
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -13,6 +14,21 @@ from uemda_tpu.models import DeeplabV2 as JaxDeeplabV2
 from uemda_tpu.models import DeeplabV2Config as JaxConfig
 from uemda_tpu_torch.models import DeeplabV2, DeeplabV2Config
 from uemda_tpu_torch.models.port import state_dict_from_jax
+
+
+@pytest.fixture
+def one_cpu_thread(monkeypatch):
+    """PyTorch's CPU ops on one thread for the test, and through
+    ``OMP_NUM_THREADS`` in the subprocesses it starts. The suite runs six
+    workers on the same cores, where each worker's OpenMP team of every
+    core spins against the others': four resnet18 stage-2 steps at 64^2
+    take 2.4 s alone on an 8-core CPU and 189 s six at a time, 6.4 s on
+    one thread either way."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    yield
+    torch.set_num_threads(n)
 
 
 def to_torch(x_nhwc: np.ndarray, dtype=torch.float32) -> torch.Tensor:
@@ -96,3 +112,33 @@ def jax_aug_draws(key, batch, image_hw, crop_hw, mode="oneof"):
                        for k_ in jax.random.split(kd, 3)])
     return AugDraws(torch.tensor(offsets, dtype=torch.int32),
                     torch.tensor(d4, dtype=torch.int64), mode)
+
+
+def jax_mix_draws(key, mix, hw, class_num, batch=None, ratio=0.5, alpha=1.0):
+    """The draws ``uemda_tpu/ops/mixing.py:35-129`` derives from ``key``
+    (the mix step's ``k_mix``, ``steps.py:408``), as the port's
+    ``MixDraws``: ClassMix's class subset from one permutation; CutMix's
+    Beta ``lam`` and box centre from a three-way split; with ``batch``,
+    ``cutmix_inbatch``'s permutation and its box from a two-way split."""
+    from uemda_tpu_torch.ops.mixing import MixDraws
+
+    if mix in ("classmix", "dacs"):
+        perm = np.asarray(jax.random.permutation(key, class_num))
+        selected = np.zeros(class_num, np.float32)
+        selected[perm[:int(class_num * ratio)]] = 1.0
+        return MixDraws(selected=torch.from_numpy(selected))
+    perm = None
+    if batch is not None:
+        k1, key = jax.random.split(key)
+        perm = torch.from_numpy(np.asarray(
+            jax.random.permutation(k1, batch)).astype(np.int64))
+    h, w = hw
+    k1, k2, k3 = jax.random.split(key, 3)
+
+    def scalar(x):
+        return torch.tensor(np.asarray(x, np.float32))
+
+    return MixDraws(lam=scalar(jax.random.beta(k1, alpha, alpha)),
+                    cx=scalar(jax.random.uniform(k2, (), minval=0.0, maxval=w)),
+                    cy=scalar(jax.random.uniform(k3, (), minval=0.0, maxval=h)),
+                    perm=perm)

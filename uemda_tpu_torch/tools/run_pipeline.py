@@ -20,9 +20,10 @@ stage's steps (smoke runs), ``--dry-run`` prints the commands, and
 the chain on every stage-best checkpoint that exists, with
 ``--gate-tolerance`` and ``--gate-class-tolerance``; a breach fails the
 run. After the chain, a stage whose best mIoU (``best.json``) falls below
-the stage it started from is reported. Not ported yet, and refused:
+the stage it started from is reported. ``--resume`` (``auto`` or a
+path) goes to the three training steps. Not ported yet, and refused:
 ``--method proca`` (needs ``train_align``, ROADMAP.md queue A6),
-``--pretrained``, ``--resume``, ``--num-devices``.
+``--pretrained`` (A5), ``--num-devices`` (A8).
 """
 
 import argparse
@@ -74,14 +75,13 @@ def main(argv=None):
     parser.add_argument("--dry-run", action="store_true")
     args = parser.parse_args(argv)
 
-    refused = {"--method proca": args.method == "proca",
-               "--pretrained": args.pretrained is not None,
-               "--resume": bool(args.resume),
-               "--num-devices": args.num_devices is not None}
-    for flag, hit in refused.items():
+    refused = {"--method proca": ("A6", args.method == "proca"),
+               "--pretrained": ("A5", args.pretrained is not None),
+               "--num-devices": ("A8", args.num_devices is not None)}
+    for flag, (item, hit) in refused.items():
         if hit:
             raise NotImplementedError(f"{flag}: not ported yet (ROADMAP.md "
-                                      "queue A)")
+                                      f"queue {item})")
 
     from uemda_tpu_torch.config import load_config
 
@@ -89,6 +89,8 @@ def main(argv=None):
     log, tset = cfg.snapshot_dir, cfg.target_set
     sel = set(int(s) for s in args.steps.split(","))
     ov = ["--steps", str(args.stage_steps)] if args.stage_steps else []
+    if args.resume:
+        ov += ["--resume", args.resume]
     dev = ["--device", args.device] if args.device else []
     cfg_arg = ["--config-path", args.config_path]
 

@@ -16,9 +16,10 @@ on both domains. Evaluates every ``EVAL_EVERY`` steps and at the end, and
 keeps ``<snapshot_dir>/align/<target>_best.pth`` and
 ``prototypes_best.pth``. ``--bcs 1`` weights the source CE by the EMA class
 balance (temperature ``--class-temp``). ``--steps-per-call``,
-``--host-crop`` and ``--profile-dir`` as ``train_src``. ``--device``
-defaults to the card; ``--device cpu`` runs the plain versions. Not ported yet, and refused:
-``--ls OhemCrossEntropy``, ``--accum-steps`` > 1, ``--resume``.
+``--host-crop``, ``--profile-dir`` and ``--resume`` as ``train_src``.
+``--device`` defaults to the card; ``--device cpu`` runs the plain
+versions. Not ported yet, and refused: ``--ls OhemCrossEntropy``,
+``--accum-steps`` > 1.
 """
 
 import argparse
@@ -37,6 +38,7 @@ from uemda_tpu_torch.train.loop import (
     make_eval_hook,
     make_source_iter,
     make_target_iter,
+    maybe_resume,
     run_training_loop,
 )
 from uemda_tpu_torch.train.steps import make_align_step
@@ -64,7 +66,9 @@ def main(argv=None):
     parser.add_argument("--steps", type=int, default=None)
     parser.add_argument("--seed", type=int, default=2333)
     parser.add_argument("--accum-steps", type=int, default=1)
-    parser.add_argument("--resume", type=str, default="")
+    parser.add_argument("--resume", type=str, default="",
+                        help="'auto' or a state_curr.pth path (exact "
+                             "full-state resume)")
     parser.add_argument("--device", type=str, default=None,
                         help="default: the card (cuda)")
     add_loop_flags(parser)
@@ -72,13 +76,10 @@ def main(argv=None):
 
     if args.ls == "OhemCrossEntropy":
         raise NotImplementedError("--ls OhemCrossEntropy: OHEM is not ported "
-                                  "yet (ROADMAP.md queue A)")
+                                  "yet (ROADMAP.md queue A5)")
     if args.accum_steps > 1:
         raise NotImplementedError("--accum-steps > 1: gradient accumulation "
-                                  "is not ported yet (ROADMAP.md queue A)")
-    if args.resume:
-        raise NotImplementedError("--resume: resume is not ported yet "
-                                  "(ROADMAP.md queue A)")
+                                  "is not ported yet (ROADMAP.md queue A5)")
     device = resolve_device(args.device)
     cfg = load_config(args.config_path, snapshot_postfix="/align")
     run_dir = cfg.snapshot_dir
@@ -100,16 +101,20 @@ def main(argv=None):
         refine_temp=args.refine_temp, pcl_temp=args.pcl_temp,
         compute_dtype="bfloat16" if device.type == "cuda" else "float32")
     step_fn = make_align_step(model, hp)
+    state, start, state_path = maybe_resume(state, run_dir, args.resume,
+                                            logger)
     crop = host_crop_of(args, cfg)
-    src_iter, _ = make_source_iter(cfg, host_crop=crop)
+    src_iter, _ = make_source_iter(cfg, skip=start, host_crop=crop)
     need_sup = hp.refine and hp.refine_mode in ("all", "s")
-    tgt_iter, _ = make_target_iter(cfg, read_sup=need_sup, host_crop=crop)
+    tgt_iter, _ = make_target_iter(cfg, read_sup=need_sup, skip=start,
+                                   host_crop=crop)
     eval_fn, on_best = make_eval_hook(cfg, run_dir, logger=logger)
     return run_training_loop(state, step_fn, src_iter, tgt_iter, stop_steps,
                              logger, eval_every=cfg.eval_every,
                              eval_fn=eval_fn, on_best=on_best, seed=args.seed,
                              steps_per_call=args.steps_per_call,
-                             profile_dir=args.profile_dir)
+                             profile_dir=args.profile_dir,
+                             state_path=state_path)
 
 
 if __name__ == "__main__":

@@ -15,9 +15,13 @@ reference's key names, which ``uemda_tpu_torch.tools.eval`` loads).
 ``--class-temp``). ``--steps-per-call K`` runs K steps a call (on the
 card, replays of a CUDA graph of the step), ``--host-crop 1`` crops the
 samples on the host before their upload and ``--profile-dir`` traces steps
-10-15. ``--device`` defaults to the card; ``--device cpu`` runs the plain
-versions. The reference's OHEM (``--ls``) and ``--pretrained``
-come with later slices.
+10-15. The whole train state is snapshotted to
+``<snapshot_dir>/src/state_curr.pth`` at every evaluation and at the end,
+beside ``metrics.jsonl`` and ``best.json``; ``--resume auto`` (or a
+snapshot's path) goes on from it exactly: the same state, draws and
+batches as a run that was never stopped. ``--device`` defaults to the
+card; ``--device cpu`` runs the plain versions. The reference's OHEM
+(``--ls``) and ``--pretrained`` come with later slices.
 """
 
 import argparse
@@ -37,6 +41,7 @@ from uemda_tpu_torch.train.loop import (
     make_eval_hook,
     make_source_iter,
     make_target_iter,
+    maybe_resume,
     run_training_loop,
 )
 from uemda_tpu_torch.train.steps import make_src_step
@@ -53,6 +58,9 @@ def main(argv=None):
     parser.add_argument("--steps", type=int, default=None,
                         help="override STAGE1_STEPS")
     parser.add_argument("--seed", type=int, default=2333)
+    parser.add_argument("--resume", type=str, default="",
+                        help="'auto' or a state_curr.pth path (exact "
+                             "full-state resume)")
     parser.add_argument("--device", type=str, default=None,
                         help="default: the card (cuda)")
     add_loop_flags(parser)
@@ -75,16 +83,19 @@ def main(argv=None):
                         generator=torch.Generator().manual_seed(args.seed))
     step_fn = make_src_step(model, hp)
     state = build_state(model, cfg, stop_steps, balance_temp=args.class_temp)
+    state, start, state_path = maybe_resume(state, run_dir, args.resume,
+                                            logger)
     crop = host_crop_of(args, cfg)
-    src_iter, _ = make_source_iter(cfg, host_crop=crop)
-    tgt_iter = (make_target_iter(cfg, host_crop=crop)[0] if hp.align_domain
-                else None)
+    src_iter, _ = make_source_iter(cfg, skip=start, host_crop=crop)
+    tgt_iter = (make_target_iter(cfg, skip=start, host_crop=crop)[0]
+                if hp.align_domain else None)
     eval_fn, on_best = make_eval_hook(cfg, run_dir, logger=logger)
     return run_training_loop(state, step_fn, src_iter, tgt_iter, stop_steps,
                              logger, eval_every=cfg.eval_every,
                              eval_fn=eval_fn, on_best=on_best, seed=args.seed,
                              steps_per_call=args.steps_per_call,
-                             profile_dir=args.profile_dir)
+                             profile_dir=args.profile_dir,
+                             state_path=state_path)
 
 
 if __name__ == "__main__":

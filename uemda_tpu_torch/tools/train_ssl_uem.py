@@ -18,11 +18,13 @@ reads the ``_sup_shrink`` maps), with the UVEM target loss (``--lt
 ours|uvem``), plain CE (``ce``) or none. Evaluates every ``EVAL_EVERY``
 steps and at the end, and keeps ``<snapshot_dir>/ssl/<target>_best.pth``,
 ``prototypes_best.pth`` and ``best.json``. ``--steps-per-call``,
-``--host-crop`` (which also crops the stored soft labels on the host) and
-``--profile-dir`` as ``train_src``. ``--device`` defaults to the card;
-``--device cpu`` runs the plain versions. Not ported yet, and refused:
-``--resume``, ``--accum-steps`` > 1, ``--ls OhemCrossEntropy``, ``--lt``
-ups/ohem/focal/ghm/gdp, ``--num-devices``.
+``--host-crop`` (which also crops the stored soft labels on the host),
+``--profile-dir`` and ``--resume`` as ``train_src``; a resumed run skips
+the sweep (the interrupted run's soft labels are on disk, and the same
+stage-2 model would give them again). ``--device`` defaults to the card;
+``--device cpu`` runs the plain versions. Not ported yet, and refused
+(ROADMAP.md queue A5, A8): ``--accum-steps`` > 1, ``--ls
+OhemCrossEntropy``, ``--lt`` ups/ohem/focal/ghm/gdp, ``--num-devices``.
 """
 
 import argparse
@@ -45,6 +47,7 @@ from uemda_tpu_torch.train.loop import (
     make_eval_hook,
     make_source_iter,
     make_target_iter,
+    maybe_resume,
     run_training_loop,
 )
 from uemda_tpu_torch.train.steps import make_ssl_step
@@ -57,16 +60,15 @@ PORTED_LOSSES = ("ours", "uvem", "ce", "none")
 
 def _refuse_unported(args) -> None:
     refused = {
-        "--resume": bool(args.resume),
-        "--accum-steps > 1": args.accum_steps > 1,
-        "--ls OhemCrossEntropy": args.ls == "OhemCrossEntropy",
-        f"--lt {args.lt}": args.lt not in PORTED_LOSSES,
-        "--num-devices": args.num_devices is not None,
+        "--accum-steps > 1": ("A5", args.accum_steps > 1),
+        "--ls OhemCrossEntropy": ("A5", args.ls == "OhemCrossEntropy"),
+        f"--lt {args.lt}": ("A5", args.lt not in PORTED_LOSSES),
+        "--num-devices": ("A8", args.num_devices is not None),
     }
-    for flag, hit in refused.items():
+    for flag, (item, hit) in refused.items():
         if hit:
             raise NotImplementedError(f"{flag}: not ported yet (ROADMAP.md "
-                                      "queue A)")
+                                      f"queue {item})")
 
 
 def main(argv=None):
@@ -95,7 +97,9 @@ def main(argv=None):
     parser.add_argument("--num-devices", type=int, default=None)
     parser.add_argument("--seed", type=int, default=2333)
     parser.add_argument("--accum-steps", type=int, default=1)
-    parser.add_argument("--resume", type=str, default="")
+    parser.add_argument("--resume", type=str, default="",
+                        help="'auto' or a state_curr.pth path (exact "
+                             "full-state resume)")
     parser.add_argument("--device", type=str, default=None,
                         help="default: the card (cuda)")
     add_loop_flags(parser)
@@ -117,10 +121,12 @@ def main(argv=None):
     state = build_state(model, cfg, stop_steps,
                         prototypes=load_prototypes(args.ckpt_proto),
                         balance_temp=args.class_temp)
+    state, start, state_path = maybe_resume(state, run_dir, args.resume,
+                                            logger)
 
-    # the pseudo-label sweep (train_ssl_uem.py:177-189)
+    # the pseudo-label sweep (train_ssl_uem.py:177-189), skipped on resume
     pseudo_dir = os.path.join(run_dir, "..", "pseudo_label")
-    if args.gen:
+    if args.gen and start == 0:
         logger.info("###### generating pseudo labels ######")
         gen_ds = SegDataset(cfg.meta, list(cfg.target.image_dir), None,
                             label_type="none")
@@ -142,16 +148,17 @@ def main(argv=None):
         compute_dtype="bfloat16" if on_card else "float32")
     step_fn = make_ssl_step(model, hp)
     crop = host_crop_of(args, cfg)
-    src_iter, _ = make_source_iter(cfg, host_crop=crop)
+    src_iter, _ = make_source_iter(cfg, skip=start, host_crop=crop)
     need_sup = hp.refine and hp.refine_mode in ("all", "s")
     tgt_iter, _ = make_target_iter(cfg, read_sup=need_sup, prob_dir=pseudo_dir,
-                                   host_crop=crop)
+                                   skip=start, host_crop=crop)
     eval_fn, on_best = make_eval_hook(cfg, run_dir, logger=logger)
     return run_training_loop(state, step_fn, src_iter, tgt_iter, stop_steps,
                              logger, eval_every=cfg.eval_every,
                              eval_fn=eval_fn, on_best=on_best, seed=args.seed,
                              steps_per_call=args.steps_per_call,
-                             profile_dir=args.profile_dir)
+                             profile_dir=args.profile_dir,
+                             state_path=state_path)
 
 
 if __name__ == "__main__":

@@ -20,8 +20,17 @@ the loop, ``--host-crop`` crops each sample on the host before its upload,
 and ``steps_per_call`` K runs chunks of K steps, on the card as replays of
 a CUDA graph of the step (``train/graph.py``), under the JAX package's
 chunk rule. ``profile_dir`` traces steps 10-15 with ``torch.profiler``.
-Resume, the run-dir lock, the hang watchdog and ``metrics.jsonl`` are not
-ported yet (ROADMAP.md queue A).
+
+The state on disk, as ``uemda_tpu/train/loop.py:121-184,302-549,571-574``:
+with ``state_path`` the loop locks its run dir (``train/checkpoints.py``'s
+``RunDirLock``), reads ``best.json`` so that a resumed run never lets a
+worse model overwrite ``_best``, appends every logged step's metrics and
+every evaluation's mIoU to ``metrics.jsonl``, snapshots the whole train
+state (``TrainState.state_dict``) through an ``AsyncSaver`` before each
+evaluation and at the end (unless the last evaluation's snapshot holds
+that step already), and :func:`maybe_resume` restores it. The metric readback, the snapshot, the evaluation and the final save
+run under a deadline (``UEMDA_HANG_TIMEOUT_S``, 900 s by default, 0 off):
+a hung device raises ``TimeoutError`` instead of hanging the run.
 """
 
 import copy
@@ -29,6 +38,8 @@ import dataclasses
 import json
 import logging
 import os
+import queue
+import threading
 import time
 from typing import Callable, Dict, Optional
 
@@ -44,6 +55,12 @@ from uemda_tpu_torch.infer.evaluate import evaluate_dataset
 from uemda_tpu_torch.models.config import DeeplabV2Config, PPMConfig
 from uemda_tpu_torch.models.deeplabv2 import DeeplabV2
 from uemda_tpu_torch.models.resnet import ResNetEncoder
+from uemda_tpu_torch.train.checkpoints import (
+    AsyncSaver,
+    RunDirLock,
+    load_checkpoint,
+    save_checkpoint,
+)
 from uemda_tpu_torch.train.graph import ChunkRunner
 from uemda_tpu_torch.train.lr import poly_warmup_schedule
 from uemda_tpu_torch.train.optim import SGD, freeze_mask
@@ -198,15 +215,19 @@ def make_eval_hook(cfg: PairConfig, run_dir: Optional[str], dataset=None,
                    logger: Optional[logging.Logger] = None):
     """Evaluation on the val split (or ``dataset``) through
     ``evaluate_dataset``, on an eval-mode copy of the model in bf16 on the
-    card (f32 on the CPU); ``on_best`` saves ``<target>_best.pth`` (the
-    model's state dict, reference key names), ``prototypes_best.pth`` and
-    ``best.json`` under ``run_dir``."""
+    card (f32 on the CPU). With ``run_dir``, each evaluation first saves
+    the model's state dict (reference key names) as ``<target>_curr.pth``,
+    and ``on_best`` saves ``<target>_best.pth`` and
+    ``prototypes_best.pth`` there (``best.json`` is the loop's)."""
     split = cfg.val
     if dataset is None:
         dataset = SegDataset(cfg.meta, list(split.image_dir),
                              list(split.mask_dir)[0])
 
     def eval_fn(state: TrainState) -> float:
+        if run_dir:
+            save_checkpoint(os.path.join(run_dir, f"{cfg.target_set}_curr.pth"),
+                            state.model.state_dict())
         dev = next(state.model.parameters()).device
         dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
         model = copy.deepcopy(state.model).eval().to(dtype)
@@ -219,16 +240,70 @@ def make_eval_hook(cfg: PairConfig, run_dir: Optional[str], dataset=None,
 
     def on_best(state: TrainState, step: int, miou: float):
         if run_dir:
-            os.makedirs(run_dir, exist_ok=True)
-            torch.save(state.model.state_dict(),
-                       os.path.join(run_dir, f"{cfg.target_set}_best.pth"))
+            save_checkpoint(os.path.join(run_dir, f"{cfg.target_set}_best.pth"),
+                            state.model.state_dict())
             if state.aligner is not None:
-                torch.save(state.aligner.prototypes.cpu(),
-                           os.path.join(run_dir, "prototypes_best.pth"))
-            with open(os.path.join(run_dir, "best.json"), "w") as f:
-                json.dump({"miou": float(miou), "step": int(step)}, f)
+                save_checkpoint(os.path.join(run_dir, "prototypes_best.pth"),
+                                state.aligner.prototypes.cpu())
 
     return eval_fn, on_best
+
+
+def _deadline(fn: Callable, timeout_s: float, what: str):
+    """``fn()`` under a wall-clock deadline (``loop.py:155-184``): a hung
+    device readback cannot be cancelled, so on expiry the daemon worker is
+    abandoned and ``TimeoutError`` raised, with the last snapshot on disk.
+    ``timeout_s`` 0 runs ``fn`` on the caller's thread."""
+    if not timeout_s:
+        return fn()
+    q: "queue.Queue" = queue.Queue(maxsize=1)
+
+    def work():
+        try:
+            q.put((True, fn()))
+        except Exception as e:  # noqa: BLE001 - raised by the caller
+            q.put((False, e))
+
+    threading.Thread(target=work, daemon=True).start()
+    try:
+        ok, val = q.get(timeout=timeout_s)
+    except queue.Empty:
+        raise TimeoutError(
+            f"{what} exceeded {timeout_s:.0f}s: the device is presumed hung; "
+            "restart with --resume auto from the last state snapshot"
+        ) from None
+    if not ok:
+        raise val
+    return val
+
+
+def maybe_resume(state: TrainState, run_dir: str, resume, logger):
+    """A trainer's ``--resume`` (``loop.py:527-549``): ``"auto"`` restores
+    ``<run_dir>/state_curr.pth`` if it exists, a path restores that file
+    (into ``state``'s own tensors, ``TrainState.load_state_dict``), and a
+    fresh start deletes a stale ``best.json`` and ``metrics.jsonl``.
+    Returns ``(state, start_step, state_path)``; pass ``state_path`` to
+    :func:`run_training_loop` so that it keeps the snapshot fresh.
+
+    The port reads only its own snapshots, not the JAX package's
+    ``.msgpack`` ones; a JAX model moves over as weights only, through
+    ``tools/port_weights.py --kind export`` (a ``.pth`` the trainers'
+    ``--ckpt-model`` loads)."""
+    state_path = os.path.join(run_dir, "state_curr.pth")
+    src = None
+    if resume and resume != "auto":
+        src = resume
+    elif resume == "auto" and os.path.exists(state_path):
+        src = state_path
+    if src is None:
+        for stale in ("best.json", "metrics.jsonl"):
+            p = os.path.join(run_dir, stale)
+            if os.path.exists(p):
+                os.remove(p)
+        return state, 0, state_path
+    state.load_state_dict(load_checkpoint(src))
+    logger.info(f"resumed full train state from {src} at step {state.step}")
+    return state, state.step, state_path
 
 
 def _start_profiler(device: torch.device):
@@ -260,11 +335,18 @@ def run_training_loop(state: TrainState, step_fn: Callable, source_iter,
                       on_best: Optional[Callable] = None,
                       seed: int = 2333, on_step: Optional[Callable] = None,
                       steps_per_call: int = 1,
-                      profile_dir: Optional[str] = None) -> Dict[str, object]:
-    """Steps ``state.step`` up to ``stop_steps`` on host batches uploaded
-    to the model's device by ``upload_batches``. ``on_step`` (step,
-    metrics) sees every step's device metrics without a host
-    synchronisation.
+                      profile_dir: Optional[str] = None,
+                      state_path: Optional[str] = None, step_offset: int = 0
+                      ) -> Dict[str, object]:
+    """Steps ``state.step`` up to ``step_offset + stop_steps`` on host
+    batches uploaded to the model's device by ``upload_batches``.
+    ``on_step`` (step, metrics) sees every step's device metrics without a
+    host synchronisation.
+
+    The loop's own count is ``state.step - step_offset``: logs
+    (``iter=i/stop_steps``), evaluations, the chunk rule, the profiler's
+    window, ``metrics.jsonl`` and ``best.json`` count from ``step_offset``,
+    as the JAX loop counts from 0 in each of the mix trainer's chunks.
 
     ``steps_per_call`` K > 1 runs chunks of K steps (``train/graph.py``:
     replays of a CUDA graph of the step on the card, eager steps on the
@@ -277,25 +359,80 @@ def run_training_loop(state: TrainState, step_fn: Callable, source_iter,
     fewer than 2 steps), written there; until it is written every step
     runs alone.
 
+    ``state_path``: the run dir (its directory) is locked for the loop's
+    lifetime, and the state is snapshotted there before every evaluation
+    and at the end (module docstring). ``UEMDA_HANG_TIMEOUT_S`` (seconds,
+    900 by default, 0 off) bounds the readbacks, snapshots and
+    evaluations.
+
     Returns {'miou': best, 'step': its step, 'graph': the capture's
-    statistics (``ChunkRunner.close``) or None}."""
+    statistics (``ChunkRunner.close``) or None, 'saver': the snapshot
+    writer's ``fetch_s``, ``write_s`` and ``nbytes`` or None}."""
+    lock = None
+    if state_path:
+        lock = RunDirLock(os.path.dirname(os.path.abspath(state_path)))
+        lock.acquire()
+    try:
+        return _run_training_loop(
+            state, step_fn, source_iter, target_iter, stop_steps, logger,
+            eval_every, log_every, eval_fn, on_best, seed, on_step,
+            steps_per_call, profile_dir, state_path, step_offset,
+            float(os.environ.get("UEMDA_HANG_TIMEOUT_S", 900.0)))
+    finally:
+        if lock is not None:
+            lock.release()
+
+
+def _run_training_loop(state, step_fn, source_iter, target_iter, stop_steps,
+                       logger, eval_every, log_every, eval_fn, on_best, seed,
+                       on_step, steps_per_call, profile_dir, state_path,
+                       step_offset, timeout):
     dev = next(state.model.parameters()).device
+    # the steps' stream: a deadline's worker thread runs its readback,
+    # snapshot copy and evaluation on it, ordered after the steps
+    stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+
+    def deadline(fn, what):
+        def on_stream():
+            if stream is None:
+                return fn()
+            with torch.cuda.stream(stream):
+                return fn()
+        return _deadline(on_stream, timeout, what)
+
+    run_dir = os.path.dirname(os.path.abspath(state_path)) if state_path \
+        else None
+    best_json = os.path.join(run_dir, "best.json") if run_dir else None
+
+    def log_jsonl(record):
+        """The loss and mIoU curve, beside the state snapshot."""
+        if run_dir:
+            with open(os.path.join(run_dir, "metrics.jsonl"), "a") as f:
+                f.write(json.dumps(record) + "\n")
+
+    miou_max, iter_max = 0.0, 0
+    # maybe_resume deletes best.json on a fresh start: here it means a
+    # resumed run or a later chunk of the same run
+    if best_json and os.path.exists(best_json):
+        with open(best_json) as f:
+            rec = json.load(f)
+        miou_max, iter_max = rec.get("miou", 0.0), rec.get("step", 0)
     k_max = max(1, int(steps_per_call))
     runner = ChunkRunner(step_fn, seed, dev) if k_max > 1 else None
     src = upload_batches(source_iter, dev)
     tgt = upload_batches(target_iter, dev) if target_iter is not None else None
-    start = state.step
+    start = state.step - step_offset
     if profile_dir is not None and stop_steps - start < 2:
         logger.info("profiler needs >= 2 steps; skipping trace")
         profile_dir = None
     trace_start = start + min(10, max(stop_steps - start - 2, 0))
     trace_stop = start + min(15, max(stop_steps - start - 1, 1))
-    prof = None
-    miou_max, iter_max = 0.0, 0
+    prof = saver = snapped = None
+    hung = False
     t0 = time.time()
     try:
-        while state.step < stop_steps:
-            i = state.step
+        while state.step - step_offset < stop_steps:
+            i = state.step - step_offset
             if profile_dir is not None and i == trace_start:
                 prof = _start_profiler(dev)
             if prof is not None and i == trace_stop:
@@ -316,22 +453,48 @@ def run_training_loop(state: TrainState, step_fn: Callable, source_iter,
                 chunk = [step_fn(state, *next(pairs), seed)]
             if on_step is not None:
                 for j, m in enumerate(chunk):
-                    on_step(i + j + 1, m)
+                    on_step(state.step - len(chunk) + j + 1, m)
             metrics = chunk[-1]
-            i = state.step
+            i = state.step - step_offset
             if i == 1 or i % log_every == 0:
-                msg = ", ".join(f"{k}={float(v):.4g}"
-                                for k, v in metrics.items())
+                m = deadline(lambda: {k: float(v) for k, v in metrics.items()},
+                             f"metric readback @ iter {i}")
+                msg = ", ".join(f"{k}={v:.4g}" for k, v in m.items())
                 logger.info(f"iter={i}/{stop_steps}, {msg}")
+                log_jsonl({"step": i, **m})
             if eval_fn is not None and (i % eval_every == 0
                                         or i >= stop_steps):
-                miou = eval_fn(state)
+                if state_path:
+                    saver = saver or AsyncSaver()
+                    # the copy is enqueued after the steps; serialization
+                    # and the write go on while the evaluation runs
+                    deadline(lambda: saver.save(state_path,
+                                                state.state_dict(), stream),
+                             f"state snapshot @ iter {i}")
+                    snapped = state.step
+                miou = deadline(lambda: eval_fn(state), f"eval @ iter {i}")
                 if miou >= miou_max:
                     miou_max, iter_max = miou, i
                     if on_best is not None:
                         on_best(state, i, miou)
+                    if best_json:
+                        with open(best_json, "w") as f:
+                            json.dump({"miou": miou_max, "step": iter_max}, f)
                 logger.info(f"eval@{i}: mIoU={miou:.5f} (best "
                             f"{miou_max:.5f} @ iter {iter_max})")
+                log_jsonl({"step": i, "miou": miou})
+        if state_path:
+            saver = saver or AsyncSaver()
+
+            def final_save():
+                # the last evaluation's snapshot holds this state already
+                if snapped != state.step:
+                    saver.save(state_path, state.state_dict(), stream)
+                saver.wait()
+            deadline(final_save, "final state snapshot")
+    except TimeoutError:
+        hung = True
+        raise
     finally:
         if prof is not None:  # never leave a profiler session open
             _stop_profiler(prof, dev, profile_dir, logger)
@@ -339,5 +502,11 @@ def run_training_loop(state: TrainState, step_fn: Callable, source_iter,
         if tgt is not None:
             tgt.close()
         stats = runner.close() if runner is not None else None
+        saved = None
+        if saver is not None:
+            saver.close(wait=not hung)  # a snapshot in flight lands
+            saved = {"fetch_s": saver.fetch_s, "write_s": saver.write_s,
+                     "nbytes": saver.nbytes}
     logger.info(f">>>> used {(time.time() - t0) / 3600:.3f} hours")
-    return {"miou": miou_max, "step": iter_max, "graph": stats}
+    return {"miou": miou_max, "step": iter_max, "graph": stats,
+            "saver": saved}

@@ -63,7 +63,7 @@ class SGD:
         if accum_steps > 1:
             raise NotImplementedError(
                 "gradient accumulation (accum_steps > 1) is not ported yet "
-                "(ROADMAP.md queue A)")
+                "(ROADMAP.md queue A5)")
         self.names = [n for n, _ in named_params]
         self.params: List[torch.Tensor] = [p for _, p in named_params]
         self.schedule = schedule

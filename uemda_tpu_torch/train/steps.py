@@ -3,10 +3,11 @@
 The port's copy of ``StageHParams``, ``_forward_train``, the CE branch of
 ``_source_loss_terms`` (with the class balance), the UVEM, CE and 'none'
 branches of ``_target_loss``, ``make_src_step``, ``make_init_proto_step``,
-``make_align_step`` and ``make_ssl_step`` (``uemda_tpu/train/steps.py:
-52-379``; reference ``tools/train_src.py:108-149``,
-``tools/init_prototypes.py:101-111``, ``tools/train_align_uem.py:136-187``,
-``tools/train_ssl_uem.py:171-235``).
+``make_align_step``, ``make_ssl_step`` and ``make_mix_step``
+(``uemda_tpu/train/steps.py:52-484``; reference ``tools/train_src.py:
+108-149``, ``tools/init_prototypes.py:101-111``,
+``tools/train_align_uem.py:136-187``, ``tools/train_ssl_uem.py:171-235``,
+``tools/train_ssl_mix.py:144-176``).
 
 Mixed precision as in the JAX package: the f32 master parameters are cast
 to ``compute_dtype`` (bf16 by default) for the forward -- a differentiable
@@ -58,6 +59,13 @@ from uemda_tpu_torch.datasets.augment import (
 from uemda_tpu_torch.ops.insnorm import instance_norm
 from uemda_tpu_torch.ops.labels import downscale_label
 from uemda_tpu_torch.ops.mine import uvem_mine
+from uemda_tpu_torch.ops.mixing import (
+    MixDraws,
+    box_mask,
+    classmix_mask,
+    draw_mix,
+    paste,
+)
 from uemda_tpu_torch.ops.pseudo import pseudo_selection
 from uemda_tpu_torch.ops.resize import upsample_logits
 from uemda_tpu_torch.train.state import TrainState
@@ -105,6 +113,16 @@ class StepDraws:
     aug_t: Optional[AugDraws] = None
     drop_s: Optional[Dict[str, torch.Tensor]] = None
     drop_t: Optional[Dict[str, torch.Tensor]] = None
+
+
+@dataclasses.dataclass
+class MixStepDraws(StepDraws):
+    """A mix step's draws: :class:`StepDraws`, the mix draw
+    (``ops/mixing.py``) and, for the combo's mining forward, its own
+    dropout masks (``drop_m``)."""
+
+    mix: Optional[MixDraws] = None
+    drop_m: Optional[Dict[str, torch.Tensor]] = None
 
 
 def step_generators(seed: int, step: int, device: torch.device
@@ -180,6 +198,20 @@ def forward_features(model, images: torch.Tensor, dtype: torch.dtype
     return feat.float()
 
 
+def forward_scratch(model, params, images: torch.Tensor, dropout_masks):
+    """:func:`forward_train` on scratch copies of the model's BatchNorm
+    buffers, so that its statistics update is thrown away as the JAX
+    step's (a PyTorch train-mode BatchNorm writes its buffers even under
+    ``no_grad``)."""
+    params = params or dict(model.named_parameters())
+    scratch = {n: b.clone() for n, b in model.named_buffers()}
+    dtype = next(iter(params.values())).dtype
+    out = torch.func.functional_call(
+        model, {**params, **scratch}, (images.to(dtype),),
+        {"generator": None, "dropout_masks": dropout_masks})
+    return tuple(t.float() for t in out)
+
+
 # the state a step replaces with new values (the JAX package's functional
 # updates), written back into the tensors it had
 _SWAPPED = ("aligner", "balance_s", "balance_t")
@@ -213,7 +245,7 @@ class _Step:
         if hp.source_loss != "ce":
             raise NotImplementedError(
                 f"source_loss={hp.source_loss!r}: OHEM is not ported yet "
-                "(ROADMAP.md queue A)")
+                "(ROADMAP.md queue A5)")
         cfg = model.config
         if not cfg.multi_layer or cfg.cascade:
             raise NotImplementedError(
@@ -234,9 +266,14 @@ class _Step:
         the CPU, checked there, then uploaded; dropout masks from the
         device generator, in the order the forwards would draw them -- all
         on the batches' device."""
+        host_gen, dev_gen = step_generators(seed, state.step,
+                                            batch_s["image"].device)
+        return self._prepare(batch_s, batch_t, draws, host_gen, dev_gen)
+
+    def _prepare(self, batch_s, batch_t, draws, host_gen, dev_gen
+                 ) -> StepDraws:
         hp = self.hp
         dev = batch_s["image"].device
-        host_gen, dev_gen = step_generators(seed, state.step, dev)
         if draws is None:
             def draw(batch, mode):
                 image = batch["image"]
@@ -419,14 +456,17 @@ class SslStep(_Step):
         if hp.target_loss not in ("uvem", "ce", "none"):
             raise NotImplementedError(
                 f"target_loss={hp.target_loss!r}: the stage-3 loss zoo (UPS, "
-                "OHEM, focal, GHM, GDP) is not ported yet (ROADMAP.md queue A "
-                "item 8)")
+                "OHEM, focal, GHM, GDP) is not ported yet (ROADMAP.md queue "
+                "A5)")
         if hp.refine and hp.refine_mode not in ("all", "p", "l", "s", "n"):
             raise ValueError(f"unknown refine_mode {hp.refine_mode!r}")
 
-    def _target_loss(self, state, preds, label_hard, w, u) -> torch.Tensor:
+    def _target_loss(self, state, preds, label_hard, w, u,
+                     paste_mask=None) -> torch.Tensor:
         """``_target_loss`` (``steps.py:258-317``) for 'uvem', 'ce' and
-        'none'; the target class balance weights 'uvem' and 'ce'."""
+        'none'; the target class balance weights 'uvem' and 'ce'.
+        ``paste_mask``: UVEM trains the mix step's pasted pixels at weight
+        1."""
         hp = self.hp
         if hp.target_loss == "none":
             return torch.zeros((), device=label_hard.device)
@@ -438,7 +478,7 @@ class SslStep(_Step):
             fn = lambda lg, lb: uvem_loss(  # noqa: E731
                 lg, lb, m=hp.uvem_m, threshold=hp.uvem_t, gamma=hp.uvem_g,
                 ignore_label=hp.ignore_label, pixel_weight=pixel_weight,
-                w=w, u=u)
+                paste_mask=paste_mask, w=w, u=u)
         else:
             fn = lambda lg, lb: cross_entropy_loss(  # noqa: E731
                 lg, lb, hp.ignore_label, pixel_weight)
@@ -468,6 +508,112 @@ class SslStep(_Step):
         return {"loss": loss_src + loss_tgt, "loss_source": loss_src,
                 "loss_target": loss_tgt, "selected": selected,
                 "trained": trained, "w_mean": w.mean()}
+
+
+class MixStep(SslStep):
+    """ClassMix / CutMix self-training step (``steps.py:382-484``; reference
+    ``tools/train_ssl_mix.py:144-176``). Batches as :class:`SslStep`'s.
+    ``mix``: "cutmix", "classmix" or "dacs" (ClassMix, as the JAX step).
+
+    Order, as the JAX step: the target's stored soft label, cropped and
+    turned with the image; with ``combo`` and ``hp.refine``, refined on a
+    no-grad train-mode forward of the unmixed target (its own dropout
+    masks, its BatchNorm update thrown away: :func:`forward_scratch`) by
+    the prototypes before this step's update; one K8 pass on it, giving
+    the hard label (``pseudo_selection``'s) and UVEM's ``(w, u)``; source
+    pixels pasted into the target image and hard label; source forward,
+    then the mixed target's. The legacy step (no ``combo``) takes CE on
+    both batches, the target's weighted by the source class balance as it
+    was before this step's update, which is then thrown away (JAX passes
+    the step's input state). The combo takes the target loss (``'uvem'``
+    or ``'ce'``) against the mixed hard label, weighted by the target
+    class balance, with the paste mask: UVEM trains pasted pixels at
+    weight 1, and ``(w, u)`` of the unmixed soft label equal the pasted
+    map's off the paste. Then the prototypes' EMA from the source. One
+    backward and one update. The metrics are the JAX step's: loss, source
+    and target loss."""
+
+    def __init__(self, model, hp: StageHParams, mix: str = "cutmix",
+                 combo: bool = False):
+        super().__init__(model, hp)
+        if mix not in ("cutmix", "classmix", "dacs"):
+            raise ValueError(f"unknown mix {mix!r}")
+        self.mix = mix
+        self.combo = combo
+
+    @property
+    def mining_forward(self) -> bool:
+        return self.combo and self.hp.refine
+
+    def prepare(self, state: TrainState, batch_s, batch_t, seed: int,
+                draws: Optional[MixStepDraws] = None) -> MixStepDraws:
+        """:meth:`_Step.prepare`, then the mix draw from the same host
+        generator (:func:`ops.mixing.draw_mix`) and, for the mining
+        forward, its dropout masks from the device generator, where
+        ``draws`` leaves them out; all on the batches' device."""
+        hp = self.hp
+        dev = batch_s["image"].device
+        host_gen, dev_gen = step_generators(seed, state.step, dev)
+        base = self._prepare(batch_s, batch_t, draws, host_gen, dev_gen)
+        mix = draws.mix if draws is not None else None
+        if mix is None:
+            mix = draw_mix(host_gen, self.mix, hp.crop, hp.class_num)
+        drop_m = draws.drop_m if draws is not None else None
+        if self.mining_forward:
+            if drop_m is None:
+                drop_m = draw_dropout_masks(self.model,
+                                            batch_t["image"].shape[0],
+                                            hp.crop, dev_gen)
+            drop_m = {k: to_device(m.bool(), dev) for k, m in drop_m.items()}
+        else:
+            drop_m = None
+        return MixStepDraws(**{f.name: getattr(base, f.name)
+                               for f in dataclasses.fields(base)},
+                            mix=mix.to(dev), drop_m=drop_m)
+
+    def losses(self, state, bs, bt, params, draws):
+        hp, model = self.hp, self.model
+        with torch.no_grad():
+            soft = bt["prob"].permute(0, 3, 1, 2).float()
+            if self.mining_forward:
+                m1, m2, feat_m = forward_scratch(model, params, bt["image"],
+                                                 draws.drop_m)
+                soft = label_refine(state.aligner, soft, feat_m, [m1, m2],
+                                    sup=bt.get("sup"), mode=hp.refine_mode,
+                                    temp=hp.refine_temp,
+                                    max_segments=hp.max_segments)
+            label_t, w, u = uvem_mine(soft, hp.cutoff_top, hp.cutoff_low,
+                                      hp.uvem_m, hp.uvem_t, hp.uvem_g,
+                                      hp.ignore_label)
+            lab_s = bs["label"]
+            if self.mix == "cutmix":
+                mask = box_mask(hp.crop, draws.mix.lam, draws.mix.cx,
+                                draws.mix.cy).expand(label_t.shape)
+            else:
+                mask = classmix_mask(draws.mix.selected, lab_s, hp.class_num,
+                                     hp.ignore_label)
+            _, _, img_t, lab_t = paste(mask, bs["image"], lab_s, bt["image"],
+                                       label_t)
+        balance_s = state.balance_s
+        p1, p2, feat_s = forward_train(model, params, bs["image"], draws.drop_s)
+        t1, t2, _ = forward_train(model, params, img_t, draws.drop_t)
+        loss_s = self._source_loss(state, [p1, p2], lab_s)
+        if self.combo:
+            loss_t = self._target_loss(state, [t1, t2], lab_t, w, u,
+                                       paste_mask=mask)
+            state.aligner, _ = update_prototype(
+                state.aligner, feat_s, lab_s, hp.class_num, hp.scale_factor)
+        else:
+            pixel_weight = None
+            if hp.balance_source:
+                pixel_weight, _ = class_balance_weight(balance_s, lab_t,
+                                                       hp.ignore_label)
+            loss_t = loss_calc(
+                [t1, t2], lab_t,
+                lambda lg, lb: cross_entropy_loss(lg, lb, hp.ignore_label,
+                                                  pixel_weight))
+        return {"loss": loss_s + loss_t, "loss_source": loss_s,
+                "loss_target": loss_t}
 
 
 class InitProtoStep:
@@ -512,6 +658,11 @@ def make_align_step(model, hp: StageHParams) -> AlignStep:
 
 def make_ssl_step(model, hp: StageHParams) -> SslStep:
     return SslStep(model, hp)
+
+
+def make_mix_step(model, hp: StageHParams, mix: str = "cutmix",
+                  combo: bool = False) -> MixStep:
+    return MixStep(model, hp, mix, combo)
 
 
 def make_init_proto_step(model, hp: StageHParams) -> InitProtoStep:
