@@ -35,7 +35,16 @@ weights from a seed):
 * ``[mix]`` the mix and combo self-training (``train_ssl_mix``): an f32
   combo step (ClassMix, UVEM, refine 'all') against the CPU, then 30
   flagship combo steps on the soft labels the ``[ssl]`` sweep left in RAM
-  and 30 legacy CutMix steps, each eagerly and through the graph.
+  and 30 legacy CutMix steps, each eagerly and through the graph;
+* ``[zoo]`` what the stages used to refuse: stage 3 with each target loss
+  of the zoo (UPS, OHEM, focal, GHM, GDP; an f32 GHM step against the
+  CPU), stage 1 with OHEM and gradient accumulation, each eagerly and
+  through the graph; ``with_cp`` on all four stages against none (losses,
+  BatchNorm buffers, peak memory, ms/step); PROCA's stage 2
+  (``AlignSimpleStep``) for 30 steps, eager and through the graph; and
+  ResNeXt-50 32x4d and ResNet-50 v1c: eval forward and fast path through
+  the serving graph against eager calls (K2 and K4 skipped where JAX
+  skips them) and an f32 training step against the CPU.
 
 ``[serve-graph]`` takes every bf16 serving mode through the captured
 slide predictor (``infer/graph.py``) at batch 1, 8 and 32 on 512^2 tiles,
@@ -229,9 +238,10 @@ def stream(dataset, seed, host_crop=None, skip=0):
 
 
 def copy_start(state):
-    """An independent copy of a train state before its first step: the
-    model (masters, BatchNorm buffers), a fresh optimizer like the
-    original's, the aligner and the balances."""
+    """An independent copy of a train state: the model (masters,
+    BatchNorm buffers), an optimizer like the original's (its counts,
+    momentum and accumulated gradients copied), the aligner, the balances
+    and the GHM/GDP histogram."""
     import dataclasses
 
     import torch
@@ -242,8 +252,11 @@ def copy_start(state):
     named = list(model.named_parameters())
     o = state.opt
     opt = SGD(named, o.schedule, o.momentum, o.weight_decay, o.clip_norm,
-              dict(zip(o.names, o.trainable)))
-    opt.count = o.count
+              dict(zip(o.names, o.trainable)), accum_steps=o.accum_steps)
+    opt.count, opt.mini_step = o.count, o.mini_step
+    with torch.no_grad():
+        for dst, src in zip(opt.trace + opt.acc, o.trace + o.acc):
+            dst.copy_(src)
 
     def clone(x):
         return None if x is None else dataclasses.replace(x, **{
@@ -254,7 +267,8 @@ def copy_start(state):
     return dataclasses.replace(state, model=model, opt=opt,
                                aligner=clone(state.aligner),
                                balance_s=clone(state.balance_s),
-                               balance_t=clone(state.balance_t))
+                               balance_t=clone(state.balance_t),
+                               ghm=clone(state.ghm))
 
 
 def graph_rerun(name, what, make_step, state, src_it, tgt_it, steps, dev,
@@ -590,72 +604,20 @@ def train_phase(dev):
     from uemda_tpu_torch.datasets.meta import LoveDA
     from uemda_tpu_torch.datasets.synthetic import synthetic_split
     from uemda_tpu_torch.train.loop import (
-        batch_to_device,
         build_model,
         build_state,
         default_hparams,
         make_eval_hook,
         run_training_loop,
     )
-    from uemda_tpu_torch.datasets.augment import draw_augment
-    from uemda_tpu_torch.train.steps import StepDraws, make_src_step
+    from uemda_tpu_torch.train.steps import make_src_step
 
     cfg = PRESETS["2urban"]  # LoveDA: 7 classes, 1024^2 tiles, crop 512^2
     nc = cfg.class_num
 
-    # (a) f32, TF32 off: ResNet-50 OS16 dual PPM at 128^2, batch 2, CORAL
-    # on; the same weights, batches, augmentation draws and dropout masks on
-    # both devices, at step 1 (lr(1) != 0) of a 100-step schedule
-    small = dataclasses.replace(cfg, crop=(128, 128))
-    g = torch.Generator().manual_seed(1)
-    cpu_model = build_model(small, device="cpu",
-                            generator=torch.Generator().manual_seed(0))
-    gpu_model = build_model(small, device=dev,
-                            generator=torch.Generator().manual_seed(0))
-    gpu_model.load_state_dict(cpu_model.state_dict())
-    hp32 = default_hparams(small, align_domain=True, compute_dtype="float32")
-    data = synthetic_split(LoveDA, n=4, hw=160, seed=2)
-    bs = {"image": data.images[:2], "label": data.labels[:2]}
-    bt = {"image": data.images[2:]}
-    drop = [{h: torch.rand(2, 512, 8, 8, generator=g) < 0.9
-             for h in ("layer5", "layer6")} for _ in range(2)]
-    draws = StepDraws(draw_augment(g, 2, (160, 160), small.crop),
-                      draw_augment(g, 2, (160, 160), small.crop), *drop)
-    out = {}
-    for name, model, d in (("cpu", cpu_model, "cpu"), ("gpu", gpu_model, dev)):
-        state = build_state(model, small, 100)
-        state.step = state.opt.count = 1
-        before = {n: p.detach().clone() for n, p in model.named_parameters()}
-        metrics = make_src_step(model, hp32)(
-            state, batch_to_device(bs, d), batch_to_device(bt, d), 0,
-            draws=draws)
-        out[name] = (
-            {k: float(v) for k, v in metrics.items()},
-            {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
-            {n: (p.detach() - before[n]).cpu()
-             for n, p in model.named_parameters()})
-    (m_c, g_c, u_c), (m_g, g_g, u_g) = out["cpu"], out["gpu"]
-    for k in m_c:
-        rel = abs(m_g[k] - m_c[k]) / max(abs(m_c[k]), 1e-30)
-        if not rel <= 1e-4:  # f32 sums in other orders; measured in PERF.md
-            fail(f"f32 step {k}: card {m_g[k]} vs CPU {m_c[k]} (rel {rel:.3g})")
-
-    def rel_max(a, b):
-        num = max(float((a[n] - b[n]).abs().max()) for n in a)
-        return num / max(float(b[n].abs().max()) for n in b)
-
-    e_g, e_u = rel_max(g_g, g_c), rel_max(u_g, u_c)
-    worst = max(g_c, key=lambda n: float((g_g[n] - g_c[n]).abs().max()))
-    # the gradients of a random-weight net at 8x8 features are
-    # ill-conditioned in f32 (PERF.md, stage-1 section): 2e-2 of max |g|
-    if not (e_g <= 2e-2 and e_u <= 2e-2):
-        fail(f"f32 step gradients: max abs err / max |g| {e_g:.3g}, update "
-             f"{e_u:.3g} (limit 2e-2), worst {worst}")
-    phase("train", f"f32 step on the card vs the CPU plain path (ResNet-50 "
-          f"OS16, 128^2, batch 2, CORAL, step 1): losses "
-          f"{json.dumps({k: [m_g[k], m_c[k]] for k in m_c})}; gradients max "
-          f"abs err / max |g| {e_g:.3g} (worst {worst}), updates {e_u:.3g}")
-    del cpu_model, gpu_model, out, g_c, g_g, u_c, u_g
+    # (a) one f32 step with CORAL on the card against the CPU
+    f32_step_check("train", "f32 step (ResNet-50 OS16, CORAL)", cfg, dev,
+                   make_src_step, dict(align_domain=True))
 
     # (b) the flagship: 2urban geometry, bf16, CORAL, batch 8, 30 steps with
     # the schedule's horizon at 30 (warm-up 1 step), synthetic 1024^2 tiles
@@ -752,25 +714,17 @@ def align_phase(dev, ctx):
     launch count set to 0 just before the pass and read just after the
     evaluation; returns those counts and the inputs ``label_refine`` saw
     last, for its timing."""
-    import dataclasses
-
     import numpy as np
     import torch
 
-    from uemda_tpu_torch.datasets.augment import draw_augment
-    from uemda_tpu_torch.datasets.meta import LoveDA
-    from uemda_tpu_torch.datasets.synthetic import synthetic_split
     from uemda_tpu_torch.tools.init_prototypes import init_prototypes
     from uemda_tpu_torch.train.loop import (
-        batch_to_device,
-        build_model,
         build_state,
         default_hparams,
         make_eval_hook,
         run_training_loop,
     )
     from uemda_tpu_torch.train.steps import (
-        StepDraws,
         make_align_step,
         make_init_proto_step,
     )
@@ -778,67 +732,20 @@ def align_phase(dev, ctx):
     cfg = ctx["cfg"]
     nc = cfg.class_num
 
-    # (a) f32, TF32 off: ResNet-50 OS16 dual PPM at 128^2, batch 2, CORAL,
-    # refine 'all' with 16-pixel grid superpixels: the stage-1 check's
-    # weights, batches, draws and dropout masks (seeds 0, 1, 2), the target's
-    # superpixel maps and random prototypes, the same on both devices, at
-    # step 1 of a 100-step schedule. The gradient limit measures the
-    # conditioning of this tiny geometry (the stem conv's gradient, as in
-    # stage 1) as much as the port; another draw exceeds it for the
-    # stage-1 step as well (PERF.md, PR 3)
-    small = dataclasses.replace(cfg, crop=(128, 128))
-    g = torch.Generator().manual_seed(1)
-    cpu_model = build_model(small, device="cpu",
-                            generator=torch.Generator().manual_seed(0))
-    gpu_model = build_model(small, device=dev,
-                            generator=torch.Generator().manual_seed(0))
-    gpu_model.load_state_dict(cpu_model.state_dict())
-    hp32 = default_hparams(small, align_domain=True, compute_dtype="float32")
-    data = synthetic_split(LoveDA, n=4, hw=160, seed=2, with_sup=True)
-    bs = {"image": data.images[:2], "label": data.labels[:2]}
-    bt = {"image": data.images[2:], "sup": data.sup[2:]}
-    drop = [{h: torch.rand(2, 512, 8, 8, generator=g) < 0.9
-             for h in ("layer5", "layer6")} for _ in range(2)]
-    draws = StepDraws(draw_augment(g, 2, (160, 160), small.crop),
-                      draw_augment(g, 2, (160, 160), small.crop), *drop)
-    proto = torch.randn(nc, 2048, generator=g)
-    out = {}
-    for name, model, d in (("cpu", cpu_model, "cpu"), ("gpu", gpu_model, dev)):
-        state = build_state(model, small, 100, prototypes=proto)
-        state.step = state.opt.count = 1
-        before = {n: p.detach().clone() for n, p in model.named_parameters()}
-        metrics = make_align_step(model, hp32)(
-            state, batch_to_device(bs, d), batch_to_device(bt, d), 0,
-            draws=draws)
-        out[name] = (
-            {k: float(v) for k, v in metrics.items()},
-            {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
-            {n: (p.detach() - before[n]).cpu()
-             for n, p in model.named_parameters()},
-            state.aligner.prototypes.cpu())
-    (m_c, g_c, u_c, p_c), (m_g, g_g, u_g, p_g) = out["cpu"], out["gpu"]
-    for k in m_c:
-        rel = abs(m_g[k] - m_c[k]) / max(abs(m_c[k]), 1e-30)
-        if not rel <= 1e-4:  # f32 sums in other orders, as stage 1
-            fail(f"f32 stage-2 step {k}: card {m_g[k]} vs CPU {m_c[k]} "
-                 f"(rel {rel:.3g})")
+    # (a) one f32 stage-2 step (CORAL, refine 'all' with 16-pixel grid
+    # superpixels) on the card against the CPU, the prototypes' EMA within
+    # 1e-5 of their largest entry
+    def proto_gate(sc, sg, _):
+        p_c, p_g = sc.aligner.prototypes.cpu(), sg.aligner.prototypes.cpu()
+        e_p = float((p_g - p_c).abs().max()) / float(p_c.abs().max())
+        if not e_p <= 1e-5:
+            fail(f"f32 stage-2 step: prototypes {e_p:.3g} of max |p| "
+                 "(limit 1e-5)")
+        return f"; prototypes {e_p:.3g} of max |p|"
 
-    def rel_max(a, b):
-        num = max(float((a[n] - b[n]).abs().max()) for n in a)
-        return num / max(float(b[n].abs().max()) for n in b)
-
-    e_g, e_u = rel_max(g_g, g_c), rel_max(u_g, u_c)
-    e_p = float((p_g - p_c).abs().max()) / float(p_c.abs().max())
-    if not (e_g <= 2e-2 and e_u <= 2e-2 and e_p <= 1e-5):
-        fail(f"f32 stage-2 step: gradients {e_g:.3g}, updates {e_u:.3g} of "
-             f"max |g| (limit 2e-2); prototypes {e_p:.3g} of max |p| (limit "
-             "1e-5)")
-    phase("align", f"f32 stage-2 step on the card vs the CPU plain path "
-          f"(ResNet-50 OS16, 128^2, batch 2, CORAL, refine 'all', step 1): "
-          f"losses {json.dumps({k: [m_g[k], m_c[k]] for k in m_c})}; "
-          f"gradients max abs err / max |g| {e_g:.3g}, updates {e_u:.3g}; "
-          f"prototypes {e_p:.3g} of max |p|")
-    del cpu_model, gpu_model, out, g_c, g_g, u_c, u_g
+    f32_step_check("align", "f32 stage-2 step (ResNet-50 OS16, CORAL, "
+                   "refine 'all')", cfg, dev, make_align_step,
+                   dict(align_domain=True), sup=True, extra=proto_gate)
 
     # (b) the chain at the flagship: the stage-1 model -> init_prototypes
     # over the 16 source tiles (2 batches of 8) -> 30 stage-2 steps with
@@ -1087,15 +994,11 @@ def ssl_phase(dev, ctx):
     (UVEM, refine 'all') through ``run_training_loop`` and an evaluation,
     every launch count set to 0 just before the prototype pass and read
     just after the evaluation; returns those counts."""
-    import dataclasses
-
     import numpy as np
     import torch
 
-    from uemda_tpu_torch.datasets.augment import draw_augment
     from uemda_tpu_torch.datasets.base import ArrayDataset, infinite_batches
     from uemda_tpu_torch.datasets.meta import LoveDA, NORM_STATS
-    from uemda_tpu_torch.datasets.synthetic import synthetic_split
     from uemda_tpu_torch.infer.fastpath import build_fastpath
     from uemda_tpu_torch.infer.pseudo_gen import generate_pseudo_labels
     from uemda_tpu_torch.infer.slide import make_predictor
@@ -1104,14 +1007,12 @@ def ssl_phase(dev, ctx):
     from uemda_tpu_torch.tools.init_prototypes import init_prototypes
     from uemda_tpu_torch.train.loop import (
         batch_to_device,
-        build_model,
         build_state,
         default_hparams,
         make_eval_hook,
         run_training_loop,
     )
     from uemda_tpu_torch.train.steps import (
-        StepDraws,
         make_init_proto_step,
         make_ssl_step,
     )
@@ -1119,77 +1020,29 @@ def ssl_phase(dev, ctx):
     cfg = ctx["cfg"]
     nc = cfg.class_num
 
-    # (a) f32, TF32 off: ResNet-50 OS16 dual PPM at 128^2, batch 2, UVEM
-    # with refine 'all' and the target class balance; stage 1's draw (model
-    # seed 0, data seeds 1, 2), the target's superpixel maps, stored soft
-    # labels peaked on its labels, random prototypes, the same on both
-    # devices, at step 1 of a 100-step schedule
-    small = dataclasses.replace(cfg, crop=(128, 128))
-    g = torch.Generator().manual_seed(1)
-    cpu_model = build_model(small, device="cpu",
-                            generator=torch.Generator().manual_seed(0))
-    gpu_model = build_model(small, device=dev,
-                            generator=torch.Generator().manual_seed(0))
-    gpu_model.load_state_dict(cpu_model.state_dict())
-    hp32 = default_hparams(small, refine=True, refine_mode="all",
-                           balance_target=True, compute_dtype="float32")
-    data = synthetic_split(LoveDA, n=4, hw=160, seed=2, with_sup=True)
-    bs = {"image": data.images[:2], "label": data.labels[:2]}
-    bt = {"image": data.images[2:], "sup": data.sup[2:],
-          "prob": soft_labels(data.labels[2:], nc, seed=1)}
-    drop = [{h: torch.rand(2, 512, 8, 8, generator=g) < 0.9
-             for h in ("layer5", "layer6")} for _ in range(2)]
-    draws = StepDraws(draw_augment(g, 2, (160, 160), small.crop),
-                      draw_augment(g, 2, (160, 160), small.crop, "compose"),
-                      *drop)
-    proto = torch.randn(nc, cpu_model.config.inchannels, generator=g)
-    out = {}
-    for name, model, d in (("cpu", cpu_model, "cpu"), ("gpu", gpu_model, dev)):
-        state = build_state(model, small, 100, prototypes=proto)
-        state.step = state.opt.count = 1
-        before = {n: p.detach().clone() for n, p in model.named_parameters()}
-        metrics = make_ssl_step(model, hp32)(
-            state, batch_to_device(bs, d), batch_to_device(bt, d), 0,
-            draws=draws)
-        out[name] = (
-            {k: float(v) for k, v in metrics.items()},
-            {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
-            {n: (p.detach() - before[n]).cpu()
-             for n, p in model.named_parameters()},
-            state.aligner.prototypes.cpu(), state.balance_t.freq.cpu())
-    (m_c, g_c, u_c, p_c, f_c), (m_g, g_g, u_g, p_g, f_g) = \
-        out["cpu"], out["gpu"]
-    for k in ("loss", "loss_source", "loss_target"):
-        rel = abs(m_g[k] - m_c[k]) / max(abs(m_c[k]), 1e-30)
-        if not rel <= 1e-4:  # f32 sums in other orders, as stages 1 and 2
-            fail(f"f32 stage-3 step {k}: card {m_g[k]} vs CPU {m_c[k]} "
-                 f"(rel {rel:.3g})")
-    if not (m_c["loss_target"] > 0 and m_c["selected"] > 0
-            and m_c["trained"] > 0):
-        fail(f"f32 stage-3 step: the target loss selected or trained no "
-             f"pixel ({m_c}); the check would show nothing of K8")
-    for k in ("selected", "trained"):  # a pixel at a threshold may flip
-        if not abs(m_g[k] - m_c[k]) <= 1e-3:
-            fail(f"f32 stage-3 step {k}: card {m_g[k]} vs CPU {m_c[k]}")
+    # (a) one f32 stage-3 step (UVEM, refine 'all', the target class
+    # balance) on the card against the CPU: the prototypes within 1e-5 of
+    # their largest entry, the class-balance frequencies 1e-6 relative, and
+    # pixels selected and trained, so the check shows K8
+    def ssl_gate(sc, sg, m_c):
+        if not (m_c["loss_target"] > 0 and m_c["selected"] > 0
+                and m_c["trained"] > 0):
+            fail(f"f32 stage-3 step: the target loss selected or trained no "
+                 f"pixel ({m_c}); the check would show nothing of K8")
+        p_c, p_g = sc.aligner.prototypes.cpu(), sg.aligner.prototypes.cpu()
+        f_c, f_g = sc.balance_t.freq.cpu(), sg.balance_t.freq.cpu()
+        e_p = float((p_g - p_c).abs().max()) / float(p_c.abs().max())
+        e_f = float(((f_g - f_c).abs() / f_c.abs()).max())
+        if not (e_p <= 1e-5 and e_f <= 1e-6):
+            fail(f"f32 stage-3 step: prototypes {e_p:.3g} of max |p| (limit "
+                 f"1e-5); class-balance frequencies {e_f:.3g} relative "
+                 "(limit 1e-6)")
+        return f"; prototypes {e_p:.3g} of max |p|; frequencies {e_f:.3g}"
 
-    def rel_max(a, b):
-        num = max(float((a[n] - b[n]).abs().max()) for n in a)
-        return num / max(float(b[n].abs().max()) for n in b)
-
-    e_g, e_u = rel_max(g_g, g_c), rel_max(u_g, u_c)
-    e_p = float((p_g - p_c).abs().max()) / float(p_c.abs().max())
-    e_f = float(((f_g - f_c).abs() / f_c.abs()).max())
-    if not (e_g <= 2e-2 and e_u <= 2e-2 and e_p <= 1e-5 and e_f <= 1e-6):
-        fail(f"f32 stage-3 step: gradients {e_g:.3g}, updates {e_u:.3g} of "
-             f"max |g| (limit 2e-2); prototypes {e_p:.3g} of max |p| (limit "
-             f"1e-5); class-balance frequencies {e_f:.3g} relative (limit "
-             "1e-6)")
-    phase("ssl", f"f32 stage-3 step on the card vs the CPU plain path "
-          f"(ResNet-50 OS16, 128^2, batch 2, UVEM, refine 'all', target "
-          f"class balance, step 1): {json.dumps({k: [m_g[k], m_c[k]] for k in m_c})}; "
-          f"gradients max abs err / max |g| {e_g:.3g}, updates {e_u:.3g}; "
-          f"prototypes {e_p:.3g} of max |p|; frequencies {e_f:.3g}")
-    del cpu_model, gpu_model, out, g_c, g_g, u_c, u_g
+    f32_step_check("ssl", "f32 stage-3 step (ResNet-50 OS16, UVEM, refine "
+                   "'all', target class balance)", cfg, dev, make_ssl_step,
+                   dict(refine=True, refine_mode="all", balance_target=True),
+                   sup=True, prob=True, extra=ssl_gate)
 
     # (b) the chain's steps 4 and 5 at the flagship: init_prototypes over
     # the 16 source tiles on the stage-2 model, the sweep of the 16 target
@@ -1688,6 +1541,460 @@ def mix_phase(dev, ctx, sctx):
           f"the graph {ms_lg:.3f}; {CARD[0]}")
     del legacy
     torch.cuda.empty_cache()
+    return counts
+
+
+ZOO_LOSSES = ("ups", "ohem", "focal", "ghm", "gdp")
+ZOO_STEPS = 21  # step 1 alone, 2-11 and 12-21 in two calls at K_GRAPH 10
+
+
+def f32_step_check(tag, what, cfg, dev, make_step, hp_kw, backbone=None,
+                   sup=False, prob=False, extra=None):
+    """One f32 train step (TF32 off) on the card against the same step on
+    the CPU's plain path: ResNet-50 OS16 dual PPM (or ``backbone``) at
+    128^2, batch 2, the same weights (seed 0), LoveDA batches (seed 2),
+    augmentation draws, dropout masks and random prototypes (seed 1) on
+    both devices, at step 1 (lr(1) != 0) of a 100-step schedule; with
+    ``sup`` the target carries its superpixel maps, with ``prob`` stored
+    soft labels peaked on its labels and stage 3's "compose" pipeline.
+    Gates: losses 1e-4 relative (f32 sums in other orders; the shares of
+    selected and trained pixels 1e-3: a pixel at a threshold may flip),
+    gradients and updates 2e-2 of max |g| (the tiny geometry's gradients
+    are ill-conditioned in f32, PERF.md, PRs 2-3); ``extra(state_cpu,
+    state_gpu, metrics_cpu)`` adds its own gates and returns a note."""
+    import dataclasses
+
+    import torch
+
+    from uemda_tpu_torch.datasets.augment import draw_augment
+    from uemda_tpu_torch.datasets.meta import LoveDA
+    from uemda_tpu_torch.datasets.synthetic import synthetic_split
+    from uemda_tpu_torch.train.loop import (
+        batch_to_device,
+        build_model,
+        build_state,
+        default_hparams,
+    )
+    from uemda_tpu_torch.train.steps import StepDraws
+
+    small = dataclasses.replace(cfg, crop=(128, 128),
+                                model=backbone or cfg.model)
+    nc = small.class_num
+    g = torch.Generator().manual_seed(1)
+    cpu_model = build_model(small, device="cpu",
+                            generator=torch.Generator().manual_seed(0))
+    gpu_model = build_model(small, device=dev,
+                            generator=torch.Generator().manual_seed(0))
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    hp32 = default_hparams(small, compute_dtype="float32", **hp_kw)
+    data = synthetic_split(LoveDA, n=4, hw=160, seed=2, with_sup=sup)
+    bs = {"image": data.images[:2], "label": data.labels[:2]}
+    bt = {"image": data.images[2:]}
+    if sup:
+        bt["sup"] = data.sup[2:]
+    if prob:
+        bt["prob"] = soft_labels(data.labels[2:], nc, seed=1)
+    drop = [{h: torch.rand(2, 512, 8, 8, generator=g) < 0.9
+             for h in ("layer5", "layer6")} for _ in range(2)]
+    draws = StepDraws(draw_augment(g, 2, (160, 160), small.crop),
+                      draw_augment(g, 2, (160, 160), small.crop,
+                                   "compose" if prob else "oneof"), *drop)
+    proto = torch.randn(nc, cpu_model.config.inchannels, generator=g)
+    out, states = {}, {}
+    for name, model, d in (("cpu", cpu_model, "cpu"), ("gpu", gpu_model, dev)):
+        state = build_state(model, small, 100, prototypes=proto)
+        state.step = state.opt.count = 1
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        metrics = make_step(model, hp32)(
+            state, batch_to_device(bs, d), batch_to_device(bt, d), 0,
+            draws=draws)
+        out[name] = (
+            {k: float(v) for k, v in metrics.items()},
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            {n: (p.detach() - before[n]).cpu()
+             for n, p in model.named_parameters()})
+        states[name] = state
+    (m_c, g_c, u_c), (m_g, g_g, u_g) = out["cpu"], out["gpu"]
+    for k in m_c:
+        if k in ("selected", "trained"):  # a pixel at a threshold may flip
+            ok = abs(m_g[k] - m_c[k]) <= 1e-3
+        else:
+            ok = abs(m_g[k] - m_c[k]) <= 1e-4 * max(abs(m_c[k]), 1e-30)
+        if not ok:
+            fail(f"{what}: {k} card {m_g[k]} vs CPU {m_c[k]}")
+
+    def rel_max(a, b):
+        num = max(float((a[n] - b[n]).abs().max()) for n in a)
+        return num / max(float(b[n].abs().max()) for n in b)
+
+    e_g, e_u = rel_max(g_g, g_c), rel_max(u_g, u_c)
+    if not (e_g <= 2e-2 and e_u <= 2e-2):
+        worst = max(g_c, key=lambda n: float((g_g[n] - g_c[n]).abs().max()))
+        fail(f"{what}: gradients {e_g:.3g}, updates {e_u:.3g} of max |g| "
+             f"(limit 2e-2), worst {worst}")
+    note = extra(states["cpu"], states["gpu"], m_c) if extra else ""
+    phase(tag, f"{what} on the card vs the CPU plain path (128^2, batch 2, "
+          f"step 1): {json.dumps({k: [m_g[k], m_c[k]] for k in m_c})}; "
+          f"gradients max abs err / max |g| {e_g:.3g}, updates {e_u:.3g}"
+          f"{note}")
+    return states
+
+
+def eager_run(tag, what, make, state, src_it, tgt_it, steps, logger,
+              eval_fn=None):
+    """``steps`` eager steps of ``make(state.model)`` through
+    ``run_training_loop`` (logs and an optional evaluation at the end);
+    returns (metrics by step, ms/step by CUDA events over steps 4 on,
+    the loop's result)."""
+    import numpy as np
+    import torch
+
+    from uemda_tpu_torch.train.loop import run_training_loop
+
+    losses, events = [], []
+
+    def on_step(i, metrics):
+        losses.append(metrics)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    best = run_training_loop(state, make(state.model), src_it, tgt_it, steps,
+                             logger, eval_every=steps, log_every=steps,
+                             eval_fn=eval_fn, seed=2333, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    loss = [{k: float(v) for k, v in m.items()} for m in losses]
+    if len(loss) != steps or not all(np.isfinite(list(m.values())).all()
+                                     for m in loss):
+        fail(f"{what}: {len(loss)} steps, losses {loss}")
+    w0 = 3
+    ms = events[w0 - 1].elapsed_time(events[-1]) / (steps - w0)
+    phase(tag, f"{what}: {steps} eager steps in {wall:.2f} s; loss "
+          f"{loss[0]['loss']:.5g} -> {loss[-1]['loss']:.5g}; steps "
+          f"{w0 + 1}-{steps}: {ms:.3f} ms/step by CUDA events; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {CARD[0]}")
+    return loss, ms, best
+
+
+def zoo_phase(dev, ctx, sctx):
+    """``[zoo]``: what the three stages used to refuse, at the flagship
+    (ResNet-50 OS16 dual PPM, 2urban, bf16, batch 8 per domain, 512^2
+    crops) unless named otherwise. (a) Stage 3 with each target loss of
+    ``ZOO_LOSSES`` (refine 'all', on the chain's model, the prototypes
+    stage 3 started from and the ``[ssl]`` sweep's soft labels):
+    ``ZOO_STEPS`` eager steps, then again from a copy of the start state
+    through the graph at ``K_GRAPH``, steps 1-3 held at 1e-4 relative;
+    for GHM also the histogram of both runs, and one f32 step on the card
+    against the CPU. (b) Stage 1 with OHEM and ``accum_steps`` 2, eager
+    and through the graph: the masters, momentum and running mean of the
+    two runs equal. (c) ``with_cp`` on all four stages against the same
+    stage-1 steps without it: losses, BatchNorm buffers, peak memory,
+    ms/step. (d) PROCA's stage 2 (``AlignSimpleStep``) for 30 steps,
+    eager and through the graph. (e) ResNeXt-50 32x4d and ResNet-50 v1c
+    with random weights: the eval forward and the fast path at batch 8
+    through the serving graph against eager calls, ms/forward, K2 and K4
+    launches where JAX skips them, and an f32 training step on the card
+    against the CPU. Every launch count is set to 0 before (a) and read
+    after (e); returns those counts."""
+    import torch
+
+    from uemda_tpu_torch.infer.fastpath import build_fastpath
+    from uemda_tpu_torch.infer.slide import make_predictor
+    from uemda_tpu_torch.models import DeeplabV2, DeeplabV2Config
+    from uemda_tpu_torch.ops.resblock import bottleneck_identity
+    from uemda_tpu_torch.ops.segment import segment_gather, segment_max
+    from uemda_tpu_torch.ops.stem import stem_pool
+    from uemda_tpu_torch.train.loop import (
+        batch_to_device,
+        build_state,
+        default_hparams,
+        make_eval_hook,
+    )
+    from uemda_tpu_torch.train.steps import (
+        make_align_simple_step,
+        make_src_step,
+        make_ssl_step,
+    )
+
+    cfg = ctx["cfg"]
+    base = ctx["model"]
+    target = sctx["target"]
+    logger = logging.getLogger("chip_smoke.zoo")
+    eval_fn, _ = make_eval_hook(cfg, None, dataset=ctx["val"])
+
+    # (a0) the f32 GHM step on the card against the CPU, with the target
+    # class balance on (which GHM does not move, as JAX); the histogram of
+    # each head's gradient norms: the same pixel count, at most 0.1% of the
+    # pixels' weight in another bin (a norm on an edge may round across)
+    def ghm_gate(sc, sg, _):
+        a, b = sg.ghm.acc_sum.cpu(), sc.ghm.acc_sum.cpu()
+        l1 = float((a - b).abs().sum())
+        if not (abs(float(a.sum() - b.sum())) <= 1e-5 * float(b.sum())
+                and l1 <= 1e-3 * float(b.sum()) and float(b.sum()) > 0):
+            fail(f"f32 GHM step: acc_sum card {a.tolist()} vs CPU "
+                 f"{b.tolist()}")
+        if not torch.equal(sg.balance_t.freq.cpu(), sc.balance_t.freq.cpu()):
+            fail("f32 GHM step: the target class balance moved")
+        return f"; acc_sum L1 diff {l1:.3g} of {float(b.sum()):.6g}"
+
+    f32_step_check("zoo", "f32 stage-3 GHM step (refine 'all', target "
+                   "class balance)", cfg, dev, make_ssl_step,
+                   dict(refine=True, refine_mode="all", target_loss="ghm",
+                        balance_target=True), sup=True, prob=True,
+                   extra=ghm_gate)
+
+    torch.cuda.synchronize()
+    for fn in WRAPPERS:
+        fn.launches = 0
+    t_zoo = time.time()
+    # (a) stage 3 with each loss of the zoo, eager and through the graph,
+    # on host-cropped batches (the same crops in both runs): the whole
+    # tiles' upload would bind the graph runs on some hosts (PR 12, §5),
+    # and the losses are compared by their device time
+    steps = ZOO_STEPS
+    hc = (TILE, TILE)
+    table = {}
+    for lt in ZOO_LOSSES:
+        hp = default_hparams(cfg, refine=True, refine_mode="all",
+                             target_loss=lt)
+        make = lambda m, hp=hp: make_ssl_step(m, hp)  # noqa: E731
+        state = build_state(copy.deepcopy(base), cfg, steps,
+                            prototypes=sctx["prototypes"])
+        start = copy_start(state)
+        loss, ms_e, _ = eager_run("zoo", f"stage 3 --lt {lt}", make, state,
+                                  stream(ctx["src"], 40, hc),
+                                  stream(target, 41, hc), steps, logger)
+        if not max(m["loss_target"] for m in loss) > 0:
+            fail(f"stage 3 --lt {lt}: the target loss stayed 0 ({loss})")
+        ms_g, _ = graph_rerun("zoo", f"stage 3 --lt {lt} through the CUDA "
+                              "graph", make, start, stream(ctx["src"], 40, hc),
+                              stream(target, 41, hc), steps, dev, loss)
+        if lt == "ghm":
+            a, b = state.ghm.acc_sum, start.ghm.acc_sum
+            err = float((a - b).abs().max())
+            if not err <= 1e-5 * float(a.abs().max()):
+                fail(f"stage 3 --lt ghm: the graph's histogram differs from "
+                     f"the eager run's by {err}")
+            phase("zoo", f"stage 3 --lt ghm: histogram after {steps} steps "
+                  f"eager vs graph max abs diff {err:.3g} (sum "
+                  f"{float(a.sum()):.6g}); target class balance untouched "
+                  f"{bool(torch.allclose(state.balance_t.freq, torch.full_like(state.balance_t.freq, 1.0 / cfg.class_num)))}")
+        # the profiled steps are extra: their launches are not counted
+        saved = [fn.launches for fn in WRAPPERS]
+        src_it, tgt_it = stream(ctx["src"], 42, hc), stream(target, 43, hc)
+        row = [ms_e, ms_g]
+        if lt == "ghm":
+            row += list(profile_steps(
+                f"stage-3 step --lt {lt} (bf16, batch {BATCH}, refine "
+                "'all', host crop)", make(state.model), state, src_it,
+                tgt_it, dev, ms_e))
+        row += list(graph_profile("zoo", f"stage-3 step --lt {lt}", make,
+                                  start, src_it, tgt_it, dev, ms_g))
+        for fn, n in zip(WRAPPERS, saved):
+            fn.launches = n
+        table[lt] = row
+        del state, start
+        torch.cuda.empty_cache()
+    phase("zoo", "stage 3 by --lt (host crop), ms/step by CUDA events "
+          f"[eager, through the graph at K={K_GRAPH}, (GHM: eager device "
+          f"ms/step, idle share,) graph device ms/step, idle share]: "
+          f"{json.dumps(table)}; {CARD[0]}")
+
+    # (b) stage 1 with OHEM and gradient accumulation 2
+    hp1 = default_hparams(cfg, align_domain=True, source_loss="ohem")
+    make1 = lambda m: make_src_step(m, hp1)  # noqa: E731
+    state = build_state(copy.deepcopy(base), cfg, steps, accum_steps=2)
+    start = copy_start(state)
+    loss, ms_e, _ = eager_run("zoo", "stage 1 --ls OhemCrossEntropy "
+                              "--accum-steps 2", make1, state,
+                              stream(ctx["src"], 44), stream(ctx["tgt"], 45),
+                              steps, logger)
+    ms_g, _ = graph_rerun("zoo", "stage 1 --ls OhemCrossEntropy --accum-steps "
+                          "2 through the CUDA graph", make1, start,
+                          stream(ctx["src"], 44), stream(ctx["tgt"], 45),
+                          steps, dev, loss)
+    diff = max(float((a - b).abs().max()) for a, b in zip(
+        list(state.model.parameters()) + state.opt.trace + state.opt.acc,
+        list(start.model.parameters()) + start.opt.trace + start.opt.acc))
+    counts_ok = (state.opt.count, state.opt.mini_step) == \
+        (start.opt.count, start.opt.mini_step) == (steps // 2, steps % 2)
+    if diff != 0 or not counts_ok:
+        fail(f"accumulation: masters, momentum and running mean after "
+             f"{steps} micro-steps differ between eager and graph by {diff}; "
+             f"counts {state.opt.count, state.opt.mini_step} / "
+             f"{start.opt.count, start.opt.mini_step}")
+    phase("zoo", f"stage 1 OHEM, accumulation 2: after {steps} micro-steps "
+          f"({state.opt.count} updates, mini_step {state.opt.mini_step}) the "
+          f"masters, momentum and running mean of eager and graph runs are "
+          f"equal; ms/micro-step eager {ms_e:.3f}, through the graph "
+          f"{ms_g:.3f}; {CARD[0]}")
+    del state, start
+    torch.cuda.empty_cache()
+
+    # (c) with_cp on all four stages against the same stage-1 steps
+    hp_c = default_hparams(cfg, align_domain=True)
+    it_s, it_t = stream(ctx["src"], 46), stream(ctx["tgt"], 47)
+    batches = [(batch_to_device(next(it_s), dev),
+                batch_to_device(next(it_t), dev)) for _ in range(6)]
+    it_s.close()
+    it_t.close()
+    runs = {}
+    for cp in (False, True):
+        model = copy.deepcopy(base)
+        model.encoder.resnet.with_cp = (cp,) * 4
+        state = build_state(model, cfg, 30)
+        step = make_src_step(model, hp_c)
+        out, bufs = [], None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        evs = []
+        for i, (bs, bt) in enumerate(batches):
+            out.append({k: float(v) for k, v in step(state, bs, bt,
+                                                     2333).items()})
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            evs.append(ev)
+            if i == 0:
+                bufs = {n: b.clone() for n, b in model.named_buffers()}
+        torch.cuda.synchronize()
+        runs[cp] = dict(
+            loss=out, bufs1=bufs, bufs={n: b.clone() for n, b in
+                                        model.named_buffers()},
+            ms=evs[1].elapsed_time(evs[-1]) / (len(evs) - 2),
+            peak=(torch.cuda.max_memory_allocated() - base_mem) / 2**30)
+        # the device's time a step (three more steps, not held to anything)
+        runs[cp]["device"] = profile_steps(
+            f"stage-1 step, with_cp {cp} (bf16, batch {BATCH}, CORAL)", None,
+            None, None, None, dev, runs[cp]["ms"], n=3,
+            run=lambda: [step(state, bs, bt, 2333) for bs, bt in batches[:3]])
+        del state, step
+        if not cp:
+            del model
+    a, b = runs[False], runs[True]
+    for i, (x, y) in enumerate(zip(a["loss"], b["loss"])):
+        for k in x:
+            if not abs(x[k] - y[k]) <= 1e-4 * max(abs(x[k]), 1e-30):
+                fail(f"with_cp: step {i + 1} {k} {y[k]} vs {x[k]} without")
+    for n, t in a["bufs1"].items():
+        if not torch.equal(t, b["bufs1"][n]):
+            fail(f"with_cp: BatchNorm buffer {n} after step 1 differs")
+    bit = all(torch.equal(t, b["bufs"][n]) for n, t in a["bufs"].items())
+    phase("zoo", f"with_cp on all four stages vs none (stage 1, CORAL, bf16, "
+          f"batch {BATCH}, 6 steps): losses within 1e-4 "
+          f"({json.dumps([[x['loss'], y['loss']] for x, y in zip(a['loss'], b['loss'])])}), "
+          f"BatchNorm buffers equal after step 1, after step 6 bit-equal "
+          f"{bit}; peak memory above the model's {a['peak']:.3f} GiB without, "
+          f"{b['peak']:.3f} GiB with; ms/step {a['ms']:.3f} without, "
+          f"{b['ms']:.3f} with (device ms/step, idle share: {a['device']} "
+          f"without, {b['device']} with); {CARD[0]}")
+    table["with_cp"] = [a["ms"], b["ms"], a["peak"], b["peak"],
+                        a["device"], b["device"]]
+    del runs, a, b, model, batches
+    torch.cuda.empty_cache()
+
+    # (d) PROCA's stage 2: 30 steps, eager and through the graph
+    steps_p = 30
+    hp_p = default_hparams(cfg, refine=False)
+    make_p = lambda m: make_align_simple_step(m, hp_p, conf_thresh=0.9)  # noqa: E731,E501
+    state = build_state(copy.deepcopy(base), cfg, steps_p,
+                        prototypes=sctx["prototypes"])
+    start = copy_start(state)
+    proto0 = state.aligner.prototypes.clone()
+    seg0 = [segment_max.launches, segment_gather.launches]
+    loss_p, ms_pe, best = eager_run("zoo", "PROCA stage 2 (AlignSimpleStep, "
+                                    "conf 0.9)", make_p, state,
+                                    stream(ctx["src"], 48),
+                                    stream(ctx["tgt"], 49), steps_p, logger,
+                                    eval_fn=eval_fn)
+    moved = float((state.aligner.prototypes - proto0).abs().max())
+    if not (torch.isfinite(state.aligner.prototypes).all() and moved > 0):
+        fail(f"PROCA stage 2: prototypes moved {moved}")
+    if [segment_max.launches, segment_gather.launches] != seg0:
+        fail("PROCA stage 2 launched K5/K7: it has no refinement")
+    ms_pg, _ = graph_rerun("zoo", "PROCA stage 2 through the CUDA graph",
+                           make_p, start, stream(ctx["src"], 48),
+                           stream(ctx["tgt"], 49), steps_p, dev, loss_p,
+                           eval_fn=eval_fn)
+    table["proca"] = [ms_pe, ms_pg]
+    phase("zoo", f"PROCA stage 2: prototypes moved {moved:.4g}; mIoU "
+          f"{best['miou']:.5f}; loss_align {loss_p[0]['loss_align']:.5g} -> "
+          f"{loss_p[-1]['loss_align']:.5g}; ms/step eager {ms_pe:.3f}, "
+          f"through the graph {ms_pg:.3f}; {CARD[0]}")
+    del state, start
+    torch.cuda.empty_cache()
+
+    # (e) ResNeXt-50 32x4d and ResNet-50 v1c, random weights
+    g = torch.Generator(device="cpu").manual_seed(12)
+    xs = [torch.randn(BATCH, 3, TILE, TILE, generator=g).to(dev)
+          .contiguous(memory_format=torch.channels_last) for _ in range(2)]
+    for rt in ("resnext50_32x4d", "resnet50_v1c"):
+        model = DeeplabV2(DeeplabV2Config.uemda_default(NUM_CLASSES,
+                                                        resnet_type=rt),
+                          device=dev, generator=torch.Generator()
+                          .manual_seed(0))
+        nets = {"standard": copy.deepcopy(model).eval().to(torch.bfloat16),
+                "fast path, fused (1, 2, 3, 4)": build_fastpath(
+                    model, dtype=torch.bfloat16, fused_stages=(1, 2, 3, 4))}
+        cells = {}
+        for mode, net in nets.items():
+            kw = dict(tile=(TILE, TILE), image_hw=(TILE, TILE),
+                      compute_dtype=torch.bfloat16)
+            eager = make_predictor(net, capture=False, **kw)
+            graph = make_predictor(net, **kw)
+            k2, k4 = stem_pool.launches, bottleneck_identity.launches
+            ref = eager(xs[1])
+            per = {"stem_pool": stem_pool.launches - k2,
+                   "bottleneck_identity": bottleneck_identity.launches - k4}
+            graph(xs[0])  # the warm-up and the capture
+            got = graph(xs[1])
+            if tuple(got.shape) != (BATCH, NUM_CLASSES, TILE, TILE) \
+                    or not torch.isfinite(got).all():
+                fail(f"{rt} {mode}: output {tuple(got.shape)}, finite "
+                     f"{bool(torch.isfinite(got).all())}")
+            err = max_err(got, ref)
+            if err > 2e-4:
+                fail(f"{rt} {mode}: graph vs eager max abs diff {err}")
+            ms_e = cuda_ms(lambda: eager(xs[0]), 5, 1)
+            ms_g = cuda_ms(lambda: graph(xs[0]), 5, 1)
+            graph.close()
+            cells[mode] = dict(ms_eager=ms_e, ms_graph=ms_g, graph_err=err,
+                               **per)
+            del eager, graph, ref, got
+        fp = cells["fast path, fused (1, 2, 3, 4)"]
+        want = ({"stem_pool": 0, "bottleneck_identity": 12}
+                if rt.endswith("v1c") else
+                {"stem_pool": 1, "bottleneck_identity": 0})
+        if {k: fp[k] for k in want} != want:
+            fail(f"{rt} fast path: launches a forward {fp} (want {want}: JAX "
+                 "runs the v1c stem as library convs and keeps grouped "
+                 "blocks off the fused kernel)")
+        phase("zoo", f"{rt} (random weights, bf16, batch {BATCH}, {TILE}^2, "
+              f"through make_predictor): {json.dumps(cells)}; {CARD[0]}")
+        table[rt] = cells
+        del model, nets
+        torch.cuda.empty_cache()
+    counts = {fn.__name__: fn.launches for fn in WRAPPERS}
+    phase("launches", f"zoo path (stage 3 by loss, eager and graph; stage 1 "
+          f"with accumulation; with_cp; PROCA; ResNeXt and v1c serving) in "
+          f"{time.time() - t_zoo:.1f} s: {json.dumps(counts)}")
+    need = len(ZOO_LOSSES) * 2 * steps
+    if counts["uvem_mine"] != need:
+        fail(f"uvem_mine launched {counts['uvem_mine']} times on the zoo "
+             f"path (once per stage-3 step: {need})")
+    for name in ("segment_max", "segment_gather", "instance_norm",
+                 "instance_norm_backward", "crop_normalize", "stem_pool",
+                 "tail_upsample_softmax_mean", "bottleneck_identity"):
+        if counts[name] <= 0:
+            fail(f"{name} was not launched on the zoo path")
+    for rt in ("resnext50_32x4d", "resnet50_v1c"):
+        f32_step_check("zoo", f"f32 stage-1 step, {rt} (CORAL)", cfg, dev,
+                       make_src_step, dict(align_domain=True), backbone=rt)
+    phase("zoo", "summary " + json.dumps(table))
     return counts
 
 
@@ -2558,10 +2865,15 @@ def main():
     #    sweep's soft labels: the f32 step against the CPU, the flagship
     #    combo and legacy CutMix, eager and through the graph
     mix_launches = mix_phase(dev, ctx, sctx)
+
+    mark("zoo")
+    # 10. what the stages used to refuse: stage 3 with every loss of the
+    #    zoo, accumulation, with_cp, PROCA's stage 2, ResNeXt and v1c
+    zoo_launches = zoo_phase(dev, ctx, sctx)
     del sctx
 
     mark("timing")
-    # 10. timing (bf16, the serving and training dtype; K9 on uint8 tiles,
+    # 11. timing (bf16, the serving and training dtype; K9 on uint8 tiles,
     #    K5-K7 on f32 probabilities), CUDA events after warm-up
     xi, xs, ws, bs, xt = inputs["bfloat16"]
     xb, dyb, mb, rb = inputs["bwd bfloat16"]
@@ -2747,14 +3059,15 @@ def main():
         n_align = align_launches[fn_name]
         n_ssl = ssl_launches[fn_name]
         n_mix = mix_launches[fn_name]
+        n_zoo = zoo_launches[fn_name]
         record.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": (n_serve + n_fused + n_int8 + n_train + n_align
-                         + n_ssl + n_mix),
+                         + n_ssl + n_mix + n_zoo),
             "launches_serve": n_serve, "launches_fused": n_fused,
             "launches_int8": n_int8, "launches_train": n_train,
             "launches_align": n_align, "launches_ssl": n_ssl,
-            "launches_mix": n_mix,
+            "launches_mix": n_mix, "launches_zoo": n_zoo,
             "max_abs_err": errs[(name, dn)], "ms": ms,
             "ms_with_host": host_ms,
             "plain_ms": plain_ms, "bound_ms": bound,

@@ -248,7 +248,8 @@ def test_stage2_clis_on_the_cpu(tmp_path):
     every full batch, an evaluation, and the best model and prototypes
     saved under <snapshot>/align, with best.json and the state snapshot;
     ``--steps 3 --resume auto`` goes on from step 2 and ends at step 3;
-    the flags not ported yet raise."""
+    a fresh ``--ls OhemCrossEntropy --accum-steps 2`` run of 2 micro-steps
+    makes one update."""
     from uemda_tpu_torch.models.port import load_prototypes
     from uemda_tpu_torch.tools import init_prototypes, train_align_uem, train_src
 
@@ -280,9 +281,13 @@ def test_stage2_clis_on_the_cpu(tmp_path):
     train_align_uem.main(common + ["--align-domain", "1", "--steps", "3",
                                    "--refine-mode", "all", "--resume", "auto"])
     assert torch.load(run / "state_curr.pth", weights_only=True)["step"] == 3
-    for flags in (["--ls", "OhemCrossEntropy"], ["--accum-steps", "2"]):
-        with pytest.raises(NotImplementedError, match="queue A5"):
-            train_align_uem.main(common + flags)
+    # OHEM and accumulation (once refused): two micro-steps, one update
+    train_align_uem.main(common + ["--align-domain", "1", "--steps", "2",
+                                   "--refine-mode", "all", "--ls",
+                                   "OhemCrossEntropy", "--accum-steps", "2"])
+    snap = torch.load(run / "state_curr.pth", weights_only=True)
+    assert (snap["step"], snap["opt"]["count"], snap["opt"]["mini_step"]) \
+        == (2, 1, 0)
     shutil.rmtree(tmp_path / "log")  # ~1 GB of checkpoints
 
 

@@ -958,6 +958,7 @@ def _stage_case(stage, dev):
     from uemda_tpu_torch.config import PRESETS
     from uemda_tpu_torch.train.loop import build_model, build_state, default_hparams
     from uemda_tpu_torch.train.steps import (
+        make_align_simple_step,
         make_align_step,
         make_src_step,
         make_ssl_step,
@@ -966,13 +967,23 @@ def _stage_case(stage, dev):
     cfg = dataclasses.replace(PRESETS["2vaihingen"], model="resnet18",
                               crop=(64, 64))
     model = build_model(cfg, generator=torch.Generator().manual_seed(0))
-    make, hp = {
+    cases = {
         "src": (make_src_step, dict(align_domain=True, balance_source=True)),
         "align": (make_align_step, dict(align_domain=True)),
         "ssl": (make_ssl_step, dict(balance_target=True)),
-    }[stage]
+        # the zoo: OHEM with accumulation, PROCA's stage 2, each target loss
+        "src-accum": (make_src_step, dict(align_domain=True,
+                                          source_loss="ohem")),
+        "proca": (lambda m, hp: make_align_simple_step(m, hp, 0.3),
+                  dict(refine=False)),
+    }
+    for lt in ("ups", "ohem", "focal", "ghm", "gdp"):
+        cases[f"ssl-{lt}"] = (make_ssl_step, dict(balance_target=True,
+                                                  target_loss=lt))
+    make, hp = cases[stage]
     state = build_state(model, cfg, 10, prototypes=torch.randn(
-        6, 512, generator=torch.Generator().manual_seed(1)))
+        6, 512, generator=torch.Generator().manual_seed(1)),
+        accum_steps=2 if stage == "src-accum" else 1)
     step = make(model, default_hparams(cfg, **hp))
 
     def batches(seed):
@@ -983,7 +994,7 @@ def _stage_case(stage, dev):
                   "label": r.integers(-1, 6, (2, 80, 80)).astype(np.int32)}
             bt = {"image": r.integers(0, 256, (2, 80, 80, 3)).astype(np.uint8),
                   "sup": sup.astype(np.int32)}
-            if stage == "ssl":
+            if stage.startswith("ssl"):
                 bt["prob"] = _mine_inputs((2, 6, 80, 80), int(r.integers(99)),
                                           "cpu").permute(0, 2, 3, 1) \
                     .contiguous().half().numpy()
@@ -1042,6 +1053,97 @@ def test_captured_step_equals_the_eager_step(dev, stage):
             <= 1e-4 * top
     assert stats["replays"] == 3 and stats["launches"]["crop_normalize"] == 2
     assert stats["launches"]["instance_norm_backward"] >= 1
+
+
+@pytest.mark.parametrize("stage", ["src-accum", "proca", "ssl-ups",
+                                   "ssl-ohem", "ssl-focal", "ssl-ghm",
+                                   "ssl-gdp"])
+def test_captured_zoo_step_equals_the_eager_step(dev, stage):
+    """As ``test_captured_step_equals_the_eager_step``, for the steps of the
+    zoo: stage 1 with OHEM and ``accum_steps`` 2 (four micro-steps, two
+    updates: the masters, momentum and running mean, the counts),
+    PROCA's stage 2, and stage 3 with each target loss (for GHM and GDP
+    also the histogram both heads advance). Four steps eager and through
+    ``ChunkRunner``: losses within 1e-4 relative, tensors within 1e-4 of
+    their largest value."""
+    import copy
+
+    from uemda_tpu_torch.train.graph import ChunkRunner
+
+    model, state, step, batches = _stage_case(stage, dev)
+    model2 = copy.deepcopy(model)
+    runs = []
+    for m in (model, model2):
+        st = dataclasses.replace(
+            state, model=m, opt=type(state.opt)(
+                list(m.named_parameters()), state.opt.schedule,
+                accum_steps=state.opt.accum_steps),
+            aligner=copy.deepcopy(state.aligner),
+            balance_s=copy.deepcopy(state.balance_s),
+            balance_t=copy.deepcopy(state.balance_t),
+            ghm=copy.deepcopy(state.ghm))
+        step.model = m
+        it = batches(7)
+        pairs = [next(it) for _ in range(4)]
+        if m is model:
+            out = [step(st, bs, bt, 0) for bs, bt in pairs]
+        else:
+            runner = ChunkRunner(step, 0, dev)
+            out = runner(st, pairs)
+            assert runner.graph.replays == 3
+            runner.close()
+        torch.cuda.synchronize()
+        runs.append(([{k: float(v) for k, v in o.items()} for o in out],
+                     [p.detach().clone() for p in m.parameters()],
+                     [t.clone() for t in st.opt.trace + st.opt.acc],
+                     [st.aligner.prototypes.clone(), st.ghm.acc_sum.clone()],
+                     (st.step, st.opt.count, st.opt.mini_step)))
+    (l1, p1, t1, q1, c1), (l2, p2, t2, q2, c2) = runs
+    assert c1 == c2 == ((4, 2, 0) if stage == "src-accum" else (4, 4, 0))
+    for a, b in zip(l1, l2):
+        for k in a:
+            assert abs(a[k] - b[k]) <= 1e-4 * max(abs(a[k]), 1e-6), (k, a, b)
+    for xs, ys in ((p1, p2), (t1, t2), (q1[:1], q2[:1]), (q1[1:], q2[1:])):
+        top = max(max(float(x.abs().max()) for x in xs), 1e-30)
+        assert max(float((x - y).abs().max()) for x, y in zip(xs, ys)) \
+            <= 1e-4 * top
+    if stage in ("ssl-ghm", "ssl-gdp"):
+        assert float(q1[1].sum()) > 0
+
+
+def test_with_cp_on_the_card_equals_no_checkpointing(dev):
+    """Two bf16 stage-1 steps (CORAL) with ``with_cp`` on all four stages
+    against the same steps without it, from one start state on one batch
+    stream: the losses within 1e-4 relative, the BatchNorm buffers equal
+    after step 1 (the recompute leaves them alone) and the masters within
+    1e-4 of their largest value after step 2."""
+    import copy
+
+    model, state, step, batches = _stage_case("src", dev)
+    model2 = copy.deepcopy(model)
+    model2.encoder.resnet.with_cp = (True,) * 4
+    runs = []
+    for m in (model, model2):
+        st = dataclasses.replace(
+            state, model=m, opt=type(state.opt)(list(m.named_parameters()),
+                                                state.opt.schedule),
+            balance_s=copy.deepcopy(state.balance_s))
+        step.model = m
+        it = batches(9)
+        out = [step(st, *next(it), 0)]
+        bufs = [b.clone() for b in m.buffers()]
+        out.append(step(st, *next(it), 0))
+        torch.cuda.synchronize()
+        runs.append(([{k: float(v) for k, v in o.items()} for o in out], bufs,
+                     [p.detach().clone() for p in m.parameters()]))
+    (l1, b1, p1), (l2, b2, p2) = runs
+    for a, b in zip(l1, l2):
+        for k in a:
+            assert abs(a[k] - b[k]) <= 1e-4 * max(abs(a[k]), 1e-6), (k, a, b)
+    assert all(torch.equal(x, y) for x, y in zip(b1, b2))
+    top = max(float(x.abs().max()) for x in p1)
+    assert max(float((x - y).abs().max()) for x, y in zip(p1, p2)) \
+        <= 1e-4 * top
 
 
 def test_snapshot_of_a_replaying_step_equals_a_synchronous_copy(

@@ -201,23 +201,31 @@ def test_serving_path_goes_through_every_kernel_wrapper():
 
 
 def test_later_slices_raise():
-    """The stage-1 step's OHEM and gradient accumulation, ResNeXt and v1c
-    stems, odd fast-path sizes: each raises instead of running something
-    else. (Class balance, int8 serving and fused_stages are ported.)"""
+    """What is not a valid configuration raises instead of running something
+    else: an unknown source loss, an accumulation of fewer than one step,
+    an unknown backbone, odd fast-path sizes. (OHEM, accumulation,
+    ResNeXt and v1c, class balance, int8 serving and fused_stages are
+    ported: the first four build here, ``test_torch_backbones.py`` and
+    ``test_torch_zoo_steps.py`` hold them to JAX.)"""
     from uemda_tpu_torch.train.optim import SGD
     from uemda_tpu_torch.train.steps import StageHParams, make_src_step
 
     tmodel = _models("resnet18-single", 64)[2]
     dual = DeeplabV2(DeeplabV2Config.uemda_default(6, resnet_type="resnet18"),
                      device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_src_step(dual, StageHParams(class_num=6, source_loss="ohem"))
+    with pytest.raises(ValueError, match="source_loss"):
+        make_src_step(dual, StageHParams(class_num=6, source_loss="dice"))
+    make_src_step(dual, StageHParams(class_num=6, source_loss="ohem"))
     make_src_step(dual, StageHParams(class_num=6, balance_source=True))
-    with pytest.raises(NotImplementedError, match="accum"):
-        SGD(list(dual.named_parameters()), lambda step: 0.0, accum_steps=2)
-    for name in ("resnext50_32x4d", "resnet50_v1c"):
-        with pytest.raises(NotImplementedError):
-            ResNet(BackboneConfig(resnet_type=name))
+    with pytest.raises(ValueError, match="accum"):
+        SGD(list(dual.named_parameters()), lambda step: 0.0, accum_steps=0)
+    assert SGD(list(dual.named_parameters()), lambda step: 0.0,
+               accum_steps=2).accum_steps == 2
+    with pytest.raises(KeyError):
+        ResNet(BackboneConfig(resnet_type="resnet49"))
+    assert ResNet(BackboneConfig(resnet_type="resnext50_32x4d")) \
+        .layer1[0].conv2.groups == 32
+    assert len(ResNet(BackboneConfig(resnet_type="resnet50_v1c")).stem) == 9
     fn, params = make_serving_fn(tmodel, dtype=torch.float32, s2b_layer4=True)
     with pytest.raises(ValueError, match="divisible by 32"):
         fn(params, torch.zeros(1, 3, 48, 48))

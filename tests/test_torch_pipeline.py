@@ -1,8 +1,9 @@
 """The stage-3 and pipeline CLIs of the port on the CPU: the ``run_pipeline``
 twin runs the five steps (``train_src``, ``init_prototypes``,
 ``train_align_uem``, ``init_prototypes``, ``train_ssl_uem`` with its
-pseudo-label sweep) on synthetic PNGs; what is not ported is refused; the
-stage-3 hyperparameters match the JAX package's."""
+pseudo-label sweep) on synthetic PNGs, and the PROCA chain (``--method
+proca``); every trainer takes the zoo's flags; what is not ported is
+refused; the stage-3 hyperparameters match the JAX package's."""
 
 import json
 import shutil
@@ -82,30 +83,23 @@ def test_pipeline_twin_runs_the_five_steps_on_the_cpu(tmp_path):
 
 
 def test_stage3_refuses_what_is_not_ported(tmp_path, monkeypatch, capsys):
-    """The stage-3 CLI refuses accumulation, OHEM, the unported target
-    losses and the multi-process flag before it touches a file, naming
-    each one's ROADMAP queue item (``--steps-per-call``, ``--host-crop``,
-    ``--profile-dir`` and ``--resume`` run: test_torch_loop.py); the
-    pipeline refuses --method proca, --pretrained and --num-devices
-    (--gate runs: test_torch_serving.py) and forwards ``--resume auto`` to
-    its three training steps; the step refuses the unported target
-    losses."""
+    """Only the multi-process flag is left to refuse (ROADMAP.md queue A8):
+    the stage-3 CLI and the pipeline refuse ``--num-devices`` before they
+    touch a file. The pipeline forwards ``--resume auto`` to its three
+    training steps and ``--pretrained`` to stage 1; ``--method proca``
+    runs stage 1 without CORAL, ``train_align`` for step 3 and plain
+    self-training (``--refine-label 0 --lt ce``) for step 5. The stage-3
+    step takes every loss of the zoo and refuses an unknown one. (Every
+    trainer's zoo flags: ``test_every_trainer_takes_the_zoo_flags``.)"""
     from uemda_tpu_torch.tools import run_pipeline, train_ssl_uem
 
     monkeypatch.chdir(tmp_path)
     common = ["--config-path", "2vaihingen", "--ckpt-model", "m.pth",
               "--ckpt-proto", "p.pth", "--device", "cpu"]
-    for flags, item in ((["--accum-steps", "2"], "A5"),
-                        (["--ls", "OhemCrossEntropy"], "A5"),
-                        (["--lt", "ups"], "A5"), (["--lt", "ghm"], "A5"),
-                        (["--num-devices", "2"], "A8")):
-        with pytest.raises(NotImplementedError, match=f"queue {item}"):
-            train_ssl_uem.main(common + flags)
-    for flags, item in ((["--method", "proca"], "A6"),
-                        (["--pretrained", "x.pth"], "A5"),
-                        (["--num-devices", "2"], "A8")):
-        with pytest.raises(NotImplementedError, match=f"queue {item}"):
-            run_pipeline.main(["--dry-run"] + flags)
+    with pytest.raises(NotImplementedError, match="queue A8"):
+        train_ssl_uem.main(common + ["--num-devices", "2"])
+    with pytest.raises(NotImplementedError, match="queue A8"):
+        run_pipeline.main(["--dry-run", "--num-devices", "2"])
     run_pipeline.main(["--dry-run", "--resume", "auto"])
     cmds = [line.split() for line in capsys.readouterr().out.splitlines()
             if line.startswith("+")]
@@ -113,12 +107,136 @@ def test_stage3_refuses_what_is_not_ported(tmp_path, monkeypatch, capsys):
             if c[-2:] == ["--resume", "auto"]] == [
         "train_src", "train_align_uem", "train_ssl_uem"]
     assert len(cmds) == 5
+    run_pipeline.main(["--dry-run", "--method", "proca", "--pretrained",
+                       "imagenet.pth"])
+    cmds = [line.split() for line in capsys.readouterr().out.splitlines()
+            if line.startswith("+")]
+    assert [c[3].rsplit(".", 1)[1] for c in cmds] == [
+        "train_src", "init_prototypes", "train_align", "init_prototypes",
+        "train_ssl_uem"]
+    src = " ".join(cmds[0])
+    assert "--align-domain 0" in src and "--pretrained imagenet.pth" in src
+    assert "--refine-label 0 --lt ce" in " ".join(cmds[4])
+    assert all("--pretrained" not in c for c in cmds[1:])
     model = DeeplabV2(DeeplabV2Config.uemda_default(C, resnet_type="resnet18"),
                       device="cpu")
-    for loss in ("ups", "ohem", "focal", "ghm", "gdp"):
-        with pytest.raises(NotImplementedError, match="queue A5"):
-            make_ssl_step(model, StageHParams(class_num=C, target_loss=loss))
+    for loss in ("uvem", "ups", "ohem", "focal", "ghm", "gdp", "ce", "none"):
+        make_ssl_step(model, StageHParams(class_num=C, target_loss=loss))
+    with pytest.raises(ValueError, match="target_loss"):
+        make_ssl_step(model, StageHParams(class_num=C, target_loss="dice"))
     assert not any(tmp_path.iterdir())
+
+
+def test_every_trainer_takes_the_zoo_flags(tmp_path, monkeypatch):
+    """Each trainer CLI on the tiny config hands its loop (stubbed here) a
+    step and state built from the flags it used to refuse: ``--ls
+    OhemCrossEntropy``, every ``--lt`` of its zoo, ``--accum-steps 2`` (the
+    schedule's horizon then counts updates) and, for ``train_src``,
+    ``--pretrained`` (a torchvision-keyed ``.pth``); ``train_align`` builds
+    PROCA's step with its ``--conf-thresh``, and ``train_ssl`` is
+    ``train_ssl_uem --lt ce --refine-label 0``."""
+    from uemda_tpu_torch.config import load_config
+    from uemda_tpu_torch.tools import (
+        train_align,
+        train_align_uem,
+        train_src,
+        train_ssl,
+        train_ssl_mix,
+        train_ssl_uem,
+    )
+    from uemda_tpu_torch.train.loop import build_model
+
+    monkeypatch.chdir(tmp_path)
+    cfg_file = _tiny_config(tmp_path)
+    model = build_model(load_config(cfg_file), device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    torch.save(model.state_dict(), tmp_path / "m.pth")
+    trunk = {k[len("encoder.resnet."):]: torch.full_like(v, 0.5)
+             for k, v in model.state_dict().items()
+             if k.startswith("encoder.resnet.")}
+    torch.save(trunk, tmp_path / "imagenet.pth")
+    np.save(tmp_path / "p.npy", np.zeros((C, 512), np.float32))
+    seen = []
+
+    def loop(state, step_fn, *a, **k):
+        seen.append((step_fn, state))
+        return {"miou": 0.0, "step": 0}
+
+    for mod in (train_src, train_align, train_align_uem, train_ssl_uem,
+                train_ssl_mix):
+        monkeypatch.setattr(mod, "run_training_loop", loop)
+    for mod in (train_ssl_uem, train_ssl_mix):
+        monkeypatch.setattr(mod, "generate_pseudo_labels", lambda *a, **k: None)
+    ckpts = ["--ckpt-model", str(tmp_path / "m.pth"), "--ckpt-proto",
+             str(tmp_path / "p.npy")]
+    base = ["--config-path", cfg_file, "--device", "cpu", "--steps", "4",
+            "--ls", "OhemCrossEntropy", "--accum-steps", "2"]
+    runs = [(train_src.main, ["--pretrained", str(tmp_path / "imagenet.pth")],
+             "SrcStep", None),
+            (train_align_uem.main, ckpts, "AlignStep", None),
+            (train_align.main, ckpts + ["--conf-thresh", "0.5"],
+             "AlignSimpleStep", None)]
+    runs += [(train_ssl_uem.main, ckpts + ["--lt", lt], "SslStep", lt)
+             for lt in ("ups", "ohem", "focal", "ghm", "gdp")]
+    runs += [(train_ssl_mix.main, ckpts + ["--lt", lt], "MixStep", lt)
+             for lt in ("ups", "ghm", "legacy")]
+    runs += [(train_ssl.main, ckpts, "SslStep", "ce")]
+    for main, flags, kind, lt in runs:
+        main(base + flags)
+        step_fn, state = seen.pop()
+        assert type(step_fn).__name__ == kind, (main, flags)
+        assert step_fn.hp.source_loss == "ohem"
+        assert state.opt.accum_steps == 2 and state.ghm is not None
+        assert state.opt.schedule(1) == _schedule(cfg_file, 2)(1)
+        if lt is not None:
+            assert step_fn.hp.target_loss == ("ce" if lt == "legacy" else lt)
+        if main is train_ssl.main:
+            assert step_fn.hp.refine is False
+        if kind == "AlignSimpleStep":
+            assert step_fn.conf_thresh == 0.5
+        if kind == "SrcStep":
+            w = state.model.state_dict()["encoder.resnet.layer1.0.conv1.weight"]
+            assert torch.equal(w, torch.full_like(w, 0.5))
+    shutil.rmtree(tmp_path / "log")
+
+
+def _schedule(cfg_file, updates):
+    """The poly-warmup schedule over ``updates`` real updates."""
+    from uemda_tpu_torch.config import load_config
+    from uemda_tpu_torch.train.lr import poly_warmup_schedule
+
+    cfg = load_config(cfg_file)
+    return poly_warmup_schedule(cfg.learning_rate, updates, cfg.power)
+
+
+def test_proca_pipeline_runs_on_the_cpu(tmp_path):
+    """``run_pipeline --method proca --device cpu --stage-steps 1 --steps
+    1,2,3`` on the tiny config: the chain's PROCA-specific steps as
+    subprocesses -- train_src without CORAL, init_prototypes and
+    ``train_align`` (PROCA's stage 2) -- each stage leaving its best model
+    and ``best.json``. Steps 4 and 5 are the UemDA chain's tools
+    (``test_pipeline_twin_runs_the_five_steps_on_the_cpu``) with the flags
+    ``test_stage3_refuses_what_is_not_ported`` reads from the dry run."""
+    cfg_file = _tiny_config(tmp_path)
+    r = subprocess.run(
+        [sys.executable, "-m", "uemda_tpu_torch.tools.run_pipeline",
+         "--config-path", cfg_file, "--stage-steps", "1", "--device", "cpu",
+         "--method", "proca", "--steps", "1,2,3"], capture_output=True,
+        text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    cmds = [line.split() for line in r.stdout.splitlines()
+            if line.startswith("+")]
+    assert [c[3].rsplit(".", 1)[1] for c in cmds] == [
+        "train_src", "init_prototypes", "train_align"]
+    assert "--align-domain 0" in " ".join(cmds[0])
+    log = tmp_path / "log"
+    for stage in ("src", "align"):
+        assert (log / stage / "Vaihingen_best.pth").exists(), stage
+        best = json.loads((log / stage / "best.json").read_text())
+        assert best["step"] == 1 and 0.0 <= best["miou"] <= 1.0
+    p = torch.load(log / "align" / "prototypes_best.pth", weights_only=True)
+    assert p.shape == (C, 512) and torch.isfinite(p).all()
+    shutil.rmtree(log)  # ~1 GB of checkpoints
 
 
 def test_stage3_hparams_match_jax():

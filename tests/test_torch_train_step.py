@@ -105,8 +105,8 @@ def test_sgd_update_matches_optax(scale):
                                    atol=1e-7, err_msg=k)
     np.testing.assert_array_equal(tparams["encoder.resnet.conv1.weight"].numpy(),
                                   p0["encoder.resnet.conv1.weight"])
-    with pytest.raises(NotImplementedError):
-        SGD(named, sched, accum_steps=2)
+    with pytest.raises(ValueError):
+        SGD(named, sched, accum_steps=0)
 
 
 def _batches(seed, b=2):

@@ -2,6 +2,7 @@
 JAX's NHWC and the port's NCHW/channels_last, and one set of seeded flax
 weights handed to both packages."""
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -81,6 +82,31 @@ def jax_and_torch_models(resnet_type="resnet50", hw=64, seed=0, **overrides):
     tmodel.load_state_dict(state_dict_from_jax(variables,
                                                use_ppm=tcfg.use_ppm))
     return jmodel, variables, tmodel
+
+
+def models_from_port(resnet_type="resnet18", seed=0, num_classes=6):
+    """:func:`jax_and_torch_models` without flax's init, which costs seconds
+    to a minute a ResNet: a seeded port model's weights through the JAX
+    package's converter (``port_deeplabv2``), every BatchNorm's statistics
+    and affine drawn with numpy, and back into the port through
+    ``state_dict_from_jax``. Returns (JAX model, variables, port model in
+    eval mode on the CPU)."""
+    from uemda_tpu.models.port_torch import port_deeplabv2
+
+    deep = resnet_type.endswith("v1c")
+    cfg = DeeplabV2Config.uemda_default(num_classes, resnet_type=resnet_type)
+    seeded = DeeplabV2(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(seed))
+    v = port_deeplabv2({k: t.numpy() for k, t in seeded.state_dict().items()},
+                       deep_stem=deep)
+    rng = np.random.default_rng(seed + 100)
+    v = {"params": _randomize_bn(v["params"], rng),
+         "batch_stats": _randomize_bn(v["batch_stats"], rng)}
+    jmodel = JaxDeeplabV2(JaxConfig.uemda_default(num_classes=num_classes,
+                                                  resnet_type=resnet_type))
+    tmodel = copy.deepcopy(seeded)
+    tmodel.load_state_dict(state_dict_from_jax(v, deep_stem=deep))
+    return jmodel, v, tmodel
 
 
 def no_tf32():

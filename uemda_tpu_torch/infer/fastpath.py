@@ -10,7 +10,11 @@ input resolution, reference ``Encoder.py:152-155``) from folded weights:
   the 7x7/s2 conv on 3 channels becomes a 4x4/s1 conv on 12 channels with
   padding (2, 1) per axis; the conv, bias, ReLU and the 3x3/s2 max-pool run
   in the K2 kernel and only the pooled map is written (the JAX package's
-  ``fused_stem=True``; there is no unfused stem on the card).
+  ``fused_stem=True``; there is no unfused stem on the card). The v1c deep
+  stem folds its three 3x3 convs, the first re-indexed for the
+  space-to-depth input (2x2 on 12 channels, padding (1, 0)), and runs them
+  and the max-pool as library ops, with no K2, as the JAX package does
+  (``uemda_tpu/infer/fastpath.py:337-358,599-600``).
 * **Space-to-batch layer4** (``s2b_layer4``): blocks 1+ of the dilate-2
   stage run as dense 3x3s on a 4x batch of half-resolution phases.
 * **Fused dual head**: the heads sharing a feature stack their feature-side
@@ -21,7 +25,7 @@ input resolution, reference ``Encoder.py:152-155``) from folded weights:
 * **Fused identity blocks** (``fused_stages``, opt-in): the blocks of the
   listed stages that keep their width run in the K4 kernel
   (:func:`_fusable`, ``ops/resblock.py``), which keeps the block's
-  intermediates on chip.
+  intermediates on chip. ResNeXt's grouped blocks stay off K4.
 * **int8 serving** (opt-in): the heads' feature-side GEMM and the 3x3s of
   ``int8_stages`` hold per-out-channel int8 weights (:func:`_quantize_w`)
   and run as int8 x int8 -> int32 products (:func:`_conv_int8`, through
@@ -279,12 +283,14 @@ def build_serving_params(
     stages (their 1x1s and downsamples stay in ``dtype``);
     ``fused_stages`` sends those stages' identity blocks to K4."""
     cfg = model.config
-    block_cls, layers, groups, _, _ = RESNET_SPECS[cfg.backbone.resnet_type]
+    block_cls, layers, groups, _, deep_stem = RESNET_SPECS[
+        cfg.backbone.resnet_type]
     dev = next(model.parameters()).device
     enc = model.encoder.resnet
     meta = {
         "block": "basic" if block_cls is BasicBlock else "bottleneck",
         "groups": groups,
+        "deep_stem": deep_stem,
         # stages whose identity bottleneck blocks run in the K4 kernel
         "fused_stages": tuple(fused_stages),
         "output_stride": cfg.backbone.output_stride,
@@ -308,10 +314,21 @@ def build_serving_params(
                 "b": torch.from_numpy(np.asarray(b, np.float32)).to(dev)}
 
     out: Dict[str, Any] = {}
-    w, b = _fold(enc.conv1, enc.bn1)
-    w2 = _s2d_stem_kernel(w.transpose(2, 3, 1, 0))        # HWIO (4,4,12,64)
-    out["stem"] = {"w": torch.from_numpy(np.ascontiguousarray(w2)).to(dev, dtype),
-                   "b": torch.from_numpy(np.asarray(b, np.float32)).to(dev)}
+    if deep_stem:
+        stems = []
+        for i in (0, 3, 6):
+            w, b = _fold(enc.stem[i], enc.stem[i + 1])
+            if i == 0:   # HWIO (2, 2, 12, 32) -> OIHW
+                w = _s2d_stem_kernel(w.transpose(2, 3, 1, 0)).transpose(
+                    3, 2, 0, 1)
+            stems.append(put(w, b))
+        out["deep_stem"] = stems
+    else:
+        w, b = _fold(enc.conv1, enc.bn1)
+        w2 = _s2d_stem_kernel(w.transpose(2, 3, 1, 0))    # HWIO (4,4,12,64)
+        out["stem"] = {
+            "w": torch.from_numpy(np.ascontiguousarray(w2)).to(dev, dtype),
+            "b": torch.from_numpy(np.asarray(b, np.float32)).to(dev)}
 
     n_stages = 4 if cfg.backbone.include_conv5 else 3
     for li in range(n_stages):
@@ -466,7 +483,14 @@ def serving_forward(meta: Dict[str, Any], params: Dict[str, Any],
             f"{in_hw}. Use the standard model for other sizes.")
 
     y = _space_to_depth(x.contiguous(memory_format=CL))
-    y = stem_pool(y, params["stem"]["w"].to(y.dtype), params["stem"]["b"])
+    if meta["deep_stem"]:
+        s1, s2, s3 = params["deep_stem"]
+        # the s2d 2x2 kernel's padding (1, 0) per axis, then library convs
+        y = F.relu(_conv(F.pad(y, (1, 0, 1, 0)), s1))
+        y = F.relu(_conv(y, s2))
+        y = F.max_pool2d(F.relu(_conv(y, s3)), 3, 2, 1)
+    else:
+        y = stem_pool(y, params["stem"]["w"].to(y.dtype), params["stem"]["b"])
 
     plan = stage_plan(meta["output_stride"])
     n_stages = 4 if meta["include_conv5"] else 3

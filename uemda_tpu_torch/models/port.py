@@ -10,6 +10,7 @@ flax conv kernel (kh, kw, I, O) -> torch weight (O, I, kh, kw); flax BN
 ``bias``/``running_mean``/``running_var``.
 """
 
+import re
 from typing import Dict
 
 import numpy as np
@@ -106,6 +107,49 @@ def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     if isinstance(sd, dict) and "state_dict" in sd:
         sd = sd["state_dict"]
     return {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
+
+
+# a block's key in a torchvision-style checkpoint
+_BLOCK_KEY = re.compile(r"^layer\d\.\d+\.")
+
+
+def load_pretrained_backbone(model, path: str) -> None:
+    """Load a torchvision-style ImageNet ResNet checkpoint (``.pth`` or
+    ``.pt``, keys ``conv1.weight``, ``layer1.0.conv1.weight``, ... or the
+    v1c ``stem.*``) into ``model.encoder.resnet`` in place, as
+    ``init_variables(pretrained=...)`` does through
+    ``port_imagenet_backbone`` (``uemda_tpu/train/loop.py:75-81``): every
+    trunk weight and BatchNorm statistic comes from the file, the heads
+    keep their init, ``fc.*`` and ``num_batches_tracked`` are ignored. A
+    trunk key the model has and the file lacks, a trunk key of the file the
+    model lacks (another depth), or a shape mismatch raises before anything
+    is written. Any other suffix (a JAX ``.msgpack``) is refused: convert it
+    with ``tools/port_weights.py --kind export`` and load the ``.pth``."""
+    if not path.endswith((".pth", ".pt")):
+        raise ValueError(
+            f"--pretrained {path!r}: the port reads torchvision-style .pth/.pt "
+            "ImageNet weights; convert a JAX checkpoint with "
+            "'python tools/port_weights.py --kind export' first")
+    sd = load_checkpoint(path)
+    trunk = model.encoder.resnet
+    own = {k: v for k, v in trunk.state_dict().items()
+           if not k.endswith("num_batches_tracked")}
+    missing = sorted(k for k in own if k not in sd)
+    if missing:
+        raise KeyError(f"{path}: no {missing[:3]} ... for the "
+                       f"{model.config.backbone.resnet_type} trunk")
+    extra = sorted(k for k in sd if _BLOCK_KEY.match(k) and k not in own
+                   and not k.endswith("num_batches_tracked"))
+    if extra:
+        raise KeyError(f"{path}: trunk keys {extra[:3]} ... that the "
+                       f"{model.config.backbone.resnet_type} trunk lacks")
+    for k, v in own.items():
+        if tuple(sd[k].shape) != tuple(v.shape):
+            raise ValueError(f"{path}: {k} is {tuple(sd[k].shape)}, the "
+                             f"model's {tuple(v.shape)}")
+    with torch.no_grad():
+        for k, v in own.items():
+            v.copy_(sd[k].to(v.dtype))
 
 
 def aligner_from_jax(aligner, device=None):

@@ -1,8 +1,11 @@
-"""ResNet backbone and segmentation encoder, eval mode.
+"""ResNet backbone zoo and segmentation encoder.
 
 Port of ``uemda_tpu/models/resnet.py`` (reference ``uemda/_resnets.py:32-344``
-and ``uemda/resnet.py:44-207``). Module names follow torchvision, so the
-reference's ``encoder.resnet.*`` state-dict keys load as they are.
+and ``uemda/resnet.py:44-207``): ResNet-18/34/50/101/152, ResNeXt-50/101
+(grouped 3x3s of width ``int(planes * base_width / 64) * groups``) and the
+v1c deep stem (three 3x3 convs, ``stem``). Module names follow torchvision
+(``stem.{0,1,3,4,6,7}`` for the v1c stem), so the reference's
+``encoder.resnet.*`` state-dict keys load as they are.
 
 * Output-stride surgery (``resnet.py:192-207``) is computed up front by
   :func:`stage_plan`: the 3x3 that carried the stride keeps ``dilate // 2``,
@@ -14,16 +17,46 @@ reference's ``encoder.resnet.*`` state-dict keys load as they are.
   and updates the running ones as flax does, with the *biased* batch
   variance.
 
-ResNeXt and the v1c deep-stem variants raise ``NotImplementedError``.
+* Per-stage gradient checkpointing (``with_cp``, ``resnet.py:146-165``):
+  in train mode with gradients on, each flagged stage runs under
+  ``torch.utils.checkpoint`` (non-reentrant), as ``nn.remat`` does: its
+  activations are recomputed in the backward. The recompute must not move
+  the BatchNorm running statistics a second time (flax throws the
+  recompute's mutations away), so it runs under :func:`_recomputing`,
+  which :class:`BatchNorm` reads.
 """
 
+import contextlib
 from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from uemda_tpu_torch.models.config import BackboneConfig
+
+
+# > 0 while a checkpointed stage is recomputed for the backward: BatchNorm
+# then normalizes as in the forward and leaves its running statistics alone.
+# A counter, not a thread-local: the recompute runs on the autograd
+# engine's thread, not the one that started the forward.
+_RECOMPUTE = [0]
+
+
+@contextlib.contextmanager
+def _recomputing():
+    _RECOMPUTE[0] += 1
+    try:
+        yield
+    finally:
+        _RECOMPUTE[0] -= 1
+
+
+def _checkpoint_contexts():
+    """``context_fn`` of the checkpointed stages: nothing in the forward,
+    :func:`_recomputing` in the recompute."""
+    return contextlib.nullcontext(), _recomputing()
 
 
 def conv(cin: int, cout: int, kernel: int, stride: int = 1, dilation: int = 1,
@@ -69,10 +102,11 @@ class BatchNorm(nn.BatchNorm2d):
         xin = x if x.dtype == torch.bfloat16 and x.is_cuda else x.float()
         y = F.batch_norm(xin, batch_mean, batch_var, w, b, True, 1.0, self.eps)
         n = x.numel() // c
-        with torch.no_grad():
-            biased = batch_var * ((n - 1) / n)
-            self.running_mean.mul_(0.9).add_(0.1 * batch_mean)
-            self.running_var.mul_(0.9).add_(0.1 * biased)
+        if not _RECOMPUTE[0]:
+            with torch.no_grad():
+                biased = batch_var * ((n - 1) / n)
+                self.running_mean.mul_(0.9).add_(0.1 * batch_mean)
+                self.running_var.mul_(0.9).add_(0.1 * biased)
         return y.to(x.dtype)
 
 
@@ -81,8 +115,11 @@ class BasicBlock(nn.Module):
 
     def __init__(self, inp: int, planes: int, stride: int = 1,
                  dilation: int = 1, dilation2: int = 1,
-                 downsample: bool = False, frozen_bn: bool = False):
+                 downsample: bool = False, frozen_bn: bool = False,
+                 groups: int = 1, base_width: int = 64):
         super().__init__()
+        if groups != 1 or base_width != 64:
+            raise ValueError("BasicBlock takes groups 1 and base_width 64")
         self.conv1 = conv(inp, planes, 3, stride, dilation)
         self.bn1 = BatchNorm(planes, frozen_bn)
         self.conv2 = conv(planes, planes, 3, 1, dilation2)
@@ -103,15 +140,17 @@ class Bottleneck(nn.Module):
 
     def __init__(self, inp: int, planes: int, stride: int = 1,
                  dilation: int = 1, dilation2: int = 1,
-                 downsample: bool = False, frozen_bn: bool = False):
+                 downsample: bool = False, frozen_bn: bool = False,
+                 groups: int = 1, base_width: int = 64):
         super().__init__()
+        width = int(planes * (base_width / 64.0)) * groups
         out_ch = planes * self.expansion
-        self.conv1 = conv(inp, planes, 1)
-        self.bn1 = BatchNorm(planes, frozen_bn)
+        self.conv1 = conv(inp, width, 1)
+        self.bn1 = BatchNorm(width, frozen_bn)
         # stride lives on conv2 (torchvision v1.5, _resnets.py:84)
-        self.conv2 = conv(planes, planes, 3, stride, dilation)
-        self.bn2 = BatchNorm(planes, frozen_bn)
-        self.conv3 = conv(planes, out_ch, 1)
+        self.conv2 = conv(width, width, 3, stride, dilation, groups)
+        self.bn2 = BatchNorm(width, frozen_bn)
+        self.conv3 = conv(width, out_ch, 1)
         self.bn3 = BatchNorm(out_ch, frozen_bn)
         self.downsample = nn.Sequential(
             conv(inp, out_ch, 1, stride), BatchNorm(out_ch, frozen_bn)
@@ -156,28 +195,31 @@ def _max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 3, 2, 1)
 
 
-def check_supported(resnet_type: str) -> None:
-    if resnet_type not in RESNET_SPECS:
-        raise KeyError(f"unknown resnet_type {resnet_type!r}")
-    _, _, groups, _, deep_stem = RESNET_SPECS[resnet_type]
-    if groups != 1 or deep_stem:
-        raise NotImplementedError(
-            f"{resnet_type}: ResNeXt and v1c deep-stem backbones are not "
-            "ported yet (ROADMAP.md queue A)")
-
-
 class ResNet(nn.Module):
-    """torchvision-named trunk: conv1, bn1, layer1..layer4."""
+    """torchvision-named trunk: conv1, bn1 (or the v1c ``stem``),
+    layer1..layer4."""
 
     def __init__(self, cfg: BackboneConfig):
         super().__init__()
-        check_supported(cfg.resnet_type)
-        block_cls, layers, _, _, _ = RESNET_SPECS[cfg.resnet_type]
+        if cfg.resnet_type not in RESNET_SPECS:
+            raise KeyError(f"unknown resnet_type {cfg.resnet_type!r}")
+        block_cls, layers, groups, base_width, deep_stem = RESNET_SPECS[
+            cfg.resnet_type]
         self.output_stride = cfg.output_stride
         self.with_cp = tuple(cfg.with_cp)
+        self.deep_stem = deep_stem
         frozen_bn = not cfg.batchnorm_trainable
-        self.conv1 = conv(3, 64, 7, 2)
-        self.bn1 = BatchNorm(64, frozen_bn)
+        if deep_stem:
+            # v1c (resnet.py:233-237): 3x3/s2 3->32, 3x3 32->32, 3x3 32->64
+            mods, cin = [], 3
+            for ch, st in ((32, 2), (32, 1), (64, 1)):
+                mods += [conv(cin, ch, 3, st), BatchNorm(ch, frozen_bn),
+                         nn.ReLU()]
+                cin = ch
+            self.stem = nn.Sequential(*mods)
+        else:
+            self.conv1 = conv(3, 64, 7, 2)
+            self.bn1 = BatchNorm(64, frozen_bn)
         plan = stage_plan(cfg.output_stride)
         planes = (64, 128, 256, 512)
         in_ch = 64
@@ -195,22 +237,41 @@ class ResNet(nn.Module):
                     downsample=first and (
                         stride != 1 or in_ch != planes[si] * block_cls.expansion
                     ),
-                    frozen_bn=frozen_bn,
+                    frozen_bn=frozen_bn, groups=groups,
+                    base_width=base_width,
                 ))
                 in_ch = planes[si] * block_cls.expansion
             self.add_module(f"layer{si + 1}", nn.Sequential(*blocks))
 
     def forward(self, x) -> List[torch.Tensor]:
-        if self.training and any(self.with_cp[:self.num_stages]):
-            raise NotImplementedError(
-                "per-stage gradient checkpointing (with_cp) is not ported "
-                "yet (ROADMAP.md queue A)")
-        x = _max_pool_3x3_s2(F.relu(self.bn1(self.conv1(x))))
+        x = self.stem(x) if self.deep_stem else F.relu(self.bn1(self.conv1(x)))
+        x = _max_pool_3x3_s2(x)
         outs = []
         for si in range(self.num_stages):
-            x = getattr(self, f"layer{si + 1}")(x)
+            layer = getattr(self, f"layer{si + 1}")
+            if (self.with_cp[si] and self.training
+                    and torch.is_grad_enabled()):
+                x = _checkpointed(layer, x)
+            else:
+                x = layer(x)
             outs.append(x)
         return outs
+
+
+def _checkpointed(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``layer(x)`` with its activations recomputed in the backward. The
+    stage's tensors are taken now: under ``torch.func.functional_call``
+    (the train step's compute copy of the masters, scratch BatchNorm
+    buffers) they are the swapped-in ones, which the module no longer
+    holds when the backward recomputes."""
+    tensors = dict(layer.named_parameters())
+    tensors.update(layer.named_buffers())
+
+    def run(inp):
+        return torch.func.functional_call(layer, tensors, (inp,))
+
+    return torch.utils.checkpoint.checkpoint(
+        run, x, use_reentrant=False, context_fn=_checkpoint_contexts)
 
 
 class ResNetEncoder(nn.Module):

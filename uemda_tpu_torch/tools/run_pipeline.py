@@ -1,18 +1,21 @@
-"""The five-step UemDA chain, on the GPU.
+"""The five-step UemDA and PROCA chains, on the GPU.
 
-Twin of ``tools/run_pipeline.py`` for ``--method uemda`` (the reference's
-``runs/uemda/run_2vaihingen.sh:3-27``); each step is a subprocess of the
-port's tools, glued by ``.pth`` checkpoints under the config's snapshot
-directory::
+Twin of ``tools/run_pipeline.py`` (the reference's
+``runs/uemda/run_2vaihingen.sh:3-27`` and ``runs/proca/*.sh``); each step
+is a subprocess of the port's tools, glued by ``.pth`` checkpoints under
+the config's snapshot directory::
 
     python -m uemda_tpu_torch.tools.run_pipeline --config-path 2urban
 
-  1. train_src        --align-domain 1
+  1. train_src        --align-domain 1          (proca: --align-domain 0)
   2. init_prototypes  --stage 1
-  3. train_align_uem  --align-domain 1 --refine-label 1
+  3. train_align_uem  --align-domain 1 --refine-label 1   (proca: train_align)
   4. init_prototypes  --stage 2
   5. train_ssl_uem    --gen 1 --refine-label 1 --lt uvem
+                      (proca: --gen 1 --refine-label 0 --lt ce)
 
+``--method`` picks the chain, ``--pretrained`` (a torchvision-style
+ImageNet ``.pth``) goes to step 1.
 ``--steps`` picks a subset, ``--stage-steps`` overrides every training
 stage's steps (smoke runs), ``--dry-run`` prints the commands, and
 ``--device`` goes to every step (``cpu`` runs the plain versions).
@@ -22,8 +25,7 @@ the chain on every stage-best checkpoint that exists, with
 run. After the chain, a stage whose best mIoU (``best.json``) falls below
 the stage it started from is reported. ``--resume`` (``auto`` or a
 path) goes to the three training steps. Not ported yet, and refused:
-``--method proca`` (needs ``train_align``, ROADMAP.md queue A6),
-``--pretrained`` (A5), ``--num-devices`` (A8).
+``--num-devices`` (ROADMAP.md queue A8).
 """
 
 import argparse
@@ -75,9 +77,7 @@ def main(argv=None):
     parser.add_argument("--dry-run", action="store_true")
     args = parser.parse_args(argv)
 
-    refused = {"--method proca": ("A6", args.method == "proca"),
-               "--pretrained": ("A5", args.pretrained is not None),
-               "--num-devices": ("A8", args.num_devices is not None)}
+    refused = {"--num-devices": ("A8", args.num_devices is not None)}
     for flag, (item, hit) in refused.items():
         if hit:
             raise NotImplementedError(f"{flag}: not ported yet (ROADMAP.md "
@@ -97,8 +97,12 @@ def main(argv=None):
     def tool(name):
         return [sys.executable, "-m", f"uemda_tpu_torch.tools.{name}"]
 
+    proca = args.method == "proca"
     if 1 in sel:
-        run(tool("train_src") + cfg_arg + ["--align-domain", "1"] + ov + dev,
+        # proca (runs/proca/*.sh): no CORAL domain alignment in stage 1
+        pre = ["--pretrained", args.pretrained] if args.pretrained else []
+        run(tool("train_src") + cfg_arg
+            + ["--align-domain", "0" if proca else "1"] + pre + ov + dev,
             args.dry_run)
     if 2 in sel:
         run(tool("init_prototypes") + cfg_arg
@@ -106,18 +110,24 @@ def main(argv=None):
                "--ckpt-proto", f"{log}/src/prototypes_init.pth"] + dev,
             args.dry_run)
     if 3 in sel:
-        run(tool("train_align_uem") + cfg_arg
-            + ["--align-domain", "1", "--refine-label", "1",
-               "--ckpt-model", f"{log}/src/{tset}_best.pth",
-               "--ckpt-proto", f"{log}/src/prototypes_init.pth"] + ov + dev,
-            args.dry_run)
+        ckpts = ["--ckpt-model", f"{log}/src/{tset}_best.pth",
+                 "--ckpt-proto", f"{log}/src/prototypes_init.pth"]
+        if proca:
+            run(tool("train_align") + cfg_arg + ckpts + ov + dev, args.dry_run)
+        else:
+            run(tool("train_align_uem") + cfg_arg
+                + ["--align-domain", "1", "--refine-label", "1"] + ckpts + ov
+                + dev, args.dry_run)
     if 4 in sel:
         run(tool("init_prototypes") + cfg_arg
             + ["--stage", "2", "--ckpt-model", f"{log}/align/{tset}_best.pth",
                "--ckpt-proto", f"{log}/align/prototypes_init.pth"] + dev,
             args.dry_run)
     if 5 in sel:
-        flags = ["--gen", "1", "--refine-label", "1", "--lt", "uvem"]
+        # proca: refinement explicitly off (train_ssl_uem defaults
+        # --refine-label to 1; the reference baseline runs without it)
+        flags = (["--gen", "1", "--refine-label", "0", "--lt", "ce"] if proca
+                 else ["--gen", "1", "--refine-label", "1", "--lt", "uvem"])
         if args.gen_fastpath:
             flags += ["--gen-fastpath", "1"]
         run(tool("train_ssl_uem") + cfg_arg + flags

@@ -14,12 +14,10 @@ online soft label through the views of ``--refine-mode`` (the superpixel
 view reads the ``_sup_shrink`` maps), mines hard pseudo labels and adds PCL
 on both domains. Evaluates every ``EVAL_EVERY`` steps and at the end, and
 keeps ``<snapshot_dir>/align/<target>_best.pth`` and
-``prototypes_best.pth``. ``--bcs 1`` weights the source CE by the EMA class
-balance (temperature ``--class-temp``). ``--steps-per-call``,
-``--host-crop``, ``--profile-dir`` and ``--resume`` as ``train_src``.
-``--device`` defaults to the card; ``--device cpu`` runs the plain
-versions. Not ported yet, and refused: ``--ls OhemCrossEntropy``,
-``--accum-steps`` > 1.
+``prototypes_best.pth``. ``--ls``, ``--bcs``, ``--class-temp``,
+``--accum-steps``, ``--steps-per-call``, ``--host-crop``, ``--profile-dir``
+and ``--resume`` as ``train_src``. ``--device`` defaults to the card;
+``--device cpu`` runs the plain versions.
 """
 
 import argparse
@@ -40,6 +38,7 @@ from uemda_tpu_torch.train.loop import (
     make_target_iter,
     maybe_resume,
     run_training_loop,
+    source_loss_of,
 )
 from uemda_tpu_torch.train.steps import make_align_step
 from uemda_tpu_torch.utils.runtime import resolve_device
@@ -74,12 +73,6 @@ def main(argv=None):
     add_loop_flags(parser)
     args = parser.parse_args(argv)
 
-    if args.ls == "OhemCrossEntropy":
-        raise NotImplementedError("--ls OhemCrossEntropy: OHEM is not ported "
-                                  "yet (ROADMAP.md queue A5)")
-    if args.accum_steps > 1:
-        raise NotImplementedError("--accum-steps > 1: gradient accumulation "
-                                  "is not ported yet (ROADMAP.md queue A5)")
     device = resolve_device(args.device)
     cfg = load_config(args.config_path, snapshot_postfix="/align")
     run_dir = cfg.snapshot_dir
@@ -93,10 +86,11 @@ def main(argv=None):
     model.load_state_dict(load_checkpoint(args.ckpt_model))
     state = build_state(model, cfg, stop_steps,
                         prototypes=load_prototypes(args.ckpt_proto),
-                        balance_temp=args.class_temp)
+                        balance_temp=args.class_temp,
+                        accum_steps=args.accum_steps)
     hp = default_hparams(
         cfg, align_domain=bool(args.align_domain),
-        balance_source=bool(args.bcs),
+        source_loss=source_loss_of(args), balance_source=bool(args.bcs),
         refine=bool(args.refine_label), refine_mode=args.refine_mode,
         refine_temp=args.refine_temp, pcl_temp=args.pcl_temp,
         compute_dtype="bfloat16" if device.type == "cuda" else "float32")

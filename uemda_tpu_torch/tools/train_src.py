@@ -11,8 +11,12 @@ the first stage/20 steps) and cadence: log every 50 steps, evaluate every
 ``EVAL_EVERY`` steps and at the end with ``infer/evaluate.py``, keep
 ``<snapshot_dir>/src/<target>_best.pth`` (the model's state dict under the
 reference's key names, which ``uemda_tpu_torch.tools.eval`` loads).
-``--bcs 1`` weights the source CE by the EMA class balance (temperature
-``--class-temp``). ``--steps-per-call K`` runs K steps a call (on the
+``--ls OhemCrossEntropy`` trains the heads with OHEM instead of CE, ``--bcs
+1`` weights the source loss by the EMA class balance (temperature
+``--class-temp``), ``--pretrained`` loads a torchvision-style ImageNet
+``.pth`` into the trunk and ``--accum-steps k`` makes one update of the
+mean gradient of k micro-batches (the schedule's horizon is then the
+number of updates). ``--steps-per-call K`` runs K steps a call (on the
 card, replays of a CUDA graph of the step), ``--host-crop 1`` crops the
 samples on the host before their upload and ``--profile-dir`` traces steps
 10-15. The whole train state is snapshotted to
@@ -20,8 +24,7 @@ samples on the host before their upload and ``--profile-dir`` traces steps
 beside ``metrics.jsonl`` and ``best.json``; ``--resume auto`` (or a
 snapshot's path) goes on from it exactly: the same state, draws and
 batches as a run that was never stopped. ``--device`` defaults to the
-card; ``--device cpu`` runs the plain versions. The reference's OHEM
-(``--ls``) and ``--pretrained`` come with later slices.
+card; ``--device cpu`` runs the plain versions.
 """
 
 import argparse
@@ -43,6 +46,7 @@ from uemda_tpu_torch.train.loop import (
     make_target_iter,
     maybe_resume,
     run_training_loop,
+    source_loss_of,
 )
 from uemda_tpu_torch.train.steps import make_src_step
 from uemda_tpu_torch.utils.runtime import resolve_device
@@ -52,12 +56,19 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description="Train on source (stage 1).")
     parser.add_argument("--config-path", type=str, default="2vaihingen")
     parser.add_argument("--align-domain", type=str2bool, default=0)
+    parser.add_argument("--ls", type=str, default="CrossEntropy",
+                        choices=["CrossEntropy", "OhemCrossEntropy"])
     parser.add_argument("--bcs", type=str2bool, default=0,
                         help="class balance for source")
     parser.add_argument("--class-temp", type=float, default=2.0)
+    parser.add_argument("--pretrained", type=str, default=None,
+                        help="torchvision-style ImageNet backbone .pth")
     parser.add_argument("--steps", type=int, default=None,
                         help="override STAGE1_STEPS")
     parser.add_argument("--seed", type=int, default=2333)
+    parser.add_argument("--accum-steps", type=int, default=1,
+                        help="gradient accumulation: one SGD update per k "
+                             "micro-batches (effective batch k x batch)")
     parser.add_argument("--resume", type=str, default="",
                         help="'auto' or a state_curr.pth path (exact "
                              "full-state resume)")
@@ -76,13 +87,15 @@ def main(argv=None):
 
     hp = default_hparams(
         cfg, align_domain=bool(args.align_domain),
-        balance_source=bool(args.bcs),
+        source_loss=source_loss_of(args), balance_source=bool(args.bcs),
         compute_dtype="bfloat16" if device.type == "cuda" else "float32")
     stop_steps = args.steps or cfg.stage1_steps
     model = build_model(cfg, device=device,
-                        generator=torch.Generator().manual_seed(args.seed))
+                        generator=torch.Generator().manual_seed(args.seed),
+                        pretrained=args.pretrained)
     step_fn = make_src_step(model, hp)
-    state = build_state(model, cfg, stop_steps, balance_temp=args.class_temp)
+    state = build_state(model, cfg, stop_steps, balance_temp=args.class_temp,
+                        accum_steps=args.accum_steps)
     state, start, state_path = maybe_resume(state, run_dir, args.resume,
                                             logger)
     crop = host_crop_of(args, cfg)

@@ -13,18 +13,18 @@ Loads the stage-2 model. The target's soft pseudo labels come from a sweep
 with ``--gen 1``; each step mines hard labels from them and pastes source
 content into the target batch (``--mix``) before the two forwards
 (``train/steps.py``'s ``MixStep``). ``--lt legacy`` is the reference's CE
-on both mixed batches; ``--lt uvem|ce`` with ``--refine-label``
-(``--ckpt-proto``, the prototypes) is the combo: online refinement and
-the stage-3 target loss on the mixed batch. Runs in ``GENE_EVERY`` chunks
-as the JAX tool: each chunk's loop counts, logs, evaluates and snapshots
-from its own start, with the seed ``--seed`` plus the chunk's start.
-``--steps-per-call``, ``--host-crop``, ``--profile-dir`` (the first
-chunk's steps 10-15) and ``--resume`` as ``train_src``; a resume past the
-first chunk with ``--gen 1`` regenerates before its first live chunk, as
-the JAX tool does. ``--device`` defaults to the card. Not ported yet, and
-refused: ``--ls OhemCrossEntropy``, ``--lt`` ups/ohem/focal/ghm/gdp and
-``--accum-steps`` > 1 (ROADMAP.md queue A5), ``--num-devices`` and the
-multi-process flags (A8).
+on both mixed batches (OHEM with ``--ls OhemCrossEntropy``); any stage-3
+``--lt`` (uvem, ups, ohem, focal, ghm, gdp, ce), with ``--refine-label``
+(``--ckpt-proto``, the prototypes) or without, is the combo: online
+refinement and the stage-3 target loss on the mixed batch. Runs in
+``GENE_EVERY`` chunks as the JAX tool: each chunk's loop counts, logs,
+evaluates and snapshots from its own start, with the seed ``--seed`` plus
+the chunk's start. ``--steps-per-call``, ``--host-crop``, ``--profile-dir``
+(the first chunk's steps 10-15), ``--accum-steps`` and ``--resume`` as
+``train_src``; a resume past the first chunk with ``--gen 1`` regenerates
+before its first live chunk, as the JAX tool does. ``--device`` defaults
+to the card. Not ported yet, and refused: ``--num-devices`` and the
+multi-process flags (ROADMAP.md queue A8).
 """
 
 import argparse
@@ -48,20 +48,17 @@ from uemda_tpu_torch.train.loop import (
     make_source_iter,
     maybe_resume,
     run_training_loop,
+    source_loss_of,
 )
 from uemda_tpu_torch.train.steps import make_mix_step
 from uemda_tpu_torch.utils.log import str2bool
 from uemda_tpu_torch.utils.runtime import resolve_device
 
 LOSS_CHOICES = ["legacy", "uvem", "ups", "ohem", "focal", "ghm", "gdp", "ce"]
-PORTED_LOSSES = ("legacy", "uvem", "ce")
 
 
 def _refuse_unported(args) -> None:
     refused = {
-        "--accum-steps > 1": ("A5", args.accum_steps > 1),
-        "--ls OhemCrossEntropy": ("A5", args.ls == "OhemCrossEntropy"),
-        f"--lt {args.lt}": ("A5", args.lt not in PORTED_LOSSES),
         "--num-devices": ("A8", args.num_devices is not None),
         "--multihost": ("A8", bool(args.multihost)),
         "--coordinator": ("A8", args.coordinator is not None),
@@ -91,8 +88,8 @@ def main(argv=None):
     parser.add_argument("--lt", type=str, default="legacy",
                         choices=LOSS_CHOICES,
                         help="target loss on the mixed batch: 'legacy' is "
-                             "the reference's CE on the mined labels; 'uvem' "
-                             "or 'ce' the stage-3 loss (the combo)")
+                             "the reference's CE on the mined labels; the "
+                             "others the stage-3 loss (the combo)")
     parser.add_argument("--refine-label", type=str2bool, default=0,
                         help="refine the stored soft labels online before "
                              "mining and mixing (needs --ckpt-proto)")
@@ -140,9 +137,11 @@ def main(argv=None):
     model.load_state_dict(load_checkpoint(args.ckpt_model))
     prototypes = load_prototypes(args.ckpt_proto) if args.ckpt_proto else None
     state = build_state(model, cfg, stop_steps, prototypes=prototypes,
-                        balance_temp=args.class_temp)
+                        balance_temp=args.class_temp,
+                        accum_steps=args.accum_steps)
     hp = default_hparams(
-        cfg, balance_source=bool(args.bcs), refine=bool(args.refine_label),
+        cfg, source_loss=source_loss_of(args), balance_source=bool(args.bcs),
+        refine=bool(args.refine_label),
         refine_mode=args.refine_mode, refine_temp=args.refine_temp,
         target_loss=args.lt if args.lt != "legacy" else "ce",
         balance_target=bool(args.bct), uvem_m=args.uvem_m,

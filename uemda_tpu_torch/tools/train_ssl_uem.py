@@ -14,17 +14,18 @@ compute dtype; ``--gen-fastpath 1`` on the folded fast path) into
 ``<snapshot_dir>/../pseudo_label/<image>.npy`` and palette PNGs of the mined
 labels into ``pseudo_label_color``; then it trains on the source labels and
 on those soft labels, refined online (``--refine-mode``; the superpixel view
-reads the ``_sup_shrink`` maps), with the UVEM target loss (``--lt
-ours|uvem``), plain CE (``ce``) or none. Evaluates every ``EVAL_EVERY``
-steps and at the end, and keeps ``<snapshot_dir>/ssl/<target>_best.pth``,
+reads the ``_sup_shrink`` maps), with the target loss of ``--lt``: UVEM
+(``ours|uvem``), UPS, OHEM, focal, GHM, GDP, plain CE or none. Evaluates
+every ``EVAL_EVERY`` steps and at the end, and keeps
+``<snapshot_dir>/ssl/<target>_best.pth``,
 ``prototypes_best.pth`` and ``best.json``. ``--steps-per-call``,
 ``--host-crop`` (which also crops the stored soft labels on the host),
 ``--profile-dir`` and ``--resume`` as ``train_src``; a resumed run skips
 the sweep (the interrupted run's soft labels are on disk, and the same
-stage-2 model would give them again). ``--device`` defaults to the card;
-``--device cpu`` runs the plain versions. Not ported yet, and refused
-(ROADMAP.md queue A5, A8): ``--accum-steps`` > 1, ``--ls
-OhemCrossEntropy``, ``--lt`` ups/ohem/focal/ghm/gdp, ``--num-devices``.
+stage-2 model would give them again). ``--ls`` and ``--accum-steps`` as
+``train_src``. ``--device`` defaults to the card; ``--device cpu`` runs
+the plain versions. Not ported yet, and refused: ``--num-devices``
+(ROADMAP.md queue A8).
 """
 
 import argparse
@@ -49,20 +50,17 @@ from uemda_tpu_torch.train.loop import (
     make_target_iter,
     maybe_resume,
     run_training_loop,
+    source_loss_of,
 )
 from uemda_tpu_torch.train.steps import make_ssl_step
 from uemda_tpu_torch.utils.runtime import resolve_device
 
 LOSS_CHOICES = ["ours", "uvem", "ohem", "focal", "ghm", "gdp", "ups", "none",
                 "ce"]
-PORTED_LOSSES = ("ours", "uvem", "ce", "none")
 
 
 def _refuse_unported(args) -> None:
     refused = {
-        "--accum-steps > 1": ("A5", args.accum_steps > 1),
-        "--ls OhemCrossEntropy": ("A5", args.ls == "OhemCrossEntropy"),
-        f"--lt {args.lt}": ("A5", args.lt not in PORTED_LOSSES),
         "--num-devices": ("A8", args.num_devices is not None),
     }
     for flag, (item, hit) in refused.items():
@@ -120,7 +118,8 @@ def main(argv=None):
     model.load_state_dict(load_checkpoint(args.ckpt_model))
     state = build_state(model, cfg, stop_steps,
                         prototypes=load_prototypes(args.ckpt_proto),
-                        balance_temp=args.class_temp)
+                        balance_temp=args.class_temp,
+                        accum_steps=args.accum_steps)
     state, start, state_path = maybe_resume(state, run_dir, args.resume,
                                             logger)
 
@@ -140,7 +139,8 @@ def main(argv=None):
             fastpath=bool(args.gen_fastpath))
 
     hp = default_hparams(
-        cfg, balance_source=bool(args.bcs), refine=bool(args.refine_label),
+        cfg, source_loss=source_loss_of(args), balance_source=bool(args.bcs),
+        refine=bool(args.refine_label),
         refine_mode=args.refine_mode, refine_temp=args.refine_temp,
         target_loss={"ours": "uvem"}.get(args.lt, args.lt),
         balance_target=bool(args.bct), uvem_m=args.uvem_m,

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from uemda_tpu_torch.alignment.balance import init_class_balance
+from uemda_tpu_torch.alignment.losses import init_ghm
 from uemda_tpu_torch.alignment.prototypes import init_aligner
 from uemda_tpu_torch.config import PairConfig
 from uemda_tpu_torch.datasets.base import SegDataset, infinite_batches
@@ -54,6 +55,7 @@ from uemda_tpu_torch.datasets.prefetch import prefetch, upload_batches
 from uemda_tpu_torch.infer.evaluate import evaluate_dataset
 from uemda_tpu_torch.models.config import DeeplabV2Config, PPMConfig
 from uemda_tpu_torch.models.deeplabv2 import DeeplabV2
+from uemda_tpu_torch.models.port import load_pretrained_backbone
 from uemda_tpu_torch.models.resnet import ResNetEncoder
 from uemda_tpu_torch.train.checkpoints import (
     AsyncSaver,
@@ -74,19 +76,27 @@ def resolve_model_name(model: str) -> str:
 
 
 def build_model(cfg: PairConfig, device=None,
-                generator: Optional[torch.Generator] = None) -> DeeplabV2:
+                generator: Optional[torch.Generator] = None,
+                pretrained: Optional[str] = None) -> DeeplabV2:
     """The one model config every reference tool uses (train_src.py:63-80);
     head and feature widths follow the backbone (2048 for resnet50/101).
-    ``generator`` draws the random init."""
+    ``generator`` draws the random init. ``pretrained``: a torchvision-style
+    ImageNet ``.pth``/``.pt`` loaded into the trunk, the heads keeping their
+    init (``uemda_tpu/train/loop.py:75-81``, :func:`models.port.
+    load_pretrained_backbone`)."""
     name = resolve_model_name(cfg.model)
     fc_dim = ResNetEncoder.out_channels(name)
     mcfg = DeeplabV2Config.uemda_default(num_classes=cfg.class_num,
-                                         resnet_type=name)
+                                         resnet_type=name,
+                                         pretrained=pretrained)
     if fc_dim != 2048:
         mcfg = dataclasses.replace(
             mcfg, ppm=PPMConfig(num_classes=cfg.class_num, fc_dim=fc_dim),
             inchannels=fc_dim)
-    return DeeplabV2(mcfg, device=device, generator=generator)
+    model = DeeplabV2(mcfg, device=device, generator=generator)
+    if pretrained:
+        load_pretrained_backbone(model, pretrained)
+    return model
 
 
 def build_state(model: DeeplabV2, cfg: PairConfig, stop_steps: int,
@@ -94,13 +104,18 @@ def build_state(model: DeeplabV2, cfg: PairConfig, stop_steps: int,
                 feat_channels: Optional[int] = None,
                 balance_temp: float = 2.0) -> TrainState:
     """SGD over the model's parameters with the poly-warmup schedule over
-    ``stop_steps`` and, for ``freeze_at > 0``, the stage freeze mask; the
-    prototype aligner starts from ``prototypes`` ((C, K), else zeros; K is
-    ``feat_channels``, by default the model's ``inchannels``) and both
-    class balances from uniform frequencies (EMA decay 0.99, temperature
-    ``balance_temp``, ``uemda_tpu/train/state.py:62-63``), all on the
-    model's device."""
-    schedule = poly_warmup_schedule(cfg.learning_rate, stop_steps, cfg.power)
+    ``stop_steps`` and, for ``freeze_at > 0``, the stage freeze mask; with
+    ``accum_steps`` k > 1 one update per k micro-steps, and the schedule's
+    horizon is the number of updates, ceil(stop_steps / k)
+    (``uemda_tpu/train/loop.py:100-102``). The prototype aligner starts
+    from ``prototypes`` ((C, K), else zeros; K is ``feat_channels``, by
+    default the model's ``inchannels``), both class balances from uniform
+    frequencies (EMA decay 0.99, temperature ``balance_temp``,
+    ``uemda_tpu/train/state.py:62-63``) and the GHM/GDP histogram from
+    zeros (30 bins, momentum 0.99), all on the model's device."""
+    schedule = poly_warmup_schedule(cfg.learning_rate,
+                                    -(-stop_steps // max(accum_steps, 1)),
+                                    cfg.power)
     named = list(model.named_parameters())
     mask = freeze_mask(named, freeze_at) if freeze_at > 0 else None
     opt = SGD(named, schedule, cfg.momentum, cfg.weight_decay, clip_norm=32.0,
@@ -113,7 +128,8 @@ def build_state(model: DeeplabV2, cfg: PairConfig, stop_steps: int,
     return TrainState(
         step=0, model=model, opt=opt, aligner=aligner,
         balance_s=init_class_balance(cfg.class_num, 0.99, balance_temp, dev),
-        balance_t=init_class_balance(cfg.class_num, 0.99, balance_temp, dev))
+        balance_t=init_class_balance(cfg.class_num, 0.99, balance_temp, dev),
+        ghm=init_ghm(device=dev))
 
 
 def default_hparams(cfg: PairConfig, **overrides) -> StageHParams:
@@ -132,6 +148,11 @@ def default_hparams(cfg: PairConfig, **overrides) -> StageHParams:
     )
     base.update(overrides)
     return StageHParams(**base)
+
+
+def source_loss_of(args) -> str:
+    """A trainer's ``--ls`` as ``StageHParams.source_loss``."""
+    return "ohem" if args.ls == "OhemCrossEntropy" else "ce"
 
 
 def max_segments_for(cfg: PairConfig) -> int:

@@ -18,8 +18,19 @@ weight_decay=5e-4)``, ``tools/train_src.py:106-141``). As optax does:
 The update runs in place on the f32 masters and momentum buffers with
 ``torch._foreach`` ops, reads the learning rate from a device scalar and
 makes no host synchronisation, so a CUDA graph can capture it
-(``train/graph.py``). Gradient accumulation (``accum_steps > 1``,
-optax.MultiSteps) is not ported yet and raises.
+(``train/graph.py``).
+
+Gradient accumulation (``accum_steps`` k > 1) is ``optax.MultiSteps(tx,
+every_k_schedule=k)`` (``uemda_tpu/train/optim.py:76-79``): each
+micro-step folds its gradient into a running mean, ``acc + (g - acc) /
+(mini_step + 1)``; the k-th applies the chain above to that mean and
+zeroes it, the others leave the masters and the momentum as they were.
+Clipping, weight decay and the schedule see the accumulated gradient, and
+the schedule advances once per real update. Whether a micro-step applies
+is device data (a 0/1 factor written by :meth:`SGD.set_lr` with the
+learning rate), so one captured update serves every micro-step: the
+masters move by ``update * 1`` or ``* 0`` and the momentum and running
+mean blend with 0/1 weights, exact for finite values.
 """
 
 from typing import Callable, Dict, List, Sequence
@@ -28,7 +39,7 @@ import torch
 
 FREEZE_SUBTREES = {
     # freeze_at levels -> trunk children (resnet.py:119-130)
-    1: ["conv1", "bn1"],
+    1: ["conv1", "bn1", "stem"],
     2: ["layer1"],
     3: ["layer2"],
     4: ["layer3"],
@@ -54,16 +65,17 @@ def freeze_mask(named_params: Sequence, freeze_at: int) -> Dict[str, bool]:
 class SGD:
     """The optax chain above over ``params`` (name, f32 tensor) pairs,
     reading each parameter's ``.grad``. ``trainable``: {name: bool} from
-    :func:`freeze_mask`, or None for all."""
+    :func:`freeze_mask`, or None for all. ``accum_steps`` k: one update on
+    the mean gradient of k micro-steps (module docstring); :attr:`count`
+    counts the updates made, :attr:`mini_step` the micro-steps folded into
+    :attr:`acc` since the last one."""
 
     def __init__(self, named_params: Sequence, schedule: Callable[[int], float],
                  momentum: float = 0.9, weight_decay: float = 5e-4,
                  clip_norm: float = 32.0, trainable: Dict[str, bool] = None,
                  accum_steps: int = 1):
-        if accum_steps > 1:
-            raise NotImplementedError(
-                "gradient accumulation (accum_steps > 1) is not ported yet "
-                "(ROADMAP.md queue A5)")
+        if accum_steps < 1:
+            raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         self.names = [n for n, _ in named_params]
         self.params: List[torch.Tensor] = [p for _, p in named_params]
         self.schedule = schedule
@@ -77,13 +89,37 @@ class SGD:
         # the learning rate of the next update, on the parameters' device:
         # written by set_lr before each update, read by update(), so a
         # captured update replays with each step's rate
-        self.lr = torch.zeros((), dtype=torch.float32,
-                              device=self.params[0].device)
+        dev = self.params[0].device
+        self.lr = torch.zeros((), dtype=torch.float32, device=dev)
+        self.accum_steps = int(accum_steps)
+        self.mini_step = 0
+        self.acc: List[torch.Tensor] = []
+        if self.accum_steps > 1:
+            self.acc = [torch.zeros_like(p) for p in self.params]
+            # mini_step + 1 (the running mean's divisor) and whether this
+            # micro-step applies (1.0) or only accumulates (0.0)
+            self.acc_div = torch.ones((), dtype=torch.float32, device=dev)
+            self.emit = torch.zeros((), dtype=torch.float32, device=dev)
 
     def set_lr(self) -> None:
-        """Write lr(count) into :attr:`lr` (a fill on the device, no host
-        synchronisation)."""
+        """Write lr(count) into :attr:`lr` -- and with accumulation the
+        micro-step's divisor and 0/1 apply factor -- as fills on the device,
+        no host synchronisation."""
         self.lr.fill_(self.schedule(self.count))
+        if self.accum_steps > 1:
+            self.acc_div.fill_(float(self.mini_step + 1))
+            self.emit.fill_(float(self.mini_step == self.accum_steps - 1))
+
+    def advance(self) -> None:
+        """The host's count of one micro-step taken: with accumulation the
+        update count moves only on the micro-step that applied."""
+        if self.accum_steps == 1:
+            self.count += 1
+            return
+        self.mini_step += 1
+        if self.mini_step == self.accum_steps:
+            self.mini_step = 0
+            self.count += 1
 
     @torch.no_grad()
     def update(self) -> torch.Tensor:
@@ -95,6 +131,11 @@ class SGD:
         if any(g is None for g in grads):
             missing = [n for n, g in zip(self.names, grads) if g is None]
             raise RuntimeError(f"no gradient for {missing[:3]} ...")
+        if self.accum_steps > 1:
+            # optax.MultiSteps' running mean, then the chain on it
+            torch._foreach_add_(self.acc, torch._foreach_div(
+                torch._foreach_sub(grads, self.acc), self.acc_div))
+            grads = self.acc
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         # optax's select(norm < max, g, (g / norm) * max) without a host
         # synchronisation: (g / 1) * 1 is g exactly
@@ -105,17 +146,26 @@ class SGD:
             torch.where(keep, one, torch.full_like(norm, self.clip_norm)))
         u = torch._foreach_add(grads, self.params, alpha=self.weight_decay)
         torch._foreach_add_(u, self.trace, alpha=self.momentum)
-        torch._foreach_copy_(self.trace, u)
         train = [i for i, t in enumerate(self.trainable) if t]
-        torch._foreach_add_([self.params[i] for i in train],
-                            torch._foreach_mul([self.trace[i] for i in train],
-                                               -self.lr))
+        if self.accum_steps == 1:
+            torch._foreach_copy_(self.trace, u)
+            step = torch._foreach_mul([self.trace[i] for i in train], -self.lr)
+        else:
+            # trace * (1 - emit) + u * emit: the new momentum on the k-th
+            # micro-step, the old one on the others
+            hold = 1.0 - self.emit
+            torch._foreach_mul_(self.trace, hold)
+            torch._foreach_add_(self.trace, torch._foreach_mul(u, self.emit))
+            step = torch._foreach_mul(torch._foreach_mul(
+                [self.trace[i] for i in train], -self.lr), self.emit)
+            torch._foreach_mul_(self.acc, hold)
+        torch._foreach_add_([self.params[i] for i in train], step)
         return norm
 
     def step(self) -> torch.Tensor:
-        """One update at lr(count), then count + 1; returns the gradient
-        norm as a device scalar."""
+        """One (micro-)step at lr(count), then :meth:`advance`; returns the
+        gradient norm as a device scalar."""
         self.set_lr()
         norm = self.update()
-        self.count += 1
+        self.advance()
         return norm

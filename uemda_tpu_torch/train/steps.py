@@ -1,13 +1,14 @@
 """The train steps of stage 1, ``init_prototypes``, stage 2 and stage 3.
 
-The port's copy of ``StageHParams``, ``_forward_train``, the CE branch of
-``_source_loss_terms`` (with the class balance), the UVEM, CE and 'none'
-branches of ``_target_loss``, ``make_src_step``, ``make_init_proto_step``,
-``make_align_step``, ``make_ssl_step`` and ``make_mix_step``
-(``uemda_tpu/train/steps.py:52-484``; reference ``tools/train_src.py:
-108-149``, ``tools/init_prototypes.py:101-111``,
-``tools/train_align_uem.py:136-187``, ``tools/train_ssl_uem.py:171-235``,
-``tools/train_ssl_mix.py:144-176``).
+The port's copy of ``StageHParams``, ``_forward_train``,
+``_source_loss_terms`` (CE or OHEM, with the class balance),
+``_target_loss`` (the whole stage-3 zoo), ``make_src_step``,
+``make_init_proto_step``, ``make_align_step``, ``make_ssl_step``,
+``make_mix_step`` and ``make_align_simple_step`` (``uemda_tpu/train/
+steps.py:52-593``; reference ``tools/train_src.py:108-149``,
+``tools/init_prototypes.py:101-111``, ``tools/train_align_uem.py:136-187``,
+``tools/train_ssl_uem.py:171-235``, ``tools/train_ssl_mix.py:144-176``,
+``tools/train_align.py:126-155``).
 
 Mixed precision as in the JAX package: the f32 master parameters are cast
 to ``compute_dtype`` (bf16 by default) for the forward -- a differentiable
@@ -40,7 +41,12 @@ from uemda_tpu_torch.alignment.balance import class_balance_weight
 from uemda_tpu_torch.alignment.coral import align_domain
 from uemda_tpu_torch.alignment.losses import (
     cross_entropy_loss,
+    focal_loss,
+    gdp_loss,
+    ghm_loss,
     loss_calc,
+    ohem_cross_entropy,
+    ups_loss,
     uvem_loss,
 )
 from uemda_tpu_torch.alignment.pcl import prototype_contrastive_loss
@@ -81,7 +87,7 @@ class StageHParams:
     tgt_mean: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     tgt_std: Tuple[float, float, float] = (1.0, 1.0, 1.0)
     align_domain: bool = False
-    source_loss: str = "ce"  # 'ce' | 'ohem' (not ported yet)
+    source_loss: str = "ce"  # 'ce' | 'ohem'
     balance_source: bool = False
     refine: bool = True
     refine_mode: str = "all"
@@ -89,8 +95,7 @@ class StageHParams:
     cutoff_top: float = 0.8
     cutoff_low: float = 0.6
     pcl_temp: float = 8.0
-    # 'uvem' | 'ce' | 'none'; 'ups', 'ohem', 'focal', 'ghm', 'gdp' not ported
-    target_loss: str = "uvem"
+    target_loss: str = "uvem"  # one of TARGET_LOSSES
     balance_target: bool = False
     uvem_m: float = 0.2
     uvem_t: float = 0.7
@@ -100,6 +105,12 @@ class StageHParams:
     clamp_target: bool = False
     compute_dtype: str = "bfloat16"
     scale_factor: int = 16  # feature stride (output_stride)
+
+
+TARGET_LOSSES = ("uvem", "ups", "ohem", "focal", "ghm", "gdp", "ce", "none")
+# the target losses the target class balance weights (and moves), as
+# ``steps.py:263``
+BALANCED_TARGET_LOSSES = ("uvem", "ups", "ce", "gdp")
 
 
 @dataclasses.dataclass
@@ -214,7 +225,7 @@ def forward_scratch(model, params, images: torch.Tensor, dropout_masks):
 
 # the state a step replaces with new values (the JAX package's functional
 # updates), written back into the tensors it had
-_SWAPPED = ("aligner", "balance_s", "balance_t")
+_SWAPPED = ("aligner", "balance_s", "balance_t", "ghm")
 
 
 def _write_back(state: TrainState, kept) -> None:
@@ -242,10 +253,8 @@ class _Step:
     target_mode = "oneof"
 
     def __init__(self, model, hp: StageHParams):
-        if hp.source_loss != "ce":
-            raise NotImplementedError(
-                f"source_loss={hp.source_loss!r}: OHEM is not ported yet "
-                "(ROADMAP.md queue A5)")
+        if hp.source_loss not in ("ce", "ohem"):
+            raise ValueError(f"unknown source_loss {hp.source_loss!r}")
         cfg = model.config
         if not cfg.multi_layer or cfg.cascade:
             raise NotImplementedError(
@@ -337,19 +346,27 @@ class _Step:
         state.advance()
         return metrics
 
+    def _source_fn(self, pixel_weight):
+        """The source loss of one head: CE or OHEM (``source_loss``), each
+        pixel weighted by ``pixel_weight`` when given."""
+        hp = self.hp
+        if hp.source_loss == "ohem":
+            return lambda lg, lb: ohem_cross_entropy(
+                lg, lb, hp.ignore_label, pixel_weight=pixel_weight)
+        return lambda lg, lb: cross_entropy_loss(lg, lb, hp.ignore_label,
+                                                 pixel_weight)
+
     def _source_loss(self, state, preds, label) -> torch.Tensor:
-        """CE over both heads (``_source_loss_terms``, ``steps.py:106-122``),
-        each pixel weighted by the class balance with ``balance_source``,
-        whose EMA moves first; the new balance goes into ``state``."""
+        """CE or OHEM over both heads (``_source_loss_terms``,
+        ``steps.py:106-122``), each pixel weighted by the class balance with
+        ``balance_source``, whose EMA moves first; the new balance goes into
+        ``state``."""
         hp = self.hp
         pixel_weight = None
         if hp.balance_source:
             pixel_weight, state.balance_s = class_balance_weight(
                 state.balance_s, label, hp.ignore_label)
-        return loss_calc(
-            preds, label,
-            lambda lg, lb: cross_entropy_loss(lg, lb, hp.ignore_label,
-                                              pixel_weight))
+        return loss_calc(preds, label, self._source_fn(pixel_weight))
 
     def _seg_and_domain(self, state, p1, p2, label, feat_s, feat_t):
         hp = self.hp
@@ -444,8 +461,9 @@ class SslStep(_Step):
     ``refine_mode`` against the prototypes *before* this step's update;
     one K8 pass (``ops/mine.py``) that gives the hard pseudo label and the
     UVEM ``(w, u)`` both heads' losses read; the prototypes' EMA from the
-    source (``train_ssl_uem.py:216``); the source CE, then the target loss;
-    one backward and one update. No CORAL and no PCL. The metrics add the
+    source (``train_ssl_uem.py:216``); the source loss, then the target
+    loss (``target_loss``, any of :data:`TARGET_LOSSES`); one backward and
+    one update. No CORAL and no PCL. The metrics add the
     shares of selected and of trained (u <= t) target pixels and the mean
     UVEM weight."""
 
@@ -453,35 +471,61 @@ class SslStep(_Step):
 
     def __init__(self, model, hp: StageHParams):
         super().__init__(model, hp)
-        if hp.target_loss not in ("uvem", "ce", "none"):
-            raise NotImplementedError(
-                f"target_loss={hp.target_loss!r}: the stage-3 loss zoo (UPS, "
-                "OHEM, focal, GHM, GDP) is not ported yet (ROADMAP.md queue "
-                "A5)")
+        if hp.target_loss not in TARGET_LOSSES:
+            raise ValueError(f"unknown target_loss {hp.target_loss!r}")
         if hp.refine and hp.refine_mode not in ("all", "p", "l", "s", "n"):
             raise ValueError(f"unknown refine_mode {hp.refine_mode!r}")
 
     def _target_loss(self, state, preds, label_hard, w, u,
                      paste_mask=None) -> torch.Tensor:
-        """``_target_loss`` (``steps.py:258-317``) for 'uvem', 'ce' and
-        'none'; the target class balance weights 'uvem' and 'ce'.
-        ``paste_mask``: UVEM trains the mix step's pasted pixels at weight
-        1."""
+        """``_target_loss`` (``steps.py:258-317``) over both heads: 'uvem'
+        and 'ups' read K8's ``(w, u)``; 'ohem', 'focal' (gamma 2) and 'ce'
+        the hard label only; 'ghm' and 'gdp' advance ``state.ghm`` head 1,
+        then head 2, on the logits upsampled to the label. The target class
+        balance weights (and moves for) 'uvem', 'ups', 'ce' and 'gdp'
+        only. ``paste_mask`` (the combo mix step): UVEM trains the pasted
+        pixels at weight 1, and UPS gates them in (their one-hot soft
+        label has entropy 0)."""
         hp = self.hp
+        il = hp.ignore_label
         if hp.target_loss == "none":
             return torch.zeros((), device=label_hard.device)
         pixel_weight = None
-        if hp.balance_target:
+        if hp.balance_target and hp.target_loss in BALANCED_TARGET_LOSSES:
             pixel_weight, state.balance_t = class_balance_weight(
-                state.balance_t, label_hard, hp.ignore_label)
+                state.balance_t, label_hard, il)
+        if hp.target_loss in ("ghm", "gdp"):
+            hw = tuple(label_hard.shape[-2:])
+            ghm, total = state.ghm, 0.0
+            for p in preds:
+                p = upsample_logits(p, hw)
+                if hp.target_loss == "ghm":
+                    loss, ghm = ghm_loss(p, label_hard, ghm, il)
+                else:
+                    loss, ghm = gdp_loss(
+                        p, label_hard, ghm, il, pixel_weight=pixel_weight,
+                        n_weight_terms=1 + int(pixel_weight is not None))
+                total = total + loss
+            state.ghm = ghm
+            return total / len(preds)
         if hp.target_loss == "uvem":
             fn = lambda lg, lb: uvem_loss(  # noqa: E731
                 lg, lb, m=hp.uvem_m, threshold=hp.uvem_t, gamma=hp.uvem_g,
-                ignore_label=hp.ignore_label, pixel_weight=pixel_weight,
+                ignore_label=il, pixel_weight=pixel_weight,
                 paste_mask=paste_mask, w=w, u=u)
+        elif hp.target_loss == "ups":
+            if paste_mask is not None:
+                u = torch.where(paste_mask, torch.zeros_like(u), u)
+            fn = lambda lg, lb: ups_loss(  # noqa: E731
+                lg, lb, threshold=hp.uvem_t, ignore_label=il,
+                pixel_weight=pixel_weight, u=u)
+        elif hp.target_loss == "ohem":
+            fn = lambda lg, lb: ohem_cross_entropy(lg, lb, il)  # noqa: E731
+        elif hp.target_loss == "focal":
+            fn = lambda lg, lb: focal_loss(lg, lb, 2.0, il)  # noqa: E731
         else:
             fn = lambda lg, lb: cross_entropy_loss(  # noqa: E731
-                lg, lb, hp.ignore_label, pixel_weight)
+                lg, lb, il, pixel_weight)
         return loss_calc(preds, label_hard, fn)
 
     def losses(self, state, bs, bt, params, draws):
@@ -522,16 +566,16 @@ class MixStep(SslStep):
     the prototypes before this step's update; one K8 pass on it, giving
     the hard label (``pseudo_selection``'s) and UVEM's ``(w, u)``; source
     pixels pasted into the target image and hard label; source forward,
-    then the mixed target's. The legacy step (no ``combo``) takes CE on
-    both batches, the target's weighted by the source class balance as it
-    was before this step's update, which is then thrown away (JAX passes
-    the step's input state). The combo takes the target loss (``'uvem'``
-    or ``'ce'``) against the mixed hard label, weighted by the target
-    class balance, with the paste mask: UVEM trains pasted pixels at
-    weight 1, and ``(w, u)`` of the unmixed soft label equal the pasted
-    map's off the paste. Then the prototypes' EMA from the source. One
-    backward and one update. The metrics are the JAX step's: loss, source
-    and target loss."""
+    then the mixed target's. The legacy step (no ``combo``) takes the
+    source loss (CE or OHEM) on both batches, the target's weighted by the
+    source class balance as it was before this step's update, which is
+    then thrown away (JAX passes the step's input state). The combo takes
+    the target loss (any of the zoo, :meth:`SslStep._target_loss`) against
+    the mixed hard label, with the paste mask: UVEM trains pasted pixels
+    at weight 1, UPS gates them in, and ``(w, u)`` of the unmixed soft
+    label equal the pasted map's off the paste. Then the prototypes' EMA
+    from the source. One backward and one update. The metrics are the JAX
+    step's: loss, source and target loss."""
 
     def __init__(self, model, hp: StageHParams, mix: str = "cutmix",
                  combo: bool = False):
@@ -608,12 +652,51 @@ class MixStep(SslStep):
             if hp.balance_source:
                 pixel_weight, _ = class_balance_weight(balance_s, lab_t,
                                                        hp.ignore_label)
-            loss_t = loss_calc(
-                [t1, t2], lab_t,
-                lambda lg, lb: cross_entropy_loss(lg, lb, hp.ignore_label,
-                                                  pixel_weight))
+            loss_t = loss_calc([t1, t2], lab_t, self._source_fn(pixel_weight))
         return {"loss": loss_s + loss_t, "loss_source": loss_s,
                 "loss_target": loss_t}
+
+
+class AlignSimpleStep(_Step):
+    """PROCA's stage-2 step, PCL alignment without refinement
+    (``make_align_simple_step``, ``steps.py:536-593``; reference
+    ``tools/train_align.py:126-155``). Batches as :class:`AlignStep`'s,
+    without 'sup'.
+
+    Order, as the JAX step: source forward; the prototypes' EMA update from
+    the source features and labels; target forward; the target's label at
+    the feature stride, the arg-max of both heads' averaged f32 softmax
+    where its max reaches ``conf_thresh`` (ignored elsewhere); CE or OHEM +
+    CORAL + the mean of the two PCL terms against the updated prototypes.
+    No refinement, so no K5 or K7."""
+
+    def __init__(self, model, hp: StageHParams, conf_thresh: float = 0.9):
+        super().__init__(model, hp)
+        self.conf_thresh = float(conf_thresh)
+
+    def losses(self, state, bs, bt, params, draws):
+        hp, model = self.hp, self.model
+        p1, p2, feat_s = forward_train(model, params, bs["image"], draws.drop_s)
+        aligner, label_s_down = update_prototype(
+            state.aligner, feat_s, bs["label"], hp.class_num, hp.scale_factor)
+        t1, t2, feat_t = forward_train(model, params, bt["image"], draws.drop_t)
+        with torch.no_grad():
+            soft = (torch.softmax(t1, dim=1) + torch.softmax(t2, dim=1)) * 0.5
+            label_t = torch.where(
+                soft.amax(dim=1) < self.conf_thresh,
+                torch.full_like(label_s_down, hp.ignore_label),
+                soft.argmax(dim=1).to(label_s_down.dtype))
+        loss_seg, loss_dom = self._seg_and_domain(state, p1, p2, bs["label"],
+                                                  feat_s, feat_t)
+        loss_align = 0.5 * (
+            prototype_contrastive_loss(aligner.prototypes, feat_s,
+                                       label_s_down, hp.pcl_temp,
+                                       hp.ignore_label)
+            + prototype_contrastive_loss(aligner.prototypes, feat_t, label_t,
+                                         hp.pcl_temp, hp.ignore_label))
+        state.aligner = aligner
+        return {"loss": loss_seg + loss_dom + loss_align, "loss_seg": loss_seg,
+                "loss_align": loss_align, "loss_domain": loss_dom}
 
 
 class InitProtoStep:
@@ -654,6 +737,11 @@ def make_src_step(model, hp: StageHParams) -> SrcStep:
 
 def make_align_step(model, hp: StageHParams) -> AlignStep:
     return AlignStep(model, hp)
+
+
+def make_align_simple_step(model, hp: StageHParams,
+                           conf_thresh: float = 0.9) -> AlignSimpleStep:
+    return AlignSimpleStep(model, hp, conf_thresh)
 
 
 def make_ssl_step(model, hp: StageHParams) -> SslStep:
