@@ -41,10 +41,16 @@ weights from a seed):
   CPU), stage 1 with OHEM and gradient accumulation, each eagerly and
   through the graph; ``with_cp`` on all four stages against none (losses,
   BatchNorm buffers, peak memory, ms/step); PROCA's stage 2
-  (``AlignSimpleStep``) for 30 steps, eager and through the graph; and
+  (``AlignSimpleStep``) for 21 steps, eager and through the graph; and
   ResNeXt-50 32x4d and ResNet-50 v1c: eval forward and fast path through
   the serving graph against eager calls (K2 and K4 skipped where JAX
-  skips them) and an f32 training step against the CPU.
+  skips them) and an f32 training step against the CPU;
+* ``[adv]``, ``[dca]``, ``[abl]`` the other DA trainers on the chain's
+  model: an f32 G + D step and an f32 DCA step (``--bcs 1``) against the
+  CPU, 21 flagship adversarial steps (and 21 with ``accum_steps`` 2) and
+  21 DCA steps, each eagerly and through the graph; and the UVEM
+  ablation's loop (``run_regen_chunks``) at ``GENE_EVERY`` 10: a sweep,
+  10 steps, a sweep, 10 steps, through the graph.
 
 ``[serve-graph]`` takes every bf16 serving mode through the captured
 slide predictor (``infer/graph.py``) at batch 1, 8 and 32 on 512^2 tiles,
@@ -224,6 +230,7 @@ def profile_steps(what, step_fn, state, src_it, tgt_it, dev, ms_step, n=3,
 
 
 K_GRAPH = 10  # steps_per_call of the graph reruns
+DA_STEPS = 21  # step 1 alone, 2-11 and 12-21 in two calls at K_GRAPH 10
 
 
 def stream(dataset, seed, host_crop=None, skip=0):
@@ -272,18 +279,19 @@ def copy_start(state):
 
 
 def graph_rerun(name, what, make_step, state, src_it, tgt_it, steps, dev,
-                eager, eval_fn=None, gate=True):
+                eager, eval_fn=None, gate=True, per_call=K_GRAPH):
     """The flagship's ``steps`` again from ``state`` (a copy of its start
     state), through ``run_training_loop`` with ``steps_per_call``
-    ``K_GRAPH`` and logs and evaluation at the end only: step 1 alone,
-    steps 2-11 and 12-21 in two calls (step 2 eager on the capture stream,
-    the capture, then replays), steps 22-30 alone. With ``gate``, steps
-    1-3's losses are held to the eager run's (``eager``: its metrics by
-    step) at 1e-4 relative. Prints the largest relative loss difference
-    over all steps, whether the runs are bit-equal, ms/step of the second
-    call (steps 12-21, replays only) by CUDA events, the capture time, the
-    graph's pool and the launches a replay holds; returns (ms/step, the
-    metrics by step)."""
+    ``per_call``
+    (``K_GRAPH``: 10) and logs and evaluation at the end only: step 1
+    alone, steps 2-11 and 12-21 in two calls (step 2 eager on the capture
+    stream, the capture, then replays), steps 22-30 alone (at ``per_call`` 5:
+    steps 2-6 and 7-11). With ``gate``, steps 1-3's losses are held to the
+    eager run's (``eager``: its metrics by step) at 1e-4 relative. Prints
+    the largest relative loss difference over all steps, whether the runs
+    are bit-equal, ms/step of the second call (replays only) by CUDA
+    events, the capture time, the graph's pool and the launches a replay
+    holds; returns (ms/step, the metrics by step)."""
     import numpy as np
     import torch
 
@@ -305,7 +313,7 @@ def graph_rerun(name, what, make_step, state, src_it, tgt_it, steps, dev,
                             logging.getLogger(f"chip_smoke.{name}.graph"),
                             eval_every=steps, log_every=steps,
                             eval_fn=eval_fn, seed=2333, on_step=on_step,
-                            steps_per_call=K_GRAPH)
+                            steps_per_call=per_call)
     torch.cuda.synchronize()
     wall = time.time() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -314,7 +322,7 @@ def graph_rerun(name, what, make_step, state, src_it, tgt_it, steps, dev,
     if len(loss) != steps or not all(np.isfinite(list(m.values())).all()
                                      for m in loss):
         fail(f"{what}: {len(loss)} steps, losses {loss}")
-    if stats is None or stats["replays"] != 2 * K_GRAPH - 1:
+    if stats is None or stats["replays"] != 2 * per_call - 1:
         fail(f"{what}: the graph was not replayed as scheduled ({stats})")
     rel = [abs(a["loss"] - b["loss"]) / max(abs(b["loss"]), 1e-30)
            for a, b in zip(loss, eager)]
@@ -326,10 +334,10 @@ def graph_rerun(name, what, make_step, state, src_it, tgt_it, steps, dev,
                 if not r <= 1e-4:  # the same kernels on the same inputs
                     fail(f"{what}: step {i + 1} {k}: graph {loss[i][k]} vs "
                          f"eager {eager[i][k]} (rel {r:.3g})")
-    ms_step = events[K_GRAPH].elapsed_time(events[2 * K_GRAPH]) / K_GRAPH
+    ms_step = events[per_call].elapsed_time(events[2 * per_call]) / per_call
     bit = all(a == b for a, b in zip(loss, eager))
     phase(name, f"{what}: {steps} steps in {wall:.2f} s (steps_per_call "
-          f"{K_GRAPH}: steps 2-{2 * K_GRAPH + 1} in two calls, "
+          f"{per_call}: steps 2-{2 * per_call + 1} in two calls, "
           f"{stats['replays']} replays); capture {stats['capture_s']:.3f} s, "
           f"graph pool {stats['pool_bytes'] / 2**30:.3f} GiB, peak memory "
           f"{peak:.2f} GiB; launches a replay {json.dumps(stats['launches'])}")
@@ -341,7 +349,8 @@ def graph_rerun(name, what, make_step, state, src_it, tgt_it, steps, dev,
               f"{bit}")
     phase(name, f"{what}: losses by step: " + json.dumps(
         [round(m["loss"], 5) for m in loss]))
-    phase(name, f"{what}: steps {K_GRAPH + 2}-{2 * K_GRAPH + 1} (replays): "
+    phase(name, f"{what}: steps {per_call + 2}-{2 * per_call + 1} "
+          f"(replays): "
           f"{ms_step:.3f} ms/step by CUDA events")
     return ms_step, loss
 
@@ -1545,11 +1554,11 @@ def mix_phase(dev, ctx, sctx):
 
 
 ZOO_LOSSES = ("ups", "ohem", "focal", "ghm", "gdp")
-ZOO_STEPS = 21  # step 1 alone, 2-11 and 12-21 in two calls at K_GRAPH 10
+ZOO_STEPS, ZOO_K = 11, 5  # step 1 alone, 2-6 and 7-11 in two calls
 
 
 def f32_step_check(tag, what, cfg, dev, make_step, hp_kw, backbone=None,
-                   sup=False, prob=False, extra=None):
+                   sup=False, prob=False, extra=None, wrap=None, tol=None):
     """One f32 train step (TF32 off) on the card against the same step on
     the CPU's plain path: ResNet-50 OS16 dual PPM (or ``backbone``) at
     128^2, batch 2, the same weights (seed 0), LoveDA batches (seed 2),
@@ -1561,7 +1570,10 @@ def f32_step_check(tag, what, cfg, dev, make_step, hp_kw, backbone=None,
     selected and trained pixels 1e-3: a pixel at a threshold may flip),
     gradients and updates 2e-2 of max |g| (the tiny geometry's gradients
     are ill-conditioned in f32, PERF.md, PRs 2-3); ``extra(state_cpu,
-    state_gpu, metrics_cpu)`` adds its own gates and returns a note."""
+    state_gpu, metrics_cpu)`` adds its own gates and returns a note.
+    ``wrap(state)`` gives the state the step takes (the adversarial
+    step's ``AdvState``); ``tol`` {metric: relative limit} replaces 1e-4
+    for a metric that reads the updated model."""
     import dataclasses
 
     import torch
@@ -1604,6 +1616,8 @@ def f32_step_check(tag, what, cfg, dev, make_step, hp_kw, backbone=None,
     for name, model, d in (("cpu", cpu_model, "cpu"), ("gpu", gpu_model, dev)):
         state = build_state(model, small, 100, prototypes=proto)
         state.step = state.opt.count = 1
+        if wrap is not None:
+            state = wrap(state)
         before = {n: p.detach().clone() for n, p in model.named_parameters()}
         metrics = make_step(model, hp32)(
             state, batch_to_device(bs, d), batch_to_device(bt, d), 0,
@@ -1619,7 +1633,8 @@ def f32_step_check(tag, what, cfg, dev, make_step, hp_kw, backbone=None,
         if k in ("selected", "trained"):  # a pixel at a threshold may flip
             ok = abs(m_g[k] - m_c[k]) <= 1e-3
         else:
-            ok = abs(m_g[k] - m_c[k]) <= 1e-4 * max(abs(m_c[k]), 1e-30)
+            ok = abs(m_g[k] - m_c[k]) <= (tol or {}).get(k, 1e-4) * max(
+                abs(m_c[k]), 1e-30)
         if not ok:
             fail(f"{what}: {k} card {m_g[k]} vs CPU {m_c[k]}")
 
@@ -1687,13 +1702,13 @@ def zoo_phase(dev, ctx, sctx):
     ``ZOO_LOSSES`` (refine 'all', on the chain's model, the prototypes
     stage 3 started from and the ``[ssl]`` sweep's soft labels):
     ``ZOO_STEPS`` eager steps, then again from a copy of the start state
-    through the graph at ``K_GRAPH``, steps 1-3 held at 1e-4 relative;
+    through the graph at ``ZOO_K``, steps 1-3 held at 1e-4 relative;
     for GHM also the histogram of both runs, and one f32 step on the card
     against the CPU. (b) Stage 1 with OHEM and ``accum_steps`` 2, eager
     and through the graph: the masters, momentum and running mean of the
     two runs equal. (c) ``with_cp`` on all four stages against the same
     stage-1 steps without it: losses, BatchNorm buffers, peak memory,
-    ms/step. (d) PROCA's stage 2 (``AlignSimpleStep``) for 30 steps,
+    ms/step. (d) PROCA's stage 2 (``AlignSimpleStep``) for 21 steps,
     eager and through the graph. (e) ResNeXt-50 32x4d and ResNet-50 v1c
     with random weights: the eval forward and the fast path at batch 8
     through the serving graph against eager calls, ms/forward, K2 and K4
@@ -1772,7 +1787,8 @@ def zoo_phase(dev, ctx, sctx):
             fail(f"stage 3 --lt {lt}: the target loss stayed 0 ({loss})")
         ms_g, _ = graph_rerun("zoo", f"stage 3 --lt {lt} through the CUDA "
                               "graph", make, start, stream(ctx["src"], 40, hc),
-                              stream(target, 41, hc), steps, dev, loss)
+                              stream(target, 41, hc), steps, dev, loss,
+                              per_call=ZOO_K)
         if lt == "ghm":
             a, b = state.ghm.acc_sum, start.ghm.acc_sum
             err = float((a - b).abs().max())
@@ -1800,7 +1816,7 @@ def zoo_phase(dev, ctx, sctx):
         del state, start
         torch.cuda.empty_cache()
     phase("zoo", "stage 3 by --lt (host crop), ms/step by CUDA events "
-          f"[eager, through the graph at K={K_GRAPH}, (GHM: eager device "
+          f"[eager, through the graph at K={ZOO_K}, (GHM: eager device "
           f"ms/step, idle share,) graph device ms/step, idle share]: "
           f"{json.dumps(table)}; {CARD[0]}")
 
@@ -1816,7 +1832,7 @@ def zoo_phase(dev, ctx, sctx):
     ms_g, _ = graph_rerun("zoo", "stage 1 --ls OhemCrossEntropy --accum-steps "
                           "2 through the CUDA graph", make1, start,
                           stream(ctx["src"], 44), stream(ctx["tgt"], 45),
-                          steps, dev, loss)
+                          steps, dev, loss, per_call=ZOO_K)
     diff = max(float((a - b).abs().max()) for a, b in zip(
         list(state.model.parameters()) + state.opt.trace + state.opt.acc,
         list(start.model.parameters()) + start.opt.trace + start.opt.acc))
@@ -1897,8 +1913,8 @@ def zoo_phase(dev, ctx, sctx):
     del runs, a, b, model, batches
     torch.cuda.empty_cache()
 
-    # (d) PROCA's stage 2: 30 steps, eager and through the graph
-    steps_p = 30
+    # (d) PROCA's stage 2: 21 steps, eager and through the graph
+    steps_p = DA_STEPS
     hp_p = default_hparams(cfg, refine=False)
     make_p = lambda m: make_align_simple_step(m, hp_p, conf_thresh=0.9)  # noqa: E731,E501
     state = build_state(copy.deepcopy(base), cfg, steps_p,
@@ -1995,6 +2011,428 @@ def zoo_phase(dev, ctx, sctx):
         f32_step_check("zoo", f"f32 stage-1 step, {rt} (CORAL)", cfg, dev,
                        make_src_step, dict(align_domain=True), backbone=rt)
     phase("zoo", "summary " + json.dumps(table))
+    return counts
+
+
+def copy_adv_start(adv):
+    """An independent copy of an ``AdvState``: the segmenter's state
+    (``copy_start``), D and its Adam (moments and count copied)."""
+    import torch
+
+    from uemda_tpu_torch.train.adversarial import Adam, AdvState
+
+    disc = copy.deepcopy(adv.disc)
+    d = adv.d_opt
+    opt = Adam(list(disc.named_parameters()), d.lr, d.b1, d.b2, d.eps)
+    with torch.no_grad():
+        for dst, src in zip(opt.mu + opt.nu + [opt.count],
+                            d.mu + d.nu + [d.count]):
+            dst.copy_(src)
+    return AdvState(copy_start(adv.seg), disc, opt)
+
+
+def da_run(tag, what, make, state, src_it, tgt_it, dev, logger,
+           start=None, eval_fn=None, profile=True):
+    """``DA_STEPS`` eager steps (``eager_run``) and, from ``start`` (a copy
+    of the start state), the same steps through the graph
+    (``graph_rerun``: steps 1-3 held to the eager run's at 1e-4
+    relative), each on its own copy of the batch streams ``src_it()`` and
+    ``tgt_it()``; then profiles of three eager steps and three replays.
+    Returns (eager metrics, eager ms/step, graph ms/step, (device ms,
+    idle share) eager, the same through the graph; not measured without
+    ``profile``)."""
+    loss, ms_e, _ = eager_run(tag, what, make, state, src_it(), tgt_it(),
+                              DA_STEPS, logger, eval_fn=eval_fn)
+    ms_g = None
+    if start is not None:
+        ms_g, _ = graph_rerun(tag, f"{what} through the CUDA graph", make,
+                              start, src_it(), tgt_it(), DA_STEPS, dev, loss)
+    if not profile:
+        return loss, ms_e, ms_g, (None, None), (None, None)
+    saved = [fn.launches for fn in WRAPPERS]   # the profiled steps are extra
+    s_p, t_p = src_it(), tgt_it()
+    prof_e = profile_steps(f"{what} (bf16, batch {BATCH})", make(state.model),
+                           state, s_p, t_p, dev, ms_e)
+    prof_g = (None, None)
+    if start is not None:
+        prof_g = graph_profile(tag, what, make, start, s_p, t_p, dev, ms_g)
+    for fn, n in zip(WRAPPERS, saved):
+        fn.launches = n
+    return loss, ms_e, ms_g, prof_e, prof_g
+
+
+def adv_phase(dev, ctx, sctx):
+    """``[adv]``: the adversarial trainer (``train_adv``). (a) One f32 G + D
+    step on the card against the CPU's plain path: G's losses 1e-4
+    relative and D's 1e-3 (it reads the source re-forwarded at the updated
+    G, and G's update is held at 2e-2 of its largest entry), G's
+    gradients and updates as every f32 check; the target map D reads
+    within 1e-4 of its max of the CPU's; the source re-forward held on
+    equal inputs (the CPU's updated G, image and dropout masks through
+    ``forward_scratch`` on the card) within 1e-4 of its max (at the card's
+    own G it is printed: it reads G's update, held at 2e-2); and D's
+    update held on equal inputs: the CPU's D, forward, backward and Adam,
+    replayed on the card's maps, its first moment and the root of its
+    second within 1e-4 of their max, Adam's arithmetic on the card's own
+    moments within 1e-5 of the largest parameter, and the parameters
+    within 1e-5 of it (one learning-rate step where the second moment's
+    root is under 1e-6, a gradient under 1e-5, as the CPU test holds them
+    under 100 eps; two where the two gradients differ in sign, Adam's
+    first step being the sign). (b) At the flagship, on the
+    chain's model:
+    ``DA_STEPS`` bf16 G + D steps (lambda_adv 0.001, D's lr 1e-4) through
+    ``run_training_loop`` with an evaluation, every launch count set to 0
+    just before and read just after (returned), then again from a copy of
+    the start state through the graph; (c) the same with ``accum_steps``
+    2, eager and through the graph (no evaluation or profile). Host-cropped
+    batches, as ``[zoo]``."""
+    import torch
+
+    from uemda_tpu_torch.datasets.base import ArrayDataset
+    from uemda_tpu_torch.datasets.meta import LoveDA
+    from uemda_tpu_torch.train.adversarial import create_adv_state, make_adv_step
+    from uemda_tpu_torch.train.loop import (
+        build_state,
+        default_hparams,
+        make_eval_hook,
+    )
+
+    cfg = ctx["cfg"]
+    d_lr = 1e-4
+
+    maps = {}   # each device's D inputs: G's target map, then D's two
+    calls = {}  # each device's segmenter calls: (image, masks, map)
+    hooks = []
+
+    def wrap(st):
+        adv = create_adv_state(st, cfg.class_num, d_lr)
+        dev_type = next(adv.disc.parameters()).device.type
+        seen = maps.setdefault(dev_type, [])
+        adv.disc.register_forward_pre_hook(
+            lambda m, args: seen.append(args[0].detach().float().cpu()))
+        fwd = calls.setdefault(dev_type, [])
+
+        def record(m, args, kwargs, out):
+            masks = kwargs.get("dropout_masks", args[2] if len(args) > 2
+                               else None)
+            fwd.append((args[0].detach().cpu(),
+                        {k: v.cpu() for k, v in masks.items()},
+                        out[1].detach().float().cpu()))
+
+        hooks.append(st.model.register_forward_hook(record, with_kwargs=True))
+        return adv
+
+    def soft_map(logits, like):
+        from uemda_tpu_torch.ops.resize import upsample_logits
+
+        return torch.softmax(upsample_logits(logits, tuple(like.shape[-2:])),
+                             dim=1)
+
+    def d_gate(sc, sg, m_c):
+        from uemda_tpu_torch.alignment.extra_losses import bce_logits_loss
+        from uemda_tpu_torch.train.adversarial import Adam
+        from uemda_tpu_torch.train.steps import forward_scratch
+
+        for h in hooks:
+            h.remove()
+        (t_c, s_c, _), (t_g, s_g, _) = maps["cpu"], maps["cuda"]
+        e_t, e_s = (float((g - c).abs().max()) / float(c.abs().max())
+                    for g, c in ((t_g, t_c), (s_g, s_c)))
+        mean_s = float((s_g - s_c).abs().mean())
+        # the source re-forward on equal inputs: the CPU's updated G, its
+        # source image and dropout masks, through forward_scratch on the
+        # card; and how far the CPU's own map moved in the step
+        image, masks, _ = calls["cpu"][2]
+        moved = float((s_c - soft_map(calls["cpu"][0][2], s_c)).abs().max())
+        twin = copy.deepcopy(sg.model).train()
+        twin.load_state_dict(sc.model.state_dict())
+        with torch.no_grad():
+            _, s2, _ = forward_scratch(
+                twin, None, image.to(dev),
+                {k: v.to(dev) for k, v in masks.items()})
+            e_r = float((soft_map(s2, s_c).cpu() - s_c).abs().max()) / float(
+                s_c.abs().max())
+        del twin
+        # the card's D update replayed on the CPU from the card's inputs:
+        # D's gradient is ill-conditioned in its inputs (a fresh D barely
+        # tells the maps apart: its two terms nearly cancel)
+        ref = create_adv_state(sc.seg, cfg.class_num, d_lr).disc
+        p0 = [p.detach().clone() for p in ref.parameters()]
+        opt = Adam(list(ref.named_parameters()), d_lr, 0.9, 0.99)
+        o_s, o_t = ref(s_g), ref(t_g)
+        (0.5 * (bce_logits_loss(o_s, torch.ones_like(o_s))
+                + bce_logits_loss(o_t, torch.zeros_like(o_t)))).backward()
+        opt.update()
+        mu_g = [m.cpu() for m in sg.d_opt.mu]
+        nu_g = [n.cpu() for n in sg.d_opt.nu]
+        top_mu = max(float(m.abs().max()) for m in opt.mu)
+        e_mu = max(float((a - b).abs().max())
+                   for a, b in zip(mu_g, opt.mu)) / top_mu
+        root = max(float(nu.max()) for nu in opt.nu) ** 0.5
+        e_nu = max(float((a.sqrt() - b.sqrt()).abs().max())
+                   for a, b in zip(nu_g, opt.nu)) / root
+        top = max(float(p.detach().abs().max()) for p in ref.parameters())
+        e_d = e_a = e_tiny = 0.0
+        flips = tiny = 0
+        for a, b, a0, mu_a, nu_a, mu_b, nu_b in zip(
+                sg.disc.parameters(), ref.parameters(), p0, mu_g, nu_g,
+                opt.mu, opt.nu):
+            a = a.detach().cpu()
+            # Adam's first step on the card's own moments, in f64
+            step = (mu_a.double() / 0.1) / (
+                (nu_a.double() / 0.01).sqrt() + 1e-8)
+            e_a = max(e_a, float((a.double() - (a0.double() - d_lr * step))
+                                 .abs().max()) / top)
+            # against the replay: one step where the second moment's root
+            # is under 1e-6 (Adam's ratio g / (|g| + eps) turns on the
+            # devices' gradient difference there, as in the CPU test), two
+            # where the two gradients differ in sign (only where both are
+            # within the gradient's gated 1e-4)
+            flip = torch.sign(mu_a) != torch.sign(mu_b)
+            small = (nu_b.sqrt() < 1e-6) & ~flip
+            flips += int(flip.sum())
+            tiny += int(small.sum())
+            diff = (a - b.detach()).abs()
+            limit = torch.where(small, torch.full_like(diff, d_lr),
+                                torch.full_like(diff, 1e-5 * top))
+            limit = torch.where(flip, torch.full_like(diff, 2 * d_lr), limit)
+            if bool((diff > limit).any()):
+                fail(f"f32 adversarial step: D's parameters on the card "
+                     f"{float(diff.max()):.3g} from the CPU's update on the "
+                     f"card's inputs")
+            e_d = max(e_d, float(torch.where(flip | small, 0.0, diff).max())
+                      / top)
+            e_tiny = max(e_tiny, float(torch.where(small, diff, 0.0).max())
+                         / d_lr)
+        if not (e_t <= 1e-4 and e_r <= 1e-4 and e_mu <= 1e-4 and e_nu <= 1e-4
+                and e_a <= 1e-5 and m_c["loss_d"] > 0):
+            fail(f"f32 adversarial step: the target map D reads "
+                 f"{e_t:.3g} of its max from the CPU's, the source map "
+                 f"re-forwarded on the CPU's updated G {e_r:.3g}, D's "
+                 f"gradient on the card's maps {e_mu:.3g} of its max from "
+                 f"the CPU's, the root of its second moment {e_nu:.3g} "
+                 f"(limits 1e-4), Adam on the card's moments {e_a:.3g} of "
+                 f"the largest parameter (limit 1e-5), loss_d {m_c['loss_d']}")
+        return (f"; the target map {e_t:.3g} of its max from the CPU's; the "
+                f"source map at the updated G {e_r:.3g} on the CPU's G and "
+                f"inputs, {e_s:.3g} (mean {mean_s:.3g}) at the card's own G "
+                f"(the CPU's map moved {moved:.3g} in the step); on the "
+                f"card's maps D's first moment {e_mu:.3g} and its second's "
+                f"root {e_nu:.3g} of their max from the CPU's, Adam on the "
+                f"card's moments {e_a:.3g} and D's parameters {e_d:.3g} of "
+                f"the largest from the CPU's, but for {tiny} entries whose "
+                f"second moment's root is under 1e-6 ({e_tiny:.3g} of a step "
+                f"apart) and {flips} whose two gradients differ in sign "
+                f"(within two steps)")
+
+    f32_step_check("adv", "f32 G + D step (ResNet-50 OS16, lambda_adv 0.1)",
+                   cfg, dev, lambda m, hp: make_adv_step(m, hp, 0.1), {},
+                   extra=d_gate, tol={"loss_d": 1e-3}, wrap=wrap)
+
+    hc = (TILE, TILE)
+    hp = default_hparams(cfg)
+    make = lambda m: make_adv_step(m, hp, 0.001)  # noqa: E731
+    images = ArrayDataset(LoveDA, ctx["tgt"].images)   # label-free target
+    logger = logging.getLogger("chip_smoke.adv")
+    eval_fn, _ = make_eval_hook(cfg, None, dataset=ctx["val"])
+    out = {}
+    for accum in (1, 2):
+        state = create_adv_state(build_state(
+            copy.deepcopy(ctx["model"]), cfg, DA_STEPS, accum_steps=accum),
+            cfg.class_num, d_lr)
+        start = copy_adv_start(state)
+        torch.cuda.synchronize()
+        if accum == 1:
+            for fn in WRAPPERS:
+                fn.launches = 0
+        what = "flagship G + D" + (", accum_steps 2" if accum > 1 else "")
+        loss, ms_e, ms_g, prof_e, prof_g = da_run(
+            "adv", what, make, state, lambda: stream(ctx["src"], 50, hc),
+            lambda: stream(images, 51, hc), dev, logger, start,
+            eval_fn=eval_fn if accum == 1 else None, profile=accum == 1)
+        if accum == 1:
+            counts = {fn.__name__: fn.launches for fn in WRAPPERS}
+        for st in (state, start):   # D steps every micro-step
+            if not (float(st.d_opt.count) == st.step
+                    and st.opt.count == st.step // accum):
+                fail(f"{what}: {st.step} steps, D's count "
+                     f"{float(st.d_opt.count)}, G's {st.opt.count}")
+        phase("adv", f"{what}: loss_d {loss[0]['loss_d']:.5g} -> "
+              f"{loss[-1]['loss_d']:.5g}, loss_adv {loss[0]['loss_adv']:.5g}"
+              f" -> {loss[-1]['loss_adv']:.5g}; ms/step by CUDA events "
+              f"(device ms/step, idle share): steps_per_call 1 {ms_e:.3f} "
+              f"{prof_e}, steps_per_call {K_GRAPH} through the graph "
+              f"{ms_g:.3f} {prof_g}; {CARD[0]}")
+        out[accum] = (ms_e, ms_g, prof_e, prof_g)
+        del state, start
+        torch.cuda.empty_cache()
+    for name in ("instance_norm", "instance_norm_backward", "crop_normalize",
+                 "tail_upsample_softmax_mean"):
+        if counts[name] <= 0:
+            fail(f"{name} was not launched on the adversarial path")
+    phase("launches", f"adversarial path ({DA_STEPS} G + D steps + "
+          f"evaluation, then through the graph): {json.dumps(counts)}")
+    return counts
+
+
+def dca_phase(dev, ctx, sctx):
+    """``[dca]``: DCA self-training (``train_ssl_dca``). (a) One f32 DCA
+    step with ``--bcs 1`` on the card against the CPU's plain path (the
+    source class balance 1e-6 relative). (b) At the flagship, on the
+    chain's model and the ``[ssl]`` sweep's soft labels: ``DA_STEPS``
+    bf16 steps with ``--bcs 1`` and an evaluation, every launch count set
+    to 0 just before and read just after (returned), then again from a
+    copy of the start state through the graph. Host-cropped batches."""
+    import torch
+
+    from uemda_tpu_torch.datasets.base import ArrayDataset
+    from uemda_tpu_torch.datasets.meta import LoveDA
+    from uemda_tpu_torch.train.loop import (
+        build_state,
+        default_hparams,
+        make_eval_hook,
+    )
+    from uemda_tpu_torch.train.steps import make_dca_step
+
+    cfg = ctx["cfg"]
+
+    def bcs_gate(sc, sg, m_c):
+        f_c, f_g = sc.balance_s.freq.cpu(), sg.balance_s.freq.cpu()
+        e_f = float(((f_g - f_c).abs() / f_c.abs()).max())
+        if not (e_f <= 1e-6 and m_c["loss_icr"] > 0 and m_c["loss_ccr"] > 0):
+            fail(f"f32 DCA step: source class balance {e_f:.3g} relative "
+                 f"(limit 1e-6); {m_c}")
+        return f"; source class-balance frequencies {e_f:.3g}"
+
+    f32_step_check("dca", "f32 DCA step (ResNet-50 OS16, --bcs 1)", cfg, dev,
+                   make_dca_step, dict(balance_source=True), prob=True,
+                   extra=bcs_gate)
+    hc = (TILE, TILE)
+    hp = default_hparams(cfg, balance_source=True)
+    make = lambda m: make_dca_step(m, hp)  # noqa: E731
+    target = ArrayDataset(LoveDA, sctx["target"].images,
+                          prob=sctx["target"].prob)   # no superpixel maps
+    state = build_state(copy.deepcopy(ctx["model"]), cfg, DA_STEPS)
+    start = copy_start(state)
+    eval_fn, _ = make_eval_hook(cfg, None, dataset=ctx["val"])
+    torch.cuda.synchronize()
+    for fn in WRAPPERS:
+        fn.launches = 0
+    loss, ms_e, ms_g, prof_e, prof_g = da_run(
+        "dca", "flagship DCA (--bcs 1)", make, state,
+        lambda: stream(ctx["src"], 52, hc),
+        lambda: stream(target, 53, hc), dev,
+        logging.getLogger("chip_smoke.dca"), start, eval_fn=eval_fn)
+    counts = {fn.__name__: fn.launches for fn in WRAPPERS}
+    for name in ("instance_norm", "instance_norm_backward", "crop_normalize"):
+        if counts[name] <= 0:
+            fail(f"{name} was not launched on the DCA path")
+    phase("dca", f"flagship DCA: loss_icr {loss[0]['loss_icr']:.5g} -> "
+          f"{loss[-1]['loss_icr']:.5g}, loss_ccr {loss[0]['loss_ccr']:.5g} "
+          f"-> {loss[-1]['loss_ccr']:.5g}; ms/step by CUDA events (device "
+          f"ms/step, idle share): steps_per_call 1 {ms_e:.3f} {prof_e}, "
+          f"steps_per_call {K_GRAPH} through the graph {ms_g:.3f} {prof_g}; "
+          f"{CARD[0]}")
+    phase("launches", f"DCA path ({DA_STEPS} steps + evaluation, then through "
+          f"the graph): {json.dumps(counts)}")
+    del state, start
+    torch.cuda.empty_cache()
+    return counts
+
+
+def abl_phase(dev, ctx, sctx):
+    """``[abl]``: the UVEM ablation trainer's loop (``train_ssl_uvem_abl``:
+    ``run_regen_chunks`` with ``make_ssl_step``, UVEM, refine 'all') at
+    the flagship with ``GENE_EVERY`` cut to 10: a sweep of the 16 target
+    tiles, 10 steps, a sweep by the updated model, 10 steps, at
+    steps_per_call 3 (each chunk: step 1, then three calls of three
+    steps through the graph) on host-cropped batches, every launch count
+    set to 0 just before and read just after (returned)."""
+    import numpy as np
+    import torch
+
+    from uemda_tpu_torch.datasets.base import ArrayDataset
+    from uemda_tpu_torch.datasets.meta import LoveDA, NORM_STATS
+    from uemda_tpu_torch.infer.pseudo_gen import generate_pseudo_labels
+    from uemda_tpu_torch.train.loop import (
+        build_state,
+        default_hparams,
+        run_regen_chunks,
+    )
+    from uemda_tpu_torch.train.steps import make_ssl_step
+
+    cfg = ctx["cfg"]
+    tgt = ctx["tgt"]
+    st = NORM_STATS["LoveDA"]
+    steps, gene_every, k = 20, 10, 3
+    hc = (TILE, TILE)
+    hp = default_hparams(cfg, refine=True, refine_mode="all")
+    model = copy.deepcopy(ctx["model"])
+    state = build_state(model, cfg, steps, prototypes=sctx["prototypes"])
+    labels, sweeps, events = {}, [], []
+
+    def regen():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = generate_pseudo_labels(
+            model, tgt, st["mean"], st["std"], tile=(TILE, TILE), tta=True,
+            batch_size=min(4, BATCH), cutoff_top=cfg.cutoff_top,
+            cutoff_low=cfg.cutoff_low, compute_dtype=torch.bfloat16,
+            device=dev)
+        torch.cuda.synchronize()
+        sweeps.append(time.time() - t0)
+        labels["prob"] = np.stack([out[tgt.filename(i)]
+                                   for i in range(len(tgt))])
+
+    def target_stream(skip):
+        return stream(ArrayDataset(LoveDA, tgt.images, sup=tgt.sup,
+                                   prob=labels["prob"]), 61, hc, skip=skip)
+
+    def on_step(i, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((metrics, ev))
+
+    torch.cuda.synchronize()
+    for fn in WRAPPERS:
+        fn.launches = 0
+    t0 = time.time()
+    run_regen_chunks(state, make_ssl_step(model, hp), steps, gene_every, 0,
+                     logging.getLogger("chip_smoke.abl"), regen,
+                     lambda skip: stream(ctx["src"], 60, hc, skip=skip),
+                     target_stream, seed=2333, eval_every=steps,
+                     log_every=gene_every, steps_per_call=k, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = {fn.__name__: fn.launches for fn in WRAPPERS}
+    loss = [{n: float(v) for n, v in m.items()} for m, _ in events]
+    if state.step != steps or len(sweeps) != 2 or not all(
+            np.isfinite(list(m.values())).all() for m in loss):
+        fail(f"ablation loop: step {state.step}, {len(sweeps)} sweeps, "
+             f"losses {loss}")
+    if counts["uvem_mine"] < steps:
+        fail(f"uvem_mine launched {counts['uvem_mine']} times in {steps} "
+             "ablation steps and two sweeps")
+    for name in ("tail_upsample_softmax_mean", "segment_max",
+                 "segment_gather", "instance_norm", "instance_norm_backward",
+                 "crop_normalize"):
+        if counts[name] <= 0:
+            fail(f"{name} was not launched on the ablation path")
+    # the second chunk's replays: steps 15-20 (two calls of three)
+    ms = events[13][1].elapsed_time(events[19][1]) / 6
+    phase("abl", f"UVEM ablation loop (ResNet-50 OS16, 2urban, batch {BATCH} "
+          f"per domain, bf16, UVEM, refine 'all', GENE_EVERY {gene_every}, "
+          f"steps_per_call {k}): {steps} steps and 2 sweeps in {wall:.2f} s; "
+          f"loss {loss[0]['loss']:.5g} -> {loss[-1]['loss']:.5g}; steps 15-20 "
+          f"(replays): {ms:.3f} ms/step by CUDA events; sweeps of "
+          f"{len(tgt)} tiles of {2 * TILE}^2: "
+          f"{', '.join(f'{len(tgt) / t:.3f}' for t in sweeps)} tiles/s "
+          f"(whole calls: the copy, warm-up and capture included); "
+          f"{CARD[0]}")
+    phase("launches", f"ablation path (2 sweeps + {steps} steps): "
+          f"{json.dumps(counts)}")
+    del state, model
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -2870,10 +3308,19 @@ def main():
     # 10. what the stages used to refuse: stage 3 with every loss of the
     #    zoo, accumulation, with_cp, PROCA's stage 2, ResNeXt and v1c
     zoo_launches = zoo_phase(dev, ctx, sctx)
+
+    mark("adv")
+    # 11. the other DA trainers on the chain's model: the adversarial G + D
+    #    step, DCA and the UVEM ablation's loop
+    adv_launches = adv_phase(dev, ctx, sctx)
+    mark("dca")
+    dca_launches = dca_phase(dev, ctx, sctx)
+    mark("abl")
+    abl_launches = abl_phase(dev, ctx, sctx)
     del sctx
 
     mark("timing")
-    # 11. timing (bf16, the serving and training dtype; K9 on uint8 tiles,
+    # 12. timing (bf16, the serving and training dtype; K9 on uint8 tiles,
     #    K5-K7 on f32 probabilities), CUDA events after warm-up
     xi, xs, ws, bs, xt = inputs["bfloat16"]
     xb, dyb, mb, rb = inputs["bwd bfloat16"]
@@ -3060,14 +3507,18 @@ def main():
         n_ssl = ssl_launches[fn_name]
         n_mix = mix_launches[fn_name]
         n_zoo = zoo_launches[fn_name]
+        n_da = [c[fn_name] for c in (adv_launches, dca_launches,
+                                     abl_launches)]
         record.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": (n_serve + n_fused + n_int8 + n_train + n_align
-                         + n_ssl + n_mix + n_zoo),
+                         + n_ssl + n_mix + n_zoo + sum(n_da)),
             "launches_serve": n_serve, "launches_fused": n_fused,
             "launches_int8": n_int8, "launches_train": n_train,
             "launches_align": n_align, "launches_ssl": n_ssl,
             "launches_mix": n_mix, "launches_zoo": n_zoo,
+            "launches_adv": n_da[0], "launches_dca": n_da[1],
+            "launches_abl": n_da[2],
             "max_abs_err": errs[(name, dn)], "ms": ms,
             "ms_with_host": host_ms,
             "plain_ms": plain_ms, "bound_ms": bound,

@@ -6,9 +6,11 @@ routes (with and without the clamp), every route of each segment kernel,
 the mining kernel in every layout and branch, the fused
 bottleneck kernel in both dtypes at odd shapes and dilations, the int8 conv
 on the card against the CPU, the fused and int8 fast paths, training
-steps that go through the kernels, the captured serving predictor against
-eager calls (and its pool, and a capture that fails), and the card as the
-entry points' default.
+steps that go through the kernels (the adversarial and DCA steps eager
+against their CUDA-graph replays), TransNorm and the discriminator in
+bf16 against f32, the captured serving predictor against eager calls (and
+its pool, and a capture that fails), and the card as the entry points'
+default.
 
 These tests need an NVIDIA GPU and skip without one. They import neither JAX
 nor the JAX package, so they run where only PyTorch is installed; the
@@ -1384,3 +1386,140 @@ def test_capture_failure_raises_and_never_falls_back(dev):
         assert graph.graph is None
     torch.cuda.synchronize()
     assert len(calls) == 2  # each call's warm-up; its capture fails at the read
+
+
+def _da_case(stage, dev):
+    """The adversarial (``adv``, ``adv-accum``: ``accum_steps`` 2) or DCA
+    (``dca``, the source class balance on) step at ``_stage_case``'s size
+    (resnet18, 64^2 crops of 80^2 tiles, batch 2, bf16) with a start-state
+    factory -- each call a fresh copy of the same model, D, optimizers and
+    balances -- and a batch stream."""
+    import copy
+
+    from uemda_tpu_torch.config import PRESETS
+    from uemda_tpu_torch.train.adversarial import create_adv_state, make_adv_step
+    from uemda_tpu_torch.train.loop import build_model, build_state, default_hparams
+    from uemda_tpu_torch.train.steps import make_dca_step
+
+    cfg = dataclasses.replace(PRESETS["2vaihingen"], model="resnet18",
+                              crop=(64, 64))
+    model0 = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    accum = 2 if stage == "adv-accum" else 1
+
+    def start():
+        model = copy.deepcopy(model0)
+        state = build_state(model, cfg, 10, accum_steps=accum)
+        if stage.startswith("adv"):
+            state = create_adv_state(state, 6)
+            step = make_adv_step(model, default_hparams(cfg), lambda_adv=0.1)
+        else:
+            step = make_dca_step(model, default_hparams(cfg,
+                                                        balance_source=True))
+        return state, step
+
+    def batches(seed):
+        r = np.random.default_rng(seed)
+        while True:
+            bs = {"image": r.integers(0, 256, (2, 80, 80, 3)).astype(np.uint8),
+                  "label": r.integers(-1, 6, (2, 80, 80)).astype(np.int32)}
+            bt = {"image": r.integers(0, 256, (2, 80, 80, 3)).astype(np.uint8)}
+            if stage == "dca":
+                bt["prob"] = _mine_inputs((2, 6, 80, 80), int(r.integers(99)),
+                                          "cpu").permute(0, 2, 3, 1) \
+                    .contiguous().half().numpy()
+            yield ({k: torch.from_numpy(v).to(dev) for k, v in bs.items()},
+                   {k: torch.from_numpy(v).to(dev) for k, v in bt.items()})
+
+    return start, batches
+
+
+@pytest.mark.parametrize("stage", ["adv", "adv-accum", "dca"])
+def test_captured_da_step_equals_the_eager_step(dev, stage):
+    """The adversarial step (D's update, its Adam count on the device, and
+    with ``accum_steps`` 2 the segmenter's held updates) and the DCA step,
+    four steps eager and through ``ChunkRunner`` from copies of one start
+    state: the losses of every step within 1e-4 relative; the segmenter's
+    masters, momentum and (DCA) source class balance and D's parameters
+    and Adam moments within 1e-4 of their largest value; a replay holds
+    the crop and instance-norm launches, and leaves D's gradients pointed
+    at the graph's."""
+    from uemda_tpu_torch.train.graph import ChunkRunner
+
+    start, batches = _da_case(stage, dev)
+    runs = []
+    for captured in (False, True):
+        st, step = start()
+        it = batches(11)
+        pairs = [next(it) for _ in range(4)]
+        stats = None
+        if captured:
+            runner = ChunkRunner(step, 0, dev)
+            out = runner(st, pairs)
+            assert runner.graph.replays == 3
+            grads = runner.graph.grads
+            assert all(p.grad is g for p, g in zip(st.grad_params(), grads))
+            stats = runner.close()
+        else:
+            out = [step(st, bs, bt, 0) for bs, bt in pairs]
+        torch.cuda.synchronize()
+        tensors = {"masters": [p.detach().clone()
+                               for p in st.model.parameters()],
+                   "momentum": [t.clone() for t in st.opt.trace]}
+        if stage.startswith("adv"):
+            tensors.update(d=[p.detach().clone()
+                              for p in st.disc.parameters()],
+                           mu=[t.clone() for t in st.d_opt.mu],
+                           nu=[t.clone() for t in st.d_opt.nu])
+            assert float(st.d_opt.count) == 4
+        else:
+            tensors["balance"] = [st.balance_s.freq.clone()]
+        assert st.step == 4 and st.opt.count == (2 if stage == "adv-accum"
+                                                 else 4)
+        runs.append(([{k: float(v) for k, v in o.items()} for o in out],
+                     tensors, stats))
+    (l1, t1, _), (l2, t2, stats) = runs
+    for a, b in zip(l1, l2):
+        for k in a:
+            assert abs(a[k] - b[k]) <= 1e-4 * max(abs(a[k]), 1e-6), (k, a, b)
+    for name in t1:
+        top = max(float(x.abs().max()) for x in t1[name])
+        err = max(float((x - y).abs().max()) for x, y in zip(t1[name],
+                                                            t2[name]))
+        assert err <= 1e-4 * top, (name, err, top)
+    assert stats["launches"]["crop_normalize"] == 2
+    assert stats["launches"]["instance_norm_backward"] >= 1
+
+
+def test_trans_norm_and_discriminator_in_bf16_against_f32(dev):
+    """``TransNorm2d`` (a train step on [source; target] with its four
+    running statistics, then eval) and ``FCDiscriminator`` on bf16 inputs
+    and weights against the same in f32: within bf16's 1.6e-2 of the f32
+    result's largest value; TransNorm's statistics are f32 either way."""
+    from uemda_tpu_torch.models.discriminator import FCDiscriminator
+    from uemda_tpu_torch.models.trans_norm import TransNorm2d
+
+    x = _randn((4, 32, 16, 16), 3, dev, torch.float32, shift=0.5)
+    outs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tn = TransNorm2d(32, device=dev,
+                         generator=torch.Generator().manual_seed(0)).train()
+        y = tn(x.to(dt))
+        assert y.dtype == dt and tn.mean_source.dtype == torch.float32
+        stats = [getattr(tn, k).clone() for k in
+                 ("mean_source", "mean_target", "var_source", "var_target")]
+        tn.eval()
+        z = tn(x.to(dt))
+        outs[dt] = (y.float(), z.float(), stats)
+    (y32, z32, s32), (y16, z16, s16) = outs[torch.float32], outs[torch.bfloat16]
+    for a, b in [(y16, y32), (z16, z32)] + list(zip(s16, s32)):
+        assert float((a - b).abs().max()) <= 1.6e-2 * float(b.abs().max())
+    d = FCDiscriminator(6, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    soft = torch.softmax(_randn((2, 6, 128, 128), 4, dev, torch.float32,
+                                scale=3.0), dim=1)
+    with torch.no_grad():
+        ref = d(soft)
+        got = d.to(torch.bfloat16)(soft.to(torch.bfloat16))
+    assert got.shape == ref.shape == (2, 1, 4, 4)
+    assert float((got.float() - ref).abs().max()) <= \
+        1.6e-2 * float(ref.abs().max())

@@ -7,7 +7,10 @@ The port's own copy of the mapping in ``uemda_tpu/models/port_torch.py:
 are also the port's, so a reference ``.pth`` loads directly. Conventions:
 flax conv kernel (kh, kw, I, O) -> torch weight (O, I, kh, kw); flax BN
 ``scale``/``bias`` params and ``mean``/``var`` batch_stats -> ``weight``/
-``bias``/``running_mean``/``running_var``.
+``bias``/``running_mean``/``running_var``. The same conventions carry the
+adversarial discriminators, the MMD baseline's reduction and head (a flax
+Dense kernel (in, out) -> a Linear weight (out, in)) and ``TransNorm2d``
+(its four statistics keep their names).
 """
 
 import re
@@ -88,6 +91,74 @@ def state_dict_from_jax(variables: Dict, use_ppm: bool = True,
             for i, d in enumerate(dilations):
                 out[f"{hn}.conv2d_list.{i}.weight"] = _conv_back(hp[f"aspp_d{d}"]["kernel"])
                 out[f"{hn}.conv2d_list.{i}.bias"] = _vec(hp[f"aspp_d{d}"]["bias"])
+    return out
+
+
+def _dense_back(w) -> torch.Tensor:
+    """flax Dense kernel (in, out) -> torch Linear weight (out, in)."""
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(w, np.float32).T))
+
+
+# the flax auto-names of each discriminator's convs, in order, and the
+# port's module names (``models/discriminator.py``)
+_DISC_CONVS = {
+    "fc": ["convs.0", "convs.1", "convs.2", "convs.3", "classifier"],
+    "local": ["convs.0", "convs.1", "convs.2", "classifier"],
+    "pixel": ["conv1", "conv2", "src", "tgt"],
+}
+
+
+def discriminator_state_dict_from_jax(params: Dict, kind: str = "fc"
+                                      ) -> Dict[str, torch.Tensor]:
+    """A flax discriminator's ``params`` (``Conv_0``, ``Conv_1``, ...) ->
+    the state dict of the port's ``FCDiscriminator`` (``kind`` "fc"),
+    ``FCDiscriminatorLocal`` ("local") or ``PixelDiscriminator``
+    ("pixel"): kernels HWIO -> OIHW, biases as they are."""
+    names = _DISC_CONVS[kind]
+    if sorted(params) != sorted(f"Conv_{i}" for i in range(len(names))):
+        raise KeyError(f"{kind} discriminator: params {sorted(params)}")
+    out = {}
+    for i, name in enumerate(names):
+        out[f"{name}.weight"] = _conv_back(params[f"Conv_{i}"]["kernel"])
+        out[f"{name}.bias"] = _vec(params[f"Conv_{i}"]["bias"])
+    return out
+
+
+def reduction_state_dict_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """A flax ``ReductionLayer``'s ``Dense_0``/``Dense_1`` -> ``fc1``/
+    ``fc2`` (kernels (in, out) -> weights (out, in))."""
+    return {f"fc{i + 1}.{k}": (_dense_back(params[f"Dense_{i}"]["kernel"])
+                               if k == "weight"
+                               else _vec(params[f"Dense_{i}"]["bias"]))
+            for i in range(2) for k in ("weight", "bias")}
+
+
+def mmd_state_dict_from_jax(variables: Dict, deep_stem: bool = False,
+                            dilations=(6, 12, 18, 24)
+                            ) -> Dict[str, torch.Tensor]:
+    """A flax ``DeeplabV2MMD``'s variables -> the port's state dict:
+    the encoder as :func:`state_dict_from_jax`'s, the ASPP head under
+    ``cls_pred`` and the reduction under ``reduction``."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    out = {"encoder.resnet." + k: v for k, v in _backbone(
+        params["encoder"], stats.get("encoder", {}), deep_stem).items()}
+    for i, d in enumerate(dilations):
+        conv = params["cls_pred"][f"aspp_d{d}"]
+        out[f"cls_pred.conv2d_list.{i}.weight"] = _conv_back(conv["kernel"])
+        out[f"cls_pred.conv2d_list.{i}.bias"] = _vec(conv["bias"])
+    out.update({"reduction." + k: v for k, v in
+                reduction_state_dict_from_jax(params["reduction"]).items()})
+    return out
+
+
+def trans_norm_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """A flax ``TransNorm2d``'s ``scale``/``bias`` and its four
+    ``batch_stats`` -> ``weight``/``bias`` and the buffers under their
+    names."""
+    p, s = variables["params"], variables["batch_stats"]
+    out = {"weight": _vec(p["scale"]), "bias": _vec(p["bias"])}
+    for k in ("mean_source", "mean_target", "var_source", "var_target"):
+        out[k] = _vec(s[k])
     return out
 
 

@@ -1,0 +1,111 @@
+"""Self-training with DCA's intra- and cross-domain class-correlation
+regularizers, on the GPU.
+
+Twin of ``tools/train_ssl_dca.py`` (reference ``tools/train_ssl_dca.py:
+52-205``)::
+
+    python -m uemda_tpu_torch.tools.train_ssl_dca --config-path 2vaihingen \\
+        --ckpt-model log/align/Vaihingen_best.pth
+
+Loads a model (``--ckpt-model``) and sweeps the target split (slide +
+8-view TTA; ``--gen-fastpath 1`` on the folded fast path) into
+``<snapshot_dir>/../pseudo_label``; each step takes the source loss
+(``--ls``, with ``--bcs 1`` weighted by the source class balance at
+temperature ``--class-temp``) on the source labels and on the hard labels
+mined from the stored soft labels, plus ICR and CCR (``train/steps.py``'s
+``DcaStep``). Runs in ``GENE_EVERY`` chunks with a fresh sweep between
+them (with ``--gen 1``), as ``train_ssl_mix``; the run dir is
+``<snapshot_dir>/dca/``. ``--steps-per-call``, ``--host-crop``,
+``--profile-dir`` (the first chunk's steps 10-15), ``--accum-steps`` and
+``--resume`` as ``train_src``. ``--device`` defaults to the card. Not
+ported yet, and refused: ``--num-devices`` and the multi-process flags
+(ROADMAP.md queue A8).
+"""
+
+import argparse
+import logging
+import os
+
+from uemda_tpu_torch.config import load_config
+from uemda_tpu_torch.models.port import load_checkpoint
+from uemda_tpu_torch.train.loop import (
+    add_loop_flags,
+    add_unported_flags,
+    build_model,
+    build_state,
+    default_hparams,
+    host_crop_of,
+    make_eval_hook,
+    make_source_iter,
+    maybe_resume,
+    refuse_unported,
+    run_regen_chunks,
+    source_loss_of,
+    sweep_streams,
+)
+from uemda_tpu_torch.train.steps import make_dca_step
+from uemda_tpu_torch.utils.log import str2bool
+from uemda_tpu_torch.utils.runtime import resolve_device
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="SSL with DCA (ICR/CCR).")
+    parser.add_argument("--config-path", type=str, default="2vaihingen")
+    parser.add_argument("--ckpt-model", type=str, required=True)
+    parser.add_argument("--gen", type=str2bool, default=1)
+    parser.add_argument("--gen-fastpath", type=str2bool, default=0,
+                        help="run the pseudo-label sweep on the folded "
+                             "serving fast path (exact math)")
+    parser.add_argument("--ls", type=str, default="CrossEntropy",
+                        choices=["CrossEntropy", "OhemCrossEntropy"])
+    parser.add_argument("--bcs", type=str2bool, default=0)
+    parser.add_argument("--class-temp", type=float, default=2.0)
+    parser.add_argument("--steps", type=int, default=None)
+    parser.add_argument("--seed", type=int, default=2333)
+    parser.add_argument("--accum-steps", type=int, default=1)
+    parser.add_argument("--resume", type=str, default="",
+                        help="'auto' or a state_curr.pth path (exact "
+                             "full-state resume)")
+    parser.add_argument("--device", type=str, default=None,
+                        help="default: the card (cuda)")
+    add_unported_flags(parser)
+    add_loop_flags(parser)
+    args = parser.parse_args(argv)
+    refuse_unported(args)
+
+    device = resolve_device(args.device)
+    cfg = load_config(args.config_path, snapshot_postfix="/dca")
+    run_dir = cfg.snapshot_dir
+    os.makedirs(run_dir, exist_ok=True)
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    logger = logging.getLogger("uemda_tpu_torch.train_ssl_dca")
+    logger.info(f"args: {vars(args)}")
+
+    stop_steps = args.steps or cfg.stage3_steps
+    model = build_model(cfg, device=device)
+    model.load_state_dict(load_checkpoint(args.ckpt_model))
+    state = build_state(model, cfg, stop_steps, balance_temp=args.class_temp,
+                        accum_steps=args.accum_steps)
+    hp = default_hparams(
+        cfg, source_loss=source_loss_of(args), balance_source=bool(args.bcs),
+        compute_dtype="bfloat16" if device.type == "cuda" else "float32")
+    step_fn = make_dca_step(model, hp)
+    state, start, state_path = maybe_resume(state, run_dir, args.resume,
+                                            logger)
+    crop = host_crop_of(args, cfg)
+    regen, target_stream = sweep_streams(
+        model, cfg, os.path.join(run_dir, "..", "pseudo_label"),
+        read_sup=False, host_crop=crop, fastpath=bool(args.gen_fastpath),
+        logger=logger)
+    eval_fn, on_best = make_eval_hook(cfg, run_dir, logger=logger)
+    return run_regen_chunks(
+        state, step_fn, stop_steps, cfg.gene_every, start, logger, regen,
+        lambda skip: make_source_iter(cfg, skip=skip, host_crop=crop)[0],
+        target_stream, gen=bool(args.gen), seed=args.seed,
+        eval_every=cfg.eval_every, eval_fn=eval_fn, on_best=on_best,
+        steps_per_call=args.steps_per_call, profile_dir=args.profile_dir,
+        state_path=state_path)
+
+
+if __name__ == "__main__":
+    main()

@@ -40,6 +40,7 @@ from uemda_tpu_torch.infer.pseudo_gen import generate_pseudo_labels
 from uemda_tpu_torch.models.port import load_checkpoint, load_prototypes
 from uemda_tpu_torch.train.loop import (
     add_loop_flags,
+    add_unported_flags,
     build_model,
     build_state,
     default_hparams,
@@ -47,6 +48,8 @@ from uemda_tpu_torch.train.loop import (
     make_eval_hook,
     make_source_iter,
     maybe_resume,
+    refuse_unported,
+    run_regen_chunks,
     run_training_loop,
     source_loss_of,
 )
@@ -55,20 +58,6 @@ from uemda_tpu_torch.utils.log import str2bool
 from uemda_tpu_torch.utils.runtime import resolve_device
 
 LOSS_CHOICES = ["legacy", "uvem", "ups", "ohem", "focal", "ghm", "gdp", "ce"]
-
-
-def _refuse_unported(args) -> None:
-    refused = {
-        "--num-devices": ("A8", args.num_devices is not None),
-        "--multihost": ("A8", bool(args.multihost)),
-        "--coordinator": ("A8", args.coordinator is not None),
-        "--num-processes": ("A8", args.num_processes is not None),
-        "--process-id": ("A8", args.process_id is not None),
-    }
-    for flag, (item, hit) in refused.items():
-        if hit:
-            raise NotImplementedError(f"{flag}: not ported yet (ROADMAP.md "
-                                      f"queue {item})")
 
 
 def main(argv=None):
@@ -104,21 +93,17 @@ def main(argv=None):
     parser.add_argument("--uvem-t", type=float, default=0.7)
     parser.add_argument("--uvem-g", type=float, default=4)
     parser.add_argument("--steps", type=int, default=None)
-    parser.add_argument("--num-devices", type=int, default=None)
     parser.add_argument("--seed", type=int, default=2333)
     parser.add_argument("--accum-steps", type=int, default=1)
     parser.add_argument("--resume", type=str, default="",
                         help="'auto' or a state_curr.pth path (exact "
                              "full-state resume)")
-    parser.add_argument("--multihost", type=int, default=0)
-    parser.add_argument("--coordinator", type=str, default=None)
-    parser.add_argument("--num-processes", type=int, default=None)
-    parser.add_argument("--process-id", type=int, default=None)
     parser.add_argument("--device", type=str, default=None,
                         help="default: the card (cuda)")
+    add_unported_flags(parser)
     add_loop_flags(parser)
     args = parser.parse_args(argv)
-    _refuse_unported(args)
+    refuse_unported(args)
     if args.refine_label and not args.ckpt_proto:
         parser.error("--refine-label 1 requires --ckpt-proto")
 
@@ -156,6 +141,8 @@ def main(argv=None):
                         label_type="none")
     need_sup = hp.refine and hp.refine_mode in ("all", "s")
 
+    # the sweep and its stream as ``train.loop.sweep_streams``'s, on this
+    # module's own names (the mix tests replace them)
     def regen():
         """A sweep of the target split by the current model (an eval-mode
         copy: the training model and its captured step are untouched)."""
@@ -174,45 +161,15 @@ def main(argv=None):
         return prefetch(infinite_batches(ds, cfg.target.batch_size, seed=1,
                                          skip_batches=skip, host_crop=crop))
 
-    # the JAX tool's target streams (train_ssl_mix.py:148-191): the sweep's
-    # stream starts at the step of its sweep (``origin``); with --gen 1 a
-    # resume past the first chunk regenerates before its first live chunk
-    first_chunk = min(cfg.gene_every, stop_steps)
-    origin = None
-    if not (args.gen and start >= first_chunk):
-        regen()
-        origin = 0
     eval_fn, on_best = make_eval_hook(cfg, run_dir, logger=logger)
-    out, done = None, 0
-    while done < stop_steps:
-        chunk = min(cfg.gene_every, stop_steps - done)
-        live = state.step < done + chunk
-        # fresh streams a chunk, at the step it starts from: an upload
-        # stage reads ahead, so a stream that outlived its chunk would
-        # hand the next chunk other batches than a resumed run gets
-        src_iter = (make_source_iter(cfg, skip=state.step, host_crop=crop)[0]
-                    if live else iter(()))
-        tgt_iter = target_stream(state.step - origin) if live else None
-        try:
-            out = run_training_loop(
-                state, step_fn, src_iter, tgt_iter, chunk, logger,
-                eval_every=cfg.eval_every, eval_fn=eval_fn, on_best=on_best,
-                seed=args.seed + done, steps_per_call=args.steps_per_call,
-                profile_dir=args.profile_dir if done == 0 else None,
-                state_path=state_path, step_offset=done)
-        finally:
-            for it in (src_iter, tgt_iter):
-                if hasattr(it, "close"):
-                    it.close()  # stops its decode thread
-        done += chunk
-        if done < stop_steps and args.gen:
-            nxt = min(cfg.gene_every, stop_steps - done)
-            if done + nxt > start:
-                logger.info(f"###### regenerating pseudo labels @ step "
-                            f"{done} ######")
-                regen()
-                origin = done
-    return out
+    return run_regen_chunks(
+        state, step_fn, stop_steps, cfg.gene_every, start, logger, regen,
+        lambda skip: make_source_iter(cfg, skip=skip, host_crop=crop)[0],
+        target_stream, gen=bool(args.gen), seed=args.seed,
+        run_loop=run_training_loop, eval_every=cfg.eval_every,
+        eval_fn=eval_fn, on_best=on_best,
+        steps_per_call=args.steps_per_call, profile_dir=args.profile_dir,
+        state_path=state_path)
 
 
 if __name__ == "__main__":

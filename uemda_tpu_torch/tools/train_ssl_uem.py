@@ -24,8 +24,8 @@ every ``EVAL_EVERY`` steps and at the end, and keeps
 the sweep (the interrupted run's soft labels are on disk, and the same
 stage-2 model would give them again). ``--ls`` and ``--accum-steps`` as
 ``train_src``. ``--device`` defaults to the card; ``--device cpu`` runs
-the plain versions. Not ported yet, and refused: ``--num-devices``
-(ROADMAP.md queue A8).
+the plain versions. Not ported yet, and refused: ``--num-devices`` and
+the multi-process flags (ROADMAP.md queue A8).
 """
 
 import argparse
@@ -41,6 +41,7 @@ from uemda_tpu_torch.models.port import load_checkpoint, load_prototypes
 from uemda_tpu_torch.utils.log import str2bool
 from uemda_tpu_torch.train.loop import (
     add_loop_flags,
+    add_unported_flags,
     build_model,
     build_state,
     default_hparams,
@@ -49,6 +50,7 @@ from uemda_tpu_torch.train.loop import (
     make_source_iter,
     make_target_iter,
     maybe_resume,
+    refuse_unported,
     run_training_loop,
     source_loss_of,
 )
@@ -57,16 +59,6 @@ from uemda_tpu_torch.utils.runtime import resolve_device
 
 LOSS_CHOICES = ["ours", "uvem", "ohem", "focal", "ghm", "gdp", "ups", "none",
                 "ce"]
-
-
-def _refuse_unported(args) -> None:
-    refused = {
-        "--num-devices": ("A8", args.num_devices is not None),
-    }
-    for flag, (item, hit) in refused.items():
-        if hit:
-            raise NotImplementedError(f"{flag}: not ported yet (ROADMAP.md "
-                                      f"queue {item})")
 
 
 def main(argv=None):
@@ -92,7 +84,6 @@ def main(argv=None):
     parser.add_argument("--uvem-t", type=float, default=0.7)
     parser.add_argument("--uvem-g", type=float, default=4)
     parser.add_argument("--steps", type=int, default=None)
-    parser.add_argument("--num-devices", type=int, default=None)
     parser.add_argument("--seed", type=int, default=2333)
     parser.add_argument("--accum-steps", type=int, default=1)
     parser.add_argument("--resume", type=str, default="",
@@ -100,9 +91,10 @@ def main(argv=None):
                              "full-state resume)")
     parser.add_argument("--device", type=str, default=None,
                         help="default: the card (cuda)")
+    add_unported_flags(parser)
     add_loop_flags(parser)
     args = parser.parse_args(argv)
-    _refuse_unported(args)
+    refuse_unported(args)
 
     device = resolve_device(args.device)
     cfg = load_config(args.config_path, snapshot_postfix="/ssl")

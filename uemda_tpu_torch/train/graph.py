@@ -100,9 +100,11 @@ class StepGraph:
         self.capture_s = stats["capture_s"]
         self.pool_bytes = stats["pool_bytes"]
         self.launches = stats["launches"]
-        # the gradients the graph writes: an eager step in between points
-        # .grad elsewhere, a replay points it back
-        self.grads = [p.grad for p in state.opt.params]
+        # the gradients the graph writes (the segmenter's and, for the
+        # adversarial step, the discriminator's): an eager step in between
+        # points .grad elsewhere, a replay points it back
+        self.params = state.grad_params()
+        self.grads = [p.grad for p in self.params]
         self.replays = 0
 
     def __call__(self, state: TrainState, batch_s, batch_t, seed: int
@@ -117,7 +119,7 @@ class StepGraph:
         state.opt.set_lr()
         self.graph.replay()
         count_replay(self.wrappers, self.launches)
-        for p, g in zip(state.opt.params, self.grads):
+        for p, g in zip(self.params, self.grads):
             p.grad = g
         state.advance()
         self.replays += 1
@@ -189,7 +191,7 @@ class ChunkRunner:
         stats = {"capture_s": g.capture_s, "pool_bytes": g.pool_bytes,
                  "replays": g.replays, "launches": g.launches}
         torch.cuda.synchronize()
-        for p in g.step.model.parameters():
+        for p in g.params:
             p.grad = None
         del g
         torch.cuda.empty_cache()

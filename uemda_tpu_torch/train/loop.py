@@ -31,6 +31,12 @@ evaluation and at the end (unless the last evaluation's snapshot holds
 that step already), and :func:`maybe_resume` restores it. The metric readback, the snapshot, the evaluation and the final save
 run under a deadline (``UEMDA_HANG_TIMEOUT_S``, 900 s by default, 0 off):
 a hung device raises ``TimeoutError`` instead of hanging the run.
+
+The mix, DCA and UVEM-ablation trainers run in ``GENE_EVERY`` chunks
+with a pseudo-label sweep between them (:func:`run_regen_chunks`;
+:func:`sweep_streams` for the last two), and the trainers refuse the
+data-parallel flags through :func:`add_unported_flags` and
+:func:`refuse_unported`.
 """
 
 import copy
@@ -53,6 +59,7 @@ from uemda_tpu_torch.config import PairConfig
 from uemda_tpu_torch.datasets.base import SegDataset, infinite_batches
 from uemda_tpu_torch.datasets.prefetch import prefetch, upload_batches
 from uemda_tpu_torch.infer.evaluate import evaluate_dataset
+from uemda_tpu_torch.infer.pseudo_gen import generate_pseudo_labels
 from uemda_tpu_torch.models.config import DeeplabV2Config, PPMConfig
 from uemda_tpu_torch.models.deeplabv2 import DeeplabV2
 from uemda_tpu_torch.models.port import load_pretrained_backbone
@@ -185,6 +192,30 @@ def add_loop_flags(parser) -> None:
     parser.add_argument("--profile-dir", type=str, default=None,
                         help="write a torch.profiler trace of steps 10-15 "
                              "here")
+
+
+def add_unported_flags(parser) -> None:
+    """The JAX trainers' data-parallel flags, which the port accepts only
+    to refuse (:func:`refuse_unported`) until ROADMAP.md queue A8:
+    ``--num-devices`` and the multi-process flags."""
+    parser.add_argument("--num-devices", type=int, default=None)
+    parser.add_argument("--multihost", type=int, default=0)
+    parser.add_argument("--coordinator", type=str, default=None)
+    parser.add_argument("--num-processes", type=int, default=None)
+    parser.add_argument("--process-id", type=int, default=None)
+
+
+def refuse_unported(args) -> None:
+    """Raise ``NotImplementedError`` naming the first flag of
+    :func:`add_unported_flags` that was given."""
+    for flag, hit in (("--num-devices", args.num_devices is not None),
+                      ("--multihost", bool(args.multihost)),
+                      ("--coordinator", args.coordinator is not None),
+                      ("--num-processes", args.num_processes is not None),
+                      ("--process-id", args.process_id is not None)):
+        if hit:
+            raise NotImplementedError(f"{flag}: not ported yet (ROADMAP.md "
+                                      "queue A8)")
 
 
 def host_crop_of(args, cfg) -> object:
@@ -531,3 +562,92 @@ def _run_training_loop(state, step_fn, source_iter, target_iter, stop_steps,
     logger.info(f">>>> used {(time.time() - t0) / 3600:.3f} hours")
     return {"miou": miou_max, "step": iter_max, "graph": stats,
             "saver": saved}
+
+
+def sweep_streams(model, cfg: PairConfig, pseudo_dir: str, read_sup: bool,
+                  host_crop=None, fastpath: bool = False,
+                  logger: Optional[logging.Logger] = None):
+    """The self-training trainers' ``regen`` and ``target_stream`` for
+    :func:`run_regen_chunks`: a sweep of the target split (slide + 8-view
+    TTA on an eval-mode copy of ``model``, so the training model and its
+    captured step are untouched; bf16 on the card, f32 on the CPU;
+    ``fastpath`` on the folded fast path) writing the soft labels to
+    ``pseudo_dir``, and the stream of the target images with those labels
+    (and, with ``read_sup``, their superpixel maps) from a batch on."""
+    device = next(model.parameters()).device
+    gen_ds = SegDataset(cfg.meta, list(cfg.target.image_dir), None,
+                        label_type="none")
+
+    def regen():
+        generate_pseudo_labels(
+            model, gen_ds, cfg.target.mean, cfg.target.std,
+            out_dir=pseudo_dir, tile=cfg.crop, tta=True,
+            batch_size=min(4, cfg.target.batch_size),
+            cutoff_top=cfg.cutoff_top, cutoff_low=cfg.cutoff_low,
+            keep_in_memory=False,
+            compute_dtype=(torch.bfloat16 if device.type == "cuda"
+                           else torch.float32),
+            device=device, logger=logger, fastpath=fastpath)
+
+    def target_stream(skip: int):
+        ds = SegDataset(cfg.meta, list(cfg.target.image_dir), pseudo_dir,
+                        label_type="prob", read_sup=read_sup)
+        return prefetch(infinite_batches(ds, cfg.target.batch_size, seed=1,
+                                         skip_batches=skip,
+                                         host_crop=host_crop))
+
+    return regen, target_stream
+
+
+def run_regen_chunks(state, step_fn, stop_steps: int, gene_every: int,
+                     start: int, logger: logging.Logger, regen: Callable,
+                     source_stream: Callable, target_stream: Callable,
+                     gen: bool = True, seed: int = 2333,
+                     run_loop: Optional[Callable] = None, **loop_kw):
+    """The self-training trainers' chunks (``tools/train_ssl_mix.py:
+    148-191``, ``train_ssl_dca.py:131-160``, ``train_ssl_uvem_abl.py:
+    143-169``): runs of ``gene_every`` steps, each through
+    :func:`run_training_loop` counting, logging, evaluating and
+    snapshotting from its own start with the seed ``seed`` plus that
+    start, and a sweep (``regen()``) of the target split before the first
+    chunk and, with ``gen``, between chunks. ``source_stream(skip)`` and
+    ``target_stream(skip)``: the source stream and the stream of the last
+    sweep's labels, each from its batch ``skip``. A resume (``start`` > 0)
+    past the first chunk with ``gen`` regenerates before its first live
+    chunk, as the JAX tools do; each live chunk takes fresh streams at the
+    step it starts from, so that a resumed run gets the same batches as
+    one never stopped (an upload stage reads ahead). ``loop_kw`` goes to
+    ``run_loop`` (:func:`run_training_loop` unless given; its
+    ``profile_dir`` to the first chunk only). Returns the last chunk's
+    result."""
+    run_loop = run_loop or run_training_loop
+    first_chunk = min(gene_every, stop_steps)
+    origin = None   # the step of the last sweep: its stream starts there
+    if not (gen and start >= first_chunk):
+        regen()
+        origin = 0
+    profile_dir = loop_kw.pop("profile_dir", None)
+    out, done = None, 0
+    while done < stop_steps:
+        chunk = min(gene_every, stop_steps - done)
+        live = state.step < done + chunk
+        src_iter = source_stream(state.step) if live else iter(())
+        tgt_iter = target_stream(state.step - origin) if live else None
+        try:
+            out = run_loop(
+                state, step_fn, src_iter, tgt_iter, chunk, logger,
+                seed=seed + done, step_offset=done,
+                profile_dir=profile_dir if done == 0 else None, **loop_kw)
+        finally:
+            for it in (src_iter, tgt_iter):
+                if hasattr(it, "close"):
+                    it.close()  # stops its decode thread
+        done += chunk
+        if done < stop_steps and gen:
+            nxt = min(gene_every, stop_steps - done)
+            if done + nxt > start:
+                logger.info(f"###### regenerating pseudo labels @ step "
+                            f"{done} ######")
+                regen()
+                origin = done
+    return out

@@ -17,7 +17,7 @@ learning rate is not in it, ``SGD.set_lr`` recomputes it from the count.
 """
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -46,6 +46,11 @@ class TrainState:
         replay of it make the update without counting it)."""
         self.opt.advance()
         self.step += 1
+
+    def grad_params(self) -> List[torch.Tensor]:
+        """The tensors whose ``.grad`` a step writes (``train/graph.py``
+        points them back at a captured step's after each replay)."""
+        return list(self.opt.params)
 
     def state_dict(self) -> Dict[str, object]:
         """{'step', 'model' (masters and BatchNorm buffers, the model's

@@ -4,11 +4,13 @@ The port's copy of ``StageHParams``, ``_forward_train``,
 ``_source_loss_terms`` (CE or OHEM, with the class balance),
 ``_target_loss`` (the whole stage-3 zoo), ``make_src_step``,
 ``make_init_proto_step``, ``make_align_step``, ``make_ssl_step``,
-``make_mix_step`` and ``make_align_simple_step`` (``uemda_tpu/train/
-steps.py:52-593``; reference ``tools/train_src.py:108-149``,
-``tools/init_prototypes.py:101-111``, ``tools/train_align_uem.py:136-187``,
-``tools/train_ssl_uem.py:171-235``, ``tools/train_ssl_mix.py:144-176``,
-``tools/train_align.py:126-155``).
+``make_mix_step``, ``make_dca_step`` and ``make_align_simple_step``
+(``uemda_tpu/train/steps.py:52-593``; reference ``tools/train_src.py:
+108-149``, ``tools/init_prototypes.py:101-111``,
+``tools/train_align_uem.py:136-187``, ``tools/train_ssl_uem.py:171-235``,
+``tools/train_ssl_mix.py:144-176``, ``tools/train_ssl_dca.py:142-170``,
+``tools/train_align.py:126-155``). The adversarial step is
+``train/adversarial.py``'s.
 
 Mixed precision as in the JAX package: the f32 master parameters are cast
 to ``compute_dtype`` (bf16 by default) for the forward -- a differentiable
@@ -39,6 +41,7 @@ import torch
 
 from uemda_tpu_torch.alignment.balance import class_balance_weight
 from uemda_tpu_torch.alignment.coral import align_domain
+from uemda_tpu_torch.alignment.dca import ccr, icr
 from uemda_tpu_torch.alignment.losses import (
     cross_entropy_loss,
     focal_loss,
@@ -317,10 +320,21 @@ class _Step:
         state written in place. The masters' ``.grad`` keep this step's
         gradients afterwards. Returns the metrics as f32 device scalars.
         This is what ``train/graph.py`` captures."""
-        hp, model = self.hp, self.model
+        model = self.model
         kept = {k: getattr(state, k) for k in _SWAPPED}
         model.train()
         model.zero_grad(set_to_none=True)
+        bs, bt = self._augment(batch_s, batch_t, draws)
+        params = cast_params(model, self.dtype)
+        metrics = self.losses(state, bs, bt, params, draws)
+        metrics["loss"].backward()
+        state.opt.update()
+        _write_back(state, kept)
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def _augment(self, batch_s, batch_t, draws: StepDraws):
+        """The step's crops (K9) and D4 ops: (source, target or None)."""
+        hp = self.hp
         bs = augment_batch(batch_s, hp.crop, hp.src_mean, hp.src_std,
                            draws.aug_s)
         bt = None
@@ -329,12 +343,7 @@ class _Step:
                                draws.aug_t,
                                clamp=self.target_mode == "compose"
                                and hp.clamp_target)
-        params = cast_params(model, self.dtype)
-        metrics = self.losses(state, bs, bt, params, draws)
-        metrics["loss"].backward()
-        state.opt.update()
-        _write_back(state, kept)
-        return {k: v.detach() for k, v in metrics.items()}
+        return bs, bt
 
     def __call__(self, state: TrainState, batch_s, batch_t, seed: int,
                  draws: Optional[StepDraws] = None) -> Dict[str, torch.Tensor]:
@@ -699,6 +708,47 @@ class AlignSimpleStep(_Step):
                 "loss_align": loss_align, "loss_domain": loss_dom}
 
 
+class DcaStep(_Step):
+    """Self-training with DCA's class-correlation regularizers
+    (``make_dca_step``, ``steps.py:487-527``; reference
+    ``tools/train_ssl_dca.py:142-170``). Batches as :class:`SslStep`'s,
+    without 'sup'.
+
+    Order, as the JAX step: the stored soft label, cropped and turned with
+    the image ("compose", with the clamp), and its hard label by
+    ``pseudo_selection`` (no refinement, no K8); source forward, then
+    target forward; the source loss (CE or OHEM) on both domains -- with
+    ``balance_source`` both weighted by the class balance the step started
+    with, each after its own EMA update of it, and only the source's new
+    balance kept (``steps.py:513-514``); ICR on the source and CCR across
+    the domains on the stride-16 logits and features. One backward and one
+    update."""
+
+    target_mode = "compose"
+
+    def losses(self, state, bs, bt, params, draws):
+        hp, model = self.hp, self.model
+        with torch.no_grad():
+            label_t = pseudo_selection(bt["prob"].permute(0, 3, 1, 2).float(),
+                                       hp.cutoff_top, hp.cutoff_low,
+                                       hp.ignore_label)
+        balance_s = state.balance_s
+        p1, p2, feat_s = forward_train(model, params, bs["image"], draws.drop_s)
+        t1, t2, feat_t = forward_train(model, params, bt["image"], draws.drop_t)
+        loss_s = self._source_loss(state, [p1, p2], bs["label"])
+        pixel_weight = None
+        if hp.balance_source:
+            pixel_weight, _ = class_balance_weight(balance_s, label_t,
+                                                   hp.ignore_label)
+        loss_t = loss_calc([t1, t2], label_t, self._source_fn(pixel_weight))
+        loss_icr = icr(p1, p2, feat_s, hp.class_num, ignore_bg=True)
+        loss_ccr = ccr(p1, p2, feat_s, t1, t2, feat_t, hp.class_num,
+                       ignore_bg=True)
+        return {"loss": loss_s + loss_t + loss_icr + loss_ccr,
+                "loss_seg": loss_s + loss_t, "loss_icr": loss_icr,
+                "loss_ccr": loss_ccr}
+
+
 class InitProtoStep:
     """The ``init_prototypes`` accumulation pass (``steps.py:167-182``):
     augment a source batch, take the train-mode feature map without moving
@@ -751,6 +801,10 @@ def make_ssl_step(model, hp: StageHParams) -> SslStep:
 def make_mix_step(model, hp: StageHParams, mix: str = "cutmix",
                   combo: bool = False) -> MixStep:
     return MixStep(model, hp, mix, combo)
+
+
+def make_dca_step(model, hp: StageHParams) -> DcaStep:
+    return DcaStep(model, hp)
 
 
 def make_init_proto_step(model, hp: StageHParams) -> InitProtoStep:
