@@ -24,6 +24,14 @@ weights from a seed):
   through ``run_training_loop``, ending in an evaluation;
 * ``init_prototypes`` and stage 2 (``[align]``) on the model stage 1 left:
   an f32 step against the CPU, then 30 flagship steps with refine 'all';
+* ``[prep]`` the real-data path on the model and prototypes stage 2 left:
+  LSC superpixel maps and their shrink for four synthetic 1024^2 target
+  tiles through the port's binding of ``native/superpixels.cpp`` (host
+  seconds, ids, the boundary id, pixels at or above ``max_segments``), the
+  ``with_aux`` eval forward against the default one, ``refine_quality``'s
+  refinement in every mode on those maps (K5 and K7 held exactly to their
+  plain versions there and timed on LSC and grid maps), and 21 stage-2
+  steps on the LSC maps through the CUDA graph;
 * ``init_prototypes`` again and stage 3 (``[ssl]``) on the model stage 2
   left: an f32 step against the CPU, then the pseudo-label sweep of the
   target tiles (slide + 8-view TTA, bf16) and 30 flagship UVEM steps, each
@@ -71,6 +79,7 @@ import dataclasses
 import json
 import logging
 import os
+import platform
 import re
 import subprocess
 import sys
@@ -843,6 +852,7 @@ def align_phase(dev, ctx):
                           dev, loss, eval_fn=eval_fn)
     dev_g, idle_g = graph_profile("align", "stage-2 step", make, start,
                                   src_it, tgt_it, dev, ms_g)
+    ctx["align_graph_ms"] = ms_g
     phase("align", f"stage 2, ms/step by CUDA events (device ms/step, idle "
           f"share): steps_per_call 1 {ms_step:.3f} ({dev_ms}, {idle}); "
           f"steps_per_call {K_GRAPH} through the graph {ms_g:.3f} "
@@ -2436,6 +2446,206 @@ def abl_phase(dev, ctx, sctx):
     return counts
 
 
+PREP_TILES = 4  # [prep]: LSC tiles of 1024^2
+
+
+def prep_phase(dev, ctx, astate):
+    """``[prep]``: the real-data path on the model and prototypes stage 2
+    left (copies, in a fresh state with a 21-step schedule). (a) LSC maps and their shrink for
+    ``PREP_TILES`` synthetic 1024^2 target tiles through the port's binding
+    of ``native/superpixels.cpp``, on a thread pool. Then, every launch
+    count set to 0 just before and read just after (returned): (b) the
+    ``with_aux`` eval forward (f32) at batch 2 against the default
+    forward; (c) ``refine_quality``'s ``refine_all`` for modes none, p, l,
+    s, all on those maps, and the 's' view as ``vis_corrected_pseudo_labels``
+    calls it (``max_segments`` 2048); (d) 21 stage-2 steps (refine 'all')
+    on the LSC maps through the CUDA graph (K=10). Outside that window:
+    K5 and K7 on the 's' view's inputs held exactly to their plain
+    versions, and their ms on the LSC maps and on the grid maps of the
+    same shape."""
+    import numpy as np
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+
+    from uemda_tpu_torch.alignment.prototypes import label_refine
+    from uemda_tpu_torch.datasets.augment import normalize
+    from uemda_tpu_torch.ops.segment import (
+        segment_gather,
+        segment_gather_plain,
+        segment_max,
+        segment_max_plain,
+    )
+    from uemda_tpu_torch.ops.pseudo import pseudo_selection
+    from uemda_tpu_torch.superpixels import native
+    from uemda_tpu_torch.tools.refine_quality import make_refine_all
+    from uemda_tpu_torch.train.loop import (
+        build_state,
+        default_hparams,
+        max_segments_for,
+    )
+    from uemda_tpu_torch.train.steps import make_align_step
+
+    cfg = ctx["cfg"]
+    nc = cfg.class_num
+    tgt = ctx["tgt"]
+    hw = tgt.images.shape[1]
+    s_max = max_segments_for(cfg)
+    boundary = (hw // 16) * (hw // 16)
+
+    # (a) the superpixel maps, one host thread a tile (the C code runs
+    # without the GIL)
+    t0 = time.time()
+    native.build()
+    t_build = time.time() - t0
+
+    def one(img):
+        t = time.time()
+        n, labels, shrunk = native.superpixels_with_shrink(img)
+        return n, labels, shrunk, time.time() - t
+
+    t0 = time.time()
+    with ThreadPoolExecutor(PREP_TILES) as ex:
+        maps = list(ex.map(one, tgt.images[:PREP_TILES]))
+    t_lsc = time.time() - t0
+    cpu = platform.machine()
+    try:
+        lscpu = subprocess.run(["lscpu"], capture_output=True, text=True,
+                               timeout=30).stdout
+        names = re.findall(r"^(?:Vendor ID|Model name):\s*(.+)$", lscpu, re.M)
+        cpu = ", ".join([cpu] + names)
+    except OSError:
+        pass
+    phase("prep", f"LSC (region 16, ratio 0.075, 100 iterations) + shrink "
+          f"(window 3) of {PREP_TILES} synthetic {hw}^2 target tiles on "
+          f"{PREP_TILES} host threads in {t_lsc:.2f} s (build {t_build:.2f} "
+          f"s); host {cpu}, {os.cpu_count()} cores")
+    for i, (n, labels, shrunk, sec) in enumerate(maps):
+        if not (labels.min() == 0 and labels.max() == n - 1
+                and shrunk.max() == max(boundary, n - 1)):
+            fail(f"LSC tile {i}: {n} ids, labels {labels.min()}-"
+                 f"{labels.max()}, shrunk max {shrunk.max()}")
+        phase("prep", f"tile {i}: {sec:.3f} s host; {n} ids, largest id "
+              f"{labels.max()}, boundary id {boundary}; pixels at or above "
+              f"max_segments_for(cfg) {s_max}: {int((shrunk >= s_max).sum())}"
+              f"; at or above 2048: {int((shrunk >= 2048).sum())} of "
+              f"{shrunk.size} ({int(((shrunk >= 2048) & (shrunk != boundary)).sum())} "
+              "not the boundary id)")
+    sup_np = np.stack([m[2] for m in maps]).astype(np.int32)
+    lsc = dataclasses.replace(tgt, images=tgt.images[:PREP_TILES],
+                              labels=tgt.labels[:PREP_TILES], sup=sup_np)
+
+    model = copy.deepcopy(astate.model)
+    start = build_state(model, cfg, DA_STEPS,
+                        prototypes=astate.aligner.prototypes)
+    aligner = start.aligner
+    st = cfg.target
+    torch.cuda.synchronize()
+    for fn in WRAPPERS:
+        fn.launches = 0
+    t0 = time.time()
+    # (b) the with_aux forward at the flagship width, f32, batch 2
+    images = torch.from_numpy(lsc.images[:2]).to(dev).permute(0, 3, 1, 2)
+    sup = torch.from_numpy(sup_np[:2]).to(dev)
+    model.eval()
+    with torch.no_grad():
+        x = normalize(images, st.mean, st.std)
+        probs, x1, x2, feat = model(x, with_aux=True)
+        plain = model(x)
+    torch.cuda.synchronize()
+    d_aux = max_err(probs, plain)
+    shapes = [tuple(t.shape) for t in (probs, x1, x2, feat)]
+    if not (torch.equal(probs, plain) and shapes == [
+            (2, nc, hw, hw), (2, nc, hw // 16, hw // 16),
+            (2, nc, hw // 16, hw // 16), (2, 2048, hw // 16, hw // 16)]):
+        fail(f"with_aux forward: probs differ from the default forward by "
+             f"{d_aux}, shapes {shapes}")
+    phase("prep", f"with_aux forward (ResNet-50 OS16, twin PPM heads, "
+          f"instance norm, {nc} classes, f32, batch 2, {hw}^2): probs against "
+          f"the default forward max abs diff {d_aux:.3g}; x1, x2, feat "
+          f"{shapes[1:]}")
+    # (c) refine_quality's refine_all on the LSC maps, the soft labels as
+    # stored (fp16) from the model's own posterior
+    modes = ["none", "p", "l", "s", "all"]
+    refine_all = make_refine_all(model, aligner, cfg, modes, 2.0, s_max)
+    soft = probs.half().float()
+    out = refine_all(images, soft, sup)
+    torch.cuda.synchronize()
+    cells = []
+    for m in modes:
+        hard, conf = out[m]
+        if not (hard.shape == (2, hw, hw) and torch.isfinite(conf).all()):
+            fail(f"refine_all mode {m}: labels {tuple(hard.shape)}, "
+                 f"confidence finite {bool(torch.isfinite(conf).all())}")
+        cells.append(f"{m} mined {float((hard != cfg.ignore_label).float().mean()):.4f}"
+                     f" conf {float(conf.mean()):.4f}")
+    phase("prep", f"refine_all (max_segments {s_max}) on the LSC maps: "
+          + "; ".join(cells))
+    # the 's' view as vis_corrected_pseudo_labels calls label_refine (its
+    # default max_segments 2048, under the boundary id and LSC's ids)
+    with torch.no_grad():
+        ref_s = label_refine(aligner, soft, feat, [x1, x2], sup=sup, mode="s")
+        nan_px = int(torch.isnan(ref_s).any(1).sum())
+        mined_s = float((pseudo_selection(ref_s, cfg.cutoff_top,
+                                          cfg.cutoff_low, cfg.ignore_label)
+                         != cfg.ignore_label).float().mean())
+    phase("prep", f"label_refine mode 's' at its default max_segments 2048 "
+          f"(vis_corrected_pseudo_labels' call): {nan_px} of "
+          f"{2 * hw * hw} pixels NaN, mined share {mined_s:.4f} (at "
+          f"{s_max}: {float((out['s'][0] != cfg.ignore_label).float().mean()):.4f})")
+    t_fwd = time.time() - t0
+    # (d) 21 stage-2 steps on the LSC maps through the captured step
+    hp = default_hparams(cfg, align_domain=True, refine=True,
+                         refine_mode="all")
+    ms_g, _ = graph_rerun("prep", "stage 2 on LSC maps through the CUDA "
+                          "graph", lambda m: make_align_step(m, hp), start,
+                          stream(ctx["src"], 10), stream(lsc, 11), DA_STEPS,
+                          dev, [], gate=False)
+    counts = {fn.__name__: fn.launches for fn in WRAPPERS}
+    for name in ("instance_norm", "tail_upsample_softmax_mean",
+                 "segment_max", "segment_gather"):
+        if counts[name] <= 0:
+            fail(f"{name} was not launched on the [prep] path")
+    phase("prep", f"stage 2 (refine 'all', max_segments {s_max}), steps "
+          f"{K_GRAPH + 2}-{2 * K_GRAPH + 1} through the graph: "
+          f"{ms_g:.3f} ms/step on LSC maps, {ctx['align_graph_ms']:.3f} on "
+          f"grid maps ([align], this run); forward and refinement "
+          f"{t_fwd:.2f} s; {CARD[0]}")
+    phase("launches", f"[prep] path (with_aux + default forward, refine_all, "
+          f"the 's' view at 2048, {DA_STEPS} graph steps): "
+          f"{json.dumps(counts)}")
+
+    # K5 and K7 on the 's' view's inputs at these shapes, exactly against
+    # their plain versions, and their time on the LSC maps and on the
+    # [align] grid maps of the same shape
+    saved = [fn.launches for fn in WRAPPERS]
+    flat = soft.permute(0, 2, 3, 1).reshape(2, hw * hw, nc).contiguous()
+    timing = {}
+    for kind, ids_np in (("LSC", sup_np[:2]), ("grid", tgt.sup[:2])):
+        ids = torch.from_numpy(np.ascontiguousarray(ids_np)).to(dev) \
+            .reshape(2, -1)
+        got = segment_max(flat, ids, s_max)
+        route, plan = segment_max.route, segment_max.plan
+        ref = segment_max_plain(flat, ids, s_max)
+        g7 = segment_gather(got, ids)
+        r7 = segment_gather_plain(ref, ids)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, ref) and torch.equal(g7, r7)):
+            fail(f"K5/K7 on {kind} maps: segment_max differs by "
+                 f"{max_err(got, ref)}, segment_gather by {max_err(g7, r7)}")
+        t5 = kernel_ms(lambda: segment_max(flat, ids, s_max))
+        t7 = kernel_ms(lambda: segment_gather(got, ids))
+        timing[kind] = (t5, t7)
+        phase("prep", f"K5 segment_max and K7 segment_gather on {kind} maps "
+              f"(2, {hw * hw}, {nc}) f32, S {s_max}: exact against their "
+              f"plain versions; K5 route {route} (tile {plan.tile}, rows "
+              f"{plan.rows}); K5 {t5:.4f} ms, K7 {t7:.4f} ms by CUDA events")
+    for fn, n in zip(WRAPPERS, saved):
+        fn.launches = n
+    del start, model, probs, plain, soft, flat
+    torch.cuda.empty_cache()
+    return counts, timing
+
+
 def main():
     import torch
 
@@ -3292,6 +3502,12 @@ def main():
     #    step against the CPU, then the flagship chain with its own counts
     align_launches, astate = align_phase(dev, ctx)
 
+    mark("prep")
+    # 7b. the real-data path on stage 2's model and prototypes: LSC maps,
+    #    the with_aux forward, refine_quality's refinement, stage 2 on LSC
+    #    maps through the graph, with its own counts
+    prep_launches, _ = prep_phase(dev, ctx, astate)
+
     mark("stage 3")
     # 8. init_prototypes and stage 3 on the model stage 2 left: the f32 step
     #    against the CPU, then the sweep and the flagship steps with their
@@ -3509,13 +3725,15 @@ def main():
         n_zoo = zoo_launches[fn_name]
         n_da = [c[fn_name] for c in (adv_launches, dca_launches,
                                      abl_launches)]
+        n_prep = prep_launches[fn_name]
         record.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": (n_serve + n_fused + n_int8 + n_train + n_align
-                         + n_ssl + n_mix + n_zoo + sum(n_da)),
+                         + n_prep + n_ssl + n_mix + n_zoo + sum(n_da)),
             "launches_serve": n_serve, "launches_fused": n_fused,
             "launches_int8": n_int8, "launches_train": n_train,
-            "launches_align": n_align, "launches_ssl": n_ssl,
+            "launches_align": n_align, "launches_prep": n_prep,
+            "launches_ssl": n_ssl,
             "launches_mix": n_mix, "launches_zoo": n_zoo,
             "launches_adv": n_da[0], "launches_dca": n_da[1],
             "launches_abl": n_da[2],

@@ -1523,3 +1523,63 @@ def test_trans_norm_and_discriminator_in_bf16_against_f32(dev):
     assert got.shape == ref.shape == (2, 1, 4, 4)
     assert float((got.float() - ref).abs().max()) <= \
         1.6e-2 * float(ref.abs().max())
+
+
+def _lsc_crops(b, crop, seed):
+    """``b`` crops of ``crop``^2 of the shrunk LSC map (region 16, 20
+    iterations) of one synthetic 1024^2 LoveDA tile, from the port's
+    binding: ids numbered over the whole tile, as stage 2 crops them."""
+    from uemda_tpu_torch.datasets.meta import LoveDA
+    from uemda_tpu_torch.datasets.synthetic import synthetic_split
+    from uemda_tpu_torch.superpixels import superpixels_with_shrink
+
+    img = synthetic_split(LoveDA, n=1, hw=1024, seed=seed,
+                          domain_shift=20.0).images[0]
+    _, _, shrunk = superpixels_with_shrink(img, iterations=20)
+    r = np.random.default_rng(seed)
+    offs = r.integers(0, 1024 - crop + 1, (b, 2))
+    return np.stack([shrunk[y:y + crop, x:x + crop] for y, x in offs])
+
+
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+def test_segment_kernels_on_an_lsc_map(dev, ids_dtype):
+    """K5 and K7 at the 2urban stage-2 shape, (8, 512^2, 7) f32 with S =
+    max_segments_for(2urban) = 4128, on crops of an irregular LSC map from
+    the port's binding (grid maps are the other tests' ids): both exactly
+    equal to their plain versions, K5 on its window route."""
+    sup = _lsc_crops(8, 512, seed=4)
+    assert sup.max() == 4096  # the boundary id (1024/16)^2
+    ids = torch.from_numpy(sup.reshape(8, -1)).to(dev, ids_dtype)
+    val = torch.softmax(_randn((8, 512 * 512, 7), 9, dev, torch.float32,
+                               scale=3.0), dim=-1)
+    got = segment_max(val, ids, 4128)
+    assert segment_max.route == "window"
+    ref = segment_max_plain(val, ids, 4128)
+    g = segment_gather(got, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert torch.equal(g, segment_gather_plain(ref, ids))
+    assert not torch.isnan(g).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_with_aux_probs_equal_the_default_forward(dev, dtype):
+    """The flagship model (ResNet-50 OS16, twin PPM heads, instance norm, 7
+    classes) in eval mode on the card, batch 2 at 256^2: ``with_aux``'s
+    probabilities bit-equal to the default forward's, through one more K3
+    and K1 launch each; the stride-16 logits and the 2048-channel
+    feature beside them."""
+    model = DeeplabV2(DeeplabV2Config.uemda_default(7), device=dev,
+                      generator=torch.Generator().manual_seed(0)).to(dtype)
+    x = _randn((2, 3, 256, 256), 1, dev, dtype).contiguous(memory_format=CL)
+    n3, n1 = tail_upsample_softmax_mean.launches, instance_norm.launches
+    with torch.no_grad():
+        plain = model(x)
+        probs, x1, x2, feat = model(x, with_aux=True)
+    torch.cuda.synchronize()
+    assert torch.equal(probs, plain)
+    assert (x1.shape, x2.shape, feat.shape) == (
+        (2, 7, 16, 16), (2, 7, 16, 16), (2, 2048, 16, 16))
+    assert not torch.equal(x1, x2)
+    assert (tail_upsample_softmax_mean.launches - n3,
+            instance_norm.launches - n1) == (2, 2)

@@ -8,7 +8,9 @@ of the heads' softmax at input resolution with align_corners=True
 (``Encoder.py:144-155``), computed by the K3 eval-tail kernel. In train mode
 (``model.train()``, the JAX package's ``train=True``) it is the stride-16
 logits and feature, ``(x1, x2, feat)`` (``deeplabv2.py:88-109``), with
-batch-statistics BatchNorm and the heads' dropout. Cascade mode feeds c4 to
+batch-statistics BatchNorm and the heads' dropout. ``with_aux`` (eval
+only, ``deeplabv2.py:64-111``) also returns the stride-16 head logits and
+the feature, for the label-refinement tools. Cascade mode feeds c4 to
 head1 and c5 to head2 (``Encoder.py:131-143``); single-head mode mirrors
 ``Encoder.py:156-165``.
 
@@ -79,8 +81,13 @@ class DeeplabV2(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                dropout_masks: Optional[Dict[str, torch.Tensor]] = None):
-        """Eval mode: (B, 3, H, W) -> (B, nc, H, W) averaged head softmax.
+                dropout_masks: Optional[Dict[str, torch.Tensor]] = None,
+                with_aux: bool = False):
+        """Eval mode: (B, 3, H, W) -> (B, nc, H, W) averaged head softmax;
+        with ``with_aux``, ``(probs, x1, x2, feat)``: the stride-16 logits
+        of both heads and the (instance-normed) feature, ``feat2`` in
+        cascade mode, ``(probs, x1, x1, feat)`` with one head. Train mode
+        ignores ``with_aux``, as JAX does.
 
         Train mode: ``(x1, x2, feat)``; cascade ``(x1, feat1, x2, feat2)``;
         one head ``(x1, feat)`` -- logits and features at stride 16. Each
@@ -104,17 +111,20 @@ class DeeplabV2(nn.Module):
                 x1, x2 = head("layer5", feat1), head("layer6", feat2)
                 if train:
                     return x1, feat1, x2, feat2
+                feat = feat2
             else:
                 feat = norm(pyramid[-1])
                 x1, x2 = head("layer5", feat), head("layer6", feat)
                 if train:
                     return x1, x2, feat
-            return eval_tail([x1, x2], in_hw)
+            probs = eval_tail([x1, x2], in_hw)
+            return (probs, x1, x2, feat) if with_aux else probs
         feat = norm(pyramid[-1])
         x1 = head("cls_pred", feat)
         if train:
             return x1, feat
-        return eval_tail([x1], in_hw)
+        probs = eval_tail([x1], in_hw)
+        return (probs, x1, x1, feat) if with_aux else probs
 
 
 @torch.no_grad()

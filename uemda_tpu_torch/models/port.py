@@ -9,8 +9,8 @@ flax conv kernel (kh, kw, I, O) -> torch weight (O, I, kh, kw); flax BN
 ``scale``/``bias`` params and ``mean``/``var`` batch_stats -> ``weight``/
 ``bias``/``running_mean``/``running_var``. The same conventions carry the
 adversarial discriminators, the MMD baseline's reduction and head (a flax
-Dense kernel (in, out) -> a Linear weight (out, in)) and ``TransNorm2d``
-(its four statistics keep their names).
+Dense kernel (in, out) -> a Linear weight (out, in)), ``TransNorm2d``
+(its four statistics keep their names) and ``SpixelNet``.
 """
 
 import re
@@ -159,6 +159,31 @@ def trans_norm_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
     out = {"weight": _vec(p["scale"]), "bias": _vec(p["bias"])}
     for k in ("mean_source", "mean_target", "var_source", "var_target"):
         out[k] = _vec(s[k])
+    return out
+
+
+def spixelnet_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """A flax ``SpixelNet``'s variables -> the port's state dict: each
+    ``conv{i}a``/``conv{i}b``/``up{i}`` block's ``Conv_0`` and
+    ``BatchNorm_0`` to ``.conv`` and ``.bn``; the decoder's resize convs,
+    auto-named ``Conv_0``-``Conv_3`` from the deepest level up, to
+    ``deconv3``-``deconv0``, and ``Conv_4`` to ``pred`` (kernels HWIO ->
+    OIHW)."""
+    p, s = variables["params"], variables["batch_stats"]
+    out: Dict[str, torch.Tensor] = {}
+
+    def conv(name, tree):
+        out[f"{name}.weight"] = _conv_back(tree["kernel"])
+        out[f"{name}.bias"] = _vec(tree["bias"])
+
+    for name, tree in p.items():
+        if name.startswith("Conv_"):
+            i = int(name[len("Conv_"):])
+            conv("pred" if i == 4 else f"deconv{3 - i}", tree)
+        else:
+            conv(f"{name}.conv", tree["Conv_0"])
+            _bn_back(out, f"{name}.bn", {"bn": tree["BatchNorm_0"]},
+                     {"bn": s[name]["BatchNorm_0"]})
     return out
 
 
