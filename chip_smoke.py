@@ -58,7 +58,16 @@ weights from a seed):
   CPU, 21 flagship adversarial steps (and 21 with ``accum_steps`` 2) and
   21 DCA steps, each eagerly and through the graph; and the UVEM
   ablation's loop (``run_regen_chunks``) at ``GENE_EVERY`` 10: a sweep,
-  10 steps, a sweep, 10 steps, through the graph.
+  10 steps, a sweep, 10 steps, through the graph;
+* ``[dp]`` data parallelism (``uemda_tpu_torch/parallel/``): the flagship
+  stage 1, 2 and 3 steps in an NCCL group of ``torch.cuda.device_count()``
+  (1 here), eager and through the graph, against the plain steps; the
+  row-sharded raster predictor on a 1024 x 1536 raster with TTA, standard
+  and fast path, bit-equal to the slide predictor over the padded raster;
+  the collectives a step takes at world size > 1 (global BatchNorm, the
+  all-reduces, the all-gather) captured in a CUDA graph on the NCCL group
+  and replayed against their eager run; and two ranks sharing the card
+  over gloo for the step's collectives.
 
 ``[serve-graph]`` takes every bf16 serving mode through the captured
 slide predictor (``infer/graph.py``) at batch 1, 8 and 32 on 512^2 tiles,
@@ -2446,6 +2455,335 @@ def abl_phase(dev, ctx, sctx):
     return counts
 
 
+DP_STEPS = 5      # [dp]: eager steps of each stage, plain and data-parallel
+DP_GRAPH = 21     # [dp]: steps through the K_GRAPH graph (step 1 alone, 2 calls)
+RASTER_HW = (1024, 1536)
+
+
+def _dp_gloo_rank(rank, port, path):
+    """One of two ranks sharing card 0 over gloo (``[dp]`` (d)): the
+    collectives a data-parallel step takes, on CUDA tensors -- the global
+    BatchNorm forward and backward, ``gsum``, ``gmax``, ``gather_rows``,
+    the flat gradient all-reduce -- each against the single-process value
+    of the global batch. Saves the largest differences to
+    ``<path>_<rank>.pt``; an error in any of them ends the process with a
+    non-zero code, which fails the phase. The raster's point-to-point
+    exchange is not tried: gloo writes a CUDA tensor's device pointer to
+    its socket (``writev``: bad address) and can abort the process; on
+    the card it runs on NCCL."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from uemda_tpu_torch.parallel import mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(8, 64, 32, 32, generator=g, device=dev) * 2 + 1
+    dy = torch.randn(x.shape, generator=g, device=dev)
+    w = torch.rand(64, generator=g, device=dev) + 0.5
+    b = torch.randn(64, generator=g, device=dev)
+    rows = mesh.rows(4)
+
+    def bn():
+        xl = x[rows].clone().requires_grad_()
+        wl, bl = w.clone().requires_grad_(), b.clone().requires_grad_()
+        y, mean, var = mesh.batch_norm(xl, wl, bl, 1e-5)
+        (y * dy[rows]).sum().backward()
+        mesh.all_reduce_grads([wl.grad, bl.grad])
+        xr = x.clone().requires_grad_()
+        wr, br = w.clone().requires_grad_(), b.clone().requires_grad_()
+        yr = F.batch_norm(xr, None, None, wr, br, True, 0.0, 1e-5)
+        (yr * dy).sum().backward()
+        return {"y": (y - yr[rows]).abs().max(),
+                "dx": (xl.grad - xr.grad[rows]).abs().max(),
+                "dw": (wl.grad - wr.grad).abs().max(),
+                "db": (bl.grad - br.grad).abs().max(),
+                "mean": (mean - x.mean((0, 2, 3))).abs().max(),
+                "var": (var - x.var((0, 2, 3), unbiased=False)).abs().max()}
+
+    v = torch.arange(6.0, device=dev).reshape(2, 3) + 10 * rank
+    base = v - 10 * rank
+    res = {k: float(e) for k, e in bn().items()}
+    res["gsum"] = float((mesh.gsum(v) - (2 * base + 10)).abs().max())
+    res["gmax"] = float((mesh.gmax(v) - (base + 10)).abs().max())
+    res["gather"] = float((mesh.gather_rows(v) - torch.cat(
+        [base, base + 10])).abs().max())
+
+    dist.destroy_process_group()
+    torch.save(res, f"{path}_{rank}.pt")
+
+
+def _dp_collective_bodies(x, dy, w, b, v):
+    """The bodies ``parallel/mesh.py``'s helpers run at world size > 1 (at
+    1 they return early): the global BatchNorm forward and backward, the
+    autograd all-reduce sum, the flat gradient all-reduce and the
+    all-gather, on the current group."""
+    from uemda_tpu_torch.parallel import mesh
+
+    xi = x.detach().clone().requires_grad_()
+    wi = w.detach().clone().requires_grad_()
+    bi = b.detach().clone().requires_grad_()
+    y, mean, var = mesh._GlobalBatchNorm.apply(xi, wi, bi, 1e-5)
+    (mesh._AllReduceSum.apply(y) * dy).sum().backward()
+    mesh._all_reduce_flat([wi.grad, bi.grad])
+    return {"y": y.detach(), "mean": mean, "var": var, "dx": xi.grad,
+            "dw": wi.grad, "db": bi.grad, "gather": mesh._all_gather(v)}
+
+
+def _dp_collectives_captured(dev):
+    """``[dp]`` (c), in the NCCL group of one: the world-size > 1 bodies
+    (``_dp_collective_bodies``) eagerly against one library BatchNorm,
+    then captured in one CUDA graph and replayed on new inputs against
+    the eager bodies on those inputs. What ``--steps-per-call`` under
+    several processes captures with each step. Returns (largest error
+    against the library, largest replay-eager difference, whether every
+    replayed tensor was bit-equal)."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def inputs():
+        return (torch.randn(8, 64, 32, 32, generator=g, device=dev) * 2 + 1,
+                torch.randn(8, 64, 32, 32, generator=g, device=dev),
+                torch.rand(64, generator=g, device=dev) + 0.5,
+                torch.randn(64, generator=g, device=dev),
+                torch.randn(4, 6, generator=g, device=dev))
+
+    static = inputs()
+    eager = _dp_collective_bodies(*static)
+    x, dy, w, b, v = (t.clone().requires_grad_(i in (0, 2, 3))
+                      for i, t in enumerate(static))
+    y = F.batch_norm(x, None, None, w, b, True, 0.0, 1e-5)
+    (y * dy).sum().backward()
+    lib = {"y": y.detach(), "mean": x.detach().mean((0, 2, 3)),
+           "var": x.detach().var((0, 2, 3), unbiased=False),
+           "dx": x.grad, "dw": w.grad, "db": b.grad, "gather": v}
+    vs_lib = {k: float((eager[k] - lib[k]).abs().max()) for k in eager}
+    limits = {"y": 1e-4, "dx": 1e-4, "dw": 1e-3, "db": 1e-3, "mean": 1e-5,
+              "var": 1e-4, "gather": 0.0}
+    for k, e in vs_lib.items():
+        if not e <= limits[k]:
+            fail(f"[dp] collective bodies on NCCL: {k} max abs err {e} "
+                 f"from the library BatchNorm (limit {limits[k]})")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            _dp_collective_bodies(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = _dp_collective_bodies(*static)
+    fresh = inputs()
+    for t, f in zip(static, fresh):
+        t.copy_(f)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = _dp_collective_bodies(*fresh)
+    diff = {k: float((out[k] - want[k]).abs().max()) for k in want}
+    if not max(diff.values()) <= 1e-5:
+        fail(f"[dp] collective bodies captured on NCCL: the replay parts "
+             f"from the eager run on the same inputs: {json.dumps(diff)}")
+    return (max(vs_lib.values()), max(diff.values()),
+            all(torch.equal(out[k], want[k]) for k in want))
+
+
+def dp_phase(dev, ctx, sctx):
+    """``[dp]``: data parallelism (``uemda_tpu_torch/parallel/``) on the
+    card. (a) At world size ``torch.cuda.device_count()`` on NCCL (this
+    process: one card, a group of one), the flagship stage 1, 2 and 3
+    steps on the chain's model: ``DP_STEPS`` plain eager steps without a
+    group, the same steps from the same start in the group (held to the
+    plain ones at 1e-4 relative, bit-equality reported) and ``DP_GRAPH``
+    steps through the ``K_GRAPH`` graph (steps 1-3 held at 1e-4); ms/step
+    of each. (b) The raster predictor (``infer/raster.py``) on a synthetic
+    1024 x 1536 raster with 8-view TTA, standard and fast path (K2, K3 and
+    K4 on stages (1, 2)), against ``make_predictor`` over the padded
+    raster. Every launch count is set to 0 after the plain steps, just
+    before the group's, and read after (b) (returned). (c) In the group,
+    the collectives a step takes at world size > 1, captured in a CUDA
+    graph (``_dp_collectives_captured``). (d) Two ranks sharing the card
+    over gloo (``_dp_gloo_rank``): the step's collectives on CUDA tensors
+    against one process."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from uemda_tpu_torch.datasets.augment import normalize
+    from uemda_tpu_torch.infer.fastpath import build_fastpath
+    from uemda_tpu_torch.infer.raster import RasterPlan, make_raster_predictor
+    from uemda_tpu_torch.infer.slide import make_predictor
+    from uemda_tpu_torch.parallel import mesh
+    from uemda_tpu_torch.parallel.multihost import init_multihost
+    from uemda_tpu_torch.train.loop import build_state, default_hparams
+    from uemda_tpu_torch.train.steps import (
+        make_align_step,
+        make_src_step,
+        make_ssl_step,
+    )
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    cfg = ctx["cfg"]
+    world = torch.cuda.device_count()
+    if world != 1:
+        phase("dp", f"{world} cards: the group of this script's one process "
+              "is world size 1 on card 0 (the script needs one card)")
+    logger = logging.getLogger("chip_smoke.dp")
+    tgt1 = dataclasses.replace(ctx["tgt"], sup=None)
+    stages = (
+        ("stage 1", lambda m, hp: make_src_step(m, hp),
+         default_hparams(cfg, align_domain=True), None, tgt1, 60),
+        ("stage 2", lambda m, hp: make_align_step(m, hp),
+         default_hparams(cfg, align_domain=True, refine=True,
+                         refine_mode="all"), sctx["prototypes"], ctx["tgt"],
+         62),
+        ("stage 3", lambda m, hp: make_ssl_step(m, hp),
+         default_hparams(cfg, refine=True, refine_mode="all"),
+         sctx["prototypes"], sctx["target"], 64))
+    plain = {}
+    for name, mk, hp, proto, target, seed in stages:
+        state = build_state(copy.deepcopy(ctx["model"]), cfg, 30,
+                            prototypes=proto)
+        start = copy_start(state)
+        plain[name] = (start, copy_start(state)) + eager_run(
+            "dp", f"{name} plain (no process group)",
+            lambda m, mk=mk, hp=hp: mk(m, hp), state,
+            stream(ctx["src"], seed), stream(target, seed + 1), DP_STEPS,
+            logger)[:2]
+        del state
+    torch.cuda.synchronize()
+    for fn in WRAPPERS:   # the grouped steps, the graph and the raster only
+        fn.launches = 0
+    init_multihost(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    try:
+        if not (mesh.world_size() == 1 and mesh.backend() == "nccl"):
+            fail(f"[dp] group: world size {mesh.world_size()}, backend "
+                 f"{mesh.backend()}")
+        for name, mk, hp, proto, target, seed in stages:
+            start, start_g, loss_p, ms_p = plain.pop(name)
+            make = lambda m, mk=mk, hp=hp: mk(m, hp)  # noqa: E731
+            loss_d, ms_d, _ = eager_run(
+                "dp", f"{name} in an NCCL group of {mesh.world_size()}",
+                make, start, stream(ctx["src"], seed),
+                stream(target, seed + 1), DP_STEPS, logger)
+            rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                      for a, b in zip(loss_d, loss_p) for k in b)
+            if not rel <= 1e-4:
+                fail(f"[dp] {name}: data-parallel losses part from the plain "
+                     f"steps' by {rel:.3g} relative (limit 1e-4)")
+            ms_g, _ = graph_rerun(
+                "dp", f"{name} in the NCCL group through the CUDA graph",
+                make, start_g, stream(ctx["src"], seed),
+                stream(target, seed + 1), DP_GRAPH, dev, loss_p)
+            phase("dp", f"{name}: NCCL group of {mesh.world_size()} vs plain "
+                  f"steps, {DP_STEPS} eager steps: largest relative loss "
+                  f"difference {rel:.3g}, bit-equal "
+                  f"{all(a == b for a, b in zip(loss_d, loss_p))}; ms/step "
+                  f"by CUDA events: plain {ms_p:.3f}, data-parallel "
+                  f"{ms_d:.3f}, data-parallel through the graph (K "
+                  f"{K_GRAPH}) {ms_g:.3f}; {CARD[0]}")
+            del start, start_g
+            torch.cuda.empty_cache()
+
+        # (b) the raster predictor against the padded slide predictor
+        h, w = RASTER_HW
+        rng = np.random.default_rng(70)
+        raw = torch.from_numpy(rng.integers(0, 256, (1, h, w, 3),
+                                            dtype=np.uint8)).to(dev)
+        st = cfg.val
+        x = normalize(raw.permute(0, 3, 1, 2), st.mean, st.std)[0]
+        plan = RasterPlan(RASTER_HW, (TILE, TILE), 0.5, mesh.world_size())
+        n_win = len(plan.origins(True))
+        padded = torch.zeros((1, 3, plan.hp, plan.wp), device=dev)
+        padded[0, :, :h, :w] = x
+        model = copy.deepcopy(ctx["model"]).eval()
+        nets = (("standard", copy.deepcopy(model).to(torch.bfloat16)),
+                ("fast path, fused_stages (1, 2)",
+                 build_fastpath(model, fused_stages=(1, 2))))
+        for what, net in nets:
+            # one forward of every window, as the single predictor's
+            pred = make_raster_predictor(net, RASTER_HW, (TILE, TILE),
+                                         tta=True, window_chunk=n_win,
+                                         compute_dtype=torch.bfloat16,
+                                         return_probs=True)
+            with make_predictor(net, (TILE, TILE), (plan.hp, plan.wp),
+                                tta=True,
+                                compute_dtype=torch.bfloat16) as single:
+                ref = single(padded)[0, :, :h, :w].clone()
+                ms_s = cuda_ms(lambda: single(padded), iters=3, warmup=1)
+            got = pred(x)
+            ms_r = cuda_ms(lambda: pred(x), iters=3, warmup=1)
+            err = float((got - ref).abs().max())
+            agree = float((got.argmax(0) == ref.argmax(0)).float().mean())
+            if not torch.equal(got, ref):
+                fail(f"[dp] raster {what}: max abs diff {err:.3g} from the "
+                     f"padded slide predictor, argmax agreement {agree}")
+            phase("dp", f"raster {h}x{w}, 8-view TTA, {what}: {n_win} "
+                  f"windows of {TILE}^2 on a {plan.hp}x{plan.wp} padded "
+                  f"grid at world size {mesh.world_size()}; vs make_predictor "
+                  f"on the padded raster: bit-equal {torch.equal(got, ref)}, "
+                  f"max abs diff {err:.3g}, argmax agreement {agree:.6f}; "
+                  f"raster {ms_r:.3f} ms, slide predictor (graph) "
+                  f"{ms_s:.3f} ms by CUDA events; {CARD[0]}")
+            del pred, net
+        del nets, model
+        torch.cuda.empty_cache()
+        counts = {fn.__name__: fn.launches for fn in WRAPPERS}
+
+        # (c) the world-size > 1 collectives captured on NCCL
+        vs_lib, vs_eager, bit = _dp_collectives_captured(dev)
+        phase("dp", f"the collectives of a step at world size > 1 (global "
+              f"BatchNorm forward and backward, all-reduce sum, flat "
+              f"gradient all-reduce, all-gather) in the NCCL group of "
+              f"{mesh.world_size()}: eager against one library BatchNorm "
+              f"max abs err {vs_lib:.3g}; captured in a CUDA graph and "
+              f"replayed on new inputs against the eager bodies: max abs "
+              f"diff {vs_eager:.3g}, bit-equal {bit}")
+    finally:
+        dist.destroy_process_group()
+    for name in ("instance_norm", "instance_norm_backward", "crop_normalize",
+                 "segment_max", "segment_gather", "uvem_mine", "stem_pool",
+                 "tail_upsample_softmax_mean", "bottleneck_identity"):
+        if counts[name] <= 0:
+            fail(f"{name} was not launched on the [dp] paths")
+    phase("launches", f"[dp] paths (3 x {DP_STEPS} eager steps in the group "
+          f"and {DP_GRAPH} through the graph each, two raster "
+          f"predictions; not the plain steps): {json.dumps(counts)}")
+
+    # (d) two ranks sharing the card over gloo
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "gloo")
+        mp.spawn(_dp_gloo_rank, args=(free_port(), path), nprocs=2,
+                 join=True)
+        res = [torch.load(f"{path}_{r}.pt") for r in range(2)]
+    worst = {k: max(r[k] for r in res) for k in res[0]}
+    limits = {"y": 1e-4, "dx": 1e-4, "dw": 1e-3, "db": 1e-3, "mean": 1e-5,
+              "var": 1e-4}
+    for k, e in worst.items():
+        if not e <= limits.get(k, 0.0):
+            fail(f"[dp] 2 gloo ranks on the card: {k} max abs err {e}")
+    phase("dp", f"2 gloo ranks sharing the card ({time.time() - t0:.1f} s "
+          f"with the processes' start), CUDA tensors against one process: "
+          f"max abs err {json.dumps(worst)}")
+    return counts
+
+
 PREP_TILES = 4  # [prep]: LSC tiles of 1024^2
 
 
@@ -3533,6 +3871,11 @@ def main():
     dca_launches = dca_phase(dev, ctx, sctx)
     mark("abl")
     abl_launches = abl_phase(dev, ctx, sctx)
+    mark("dp")
+    # 11b. data parallelism: the three stages' steps in an NCCL group,
+    #    eager and through the graph, against the plain steps; the raster
+    #    predictor; two gloo ranks sharing the card
+    dp_launches = dp_phase(dev, ctx, sctx)
     del sctx
 
     mark("timing")
@@ -3726,17 +4069,19 @@ def main():
         n_da = [c[fn_name] for c in (adv_launches, dca_launches,
                                      abl_launches)]
         n_prep = prep_launches[fn_name]
+        n_dp = dp_launches[fn_name]
         record.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": (n_serve + n_fused + n_int8 + n_train + n_align
-                         + n_prep + n_ssl + n_mix + n_zoo + sum(n_da)),
+                         + n_prep + n_ssl + n_mix + n_zoo + sum(n_da)
+                         + n_dp),
             "launches_serve": n_serve, "launches_fused": n_fused,
             "launches_int8": n_int8, "launches_train": n_train,
             "launches_align": n_align, "launches_prep": n_prep,
             "launches_ssl": n_ssl,
             "launches_mix": n_mix, "launches_zoo": n_zoo,
             "launches_adv": n_da[0], "launches_dca": n_da[1],
-            "launches_abl": n_da[2],
+            "launches_abl": n_da[2], "launches_dp": n_dp,
             "max_abs_err": errs[(name, dn)], "ms": ms,
             "ms_with_host": host_ms,
             "plain_ms": plain_ms, "bound_ms": bound,

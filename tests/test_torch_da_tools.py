@@ -136,11 +136,47 @@ def test_self_training_tools_run_two_chunks(tmp_path, monkeypatch, caplog,
 @pytest.mark.parametrize("tool", TOOLS)
 @pytest.mark.parametrize("flag", [["--num-devices", "2"], ["--multihost", "1"],
                                   ["--process-id", "0"]])
-def test_data_parallel_flags_are_refused(tool, flag):
-    """``--num-devices`` and the multi-process flags raise before anything
-    is built, naming ROADMAP.md queue A8."""
+def test_data_parallel_flags_are_refused(tool, flag, monkeypatch):
+    """The data-parallel flags, refused until the port's data parallelism
+    (this name kept from then), are taken as the JAX tools take them, the
+    trainer's body (``_run``) stubbed: ``--num-devices 2`` goes to the
+    launcher, which starts 2 processes; ``--multihost 1`` with a
+    coordinator, 1 process and rank 0 runs the body in a gloo group of
+    one, torn down after; ``--process-id 0`` without ``--multihost`` is
+    ignored, as ``setup_multihost`` ignores it: one process, no group."""
+    import socket
+
+    import torch.distributed as dist
+
+    from uemda_tpu_torch.parallel import mesh, multihost
+
+    mod = importlib.import_module(f"uemda_tpu_torch.tools.{tool}")
+    seen = []
+    monkeypatch.setattr(mod, "_run", lambda a: seen.append(
+        (a, mesh.world_size(), mesh.backend())) or "ran")
+    spawned = []
+    monkeypatch.setattr(multihost, "_spawn", lambda fn, a, n: spawned.append(
+        (fn, a, n)))
     argv = ["--device", "cpu", "--ckpt-model", "x.pth"] + flag
     if tool == "train_ssl_uvem_abl":
         argv += ["--ckpt-proto", "p.npy"]
-    with pytest.raises(NotImplementedError, match=f"{flag[0]}.*queue A8"):
-        _main(tool)(argv)
+    if flag[0] == "--multihost":
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        argv += ["--coordinator", f"127.0.0.1:{port}", "--num-processes", "1",
+                 "--process-id", "0"]
+    out = _main(tool)(argv)
+    if flag[0] == "--num-devices":
+        assert out is None and not seen
+        (fn, args, n), = spawned
+        assert fn is mod._run and n == 2 and args.num_devices == 2
+        return
+    assert out == "ran" and not spawned
+    (args, world, backend), = seen
+    if flag[0] == "--multihost":
+        assert (world, backend) == (1, "gloo") and args.multihost == 1
+    else:
+        assert (world, backend) == (1, None) and args.process_id == 0
+    assert not dist.is_initialized()
+

@@ -1583,3 +1583,346 @@ def test_with_aux_probs_equal_the_default_forward(dev, dtype):
     assert not torch.equal(x1, x2)
     assert (tail_upsample_softmax_mean.launches - n3,
             instance_norm.launches - n1) == (2, 2)
+
+
+@pytest.fixture
+def nccl_group(dev):
+    """A process group of this one process on NCCL, destroyed after."""
+    import socket
+
+    import torch.distributed as dist
+
+    from uemda_tpu_torch.parallel.multihost import init_multihost
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init_multihost(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    yield dist.get_backend()
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("stage", ["src", "align", "ssl"])
+def test_world_size_1_nccl_step_equals_the_plain_step(dev, stage):
+    """Each stage's step in an NCCL group of one process (the data-parallel
+    code at world size 1: every collective helper the identity) against
+    the same steps without a group, from one start and one batch stream:
+    two eager steps, then two more through ``ChunkRunner``'s captured
+    graph in the group, against two more plain eager steps; every loss
+    equal to 1e-4 relative (bit-equal expected)."""
+    import copy
+    import socket
+
+    import torch.distributed as dist
+
+    from uemda_tpu_torch.parallel.multihost import init_multihost
+    from uemda_tpu_torch.train.graph import ChunkRunner
+
+    model, state, step, batches = _stage_case(stage, dev)
+    model2 = copy.deepcopy(model)
+    runs = []
+    for m in (model, model2):
+        st = dataclasses.replace(
+            state, model=m, opt=type(state.opt)(
+                list(m.named_parameters()), state.opt.schedule),
+            aligner=copy.deepcopy(state.aligner),
+            balance_s=copy.deepcopy(state.balance_s),
+            balance_t=copy.deepcopy(state.balance_t))
+        step.model = m
+        it = batches(7)
+        pairs = [next(it) for _ in range(4)]
+        grouped = m is model2
+        if grouped:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            init_multihost(f"127.0.0.1:{port}", 1, 0, device="cuda")
+        try:
+            out = [step(st, bs, bt, 0) for bs, bt in pairs[:2]]
+            if grouped:
+                assert dist.get_backend() == "nccl"
+                runner = ChunkRunner(step, 0, dev)
+                out += runner(st, pairs[2:])
+                runner.close()
+            else:
+                out += [step(st, bs, bt, 0) for bs, bt in pairs[2:]]
+            torch.cuda.synchronize()
+        finally:
+            if grouped:
+                dist.destroy_process_group()
+        runs.append([{k: float(v) for k, v in o.items()} for o in out])
+    for a, b in zip(*runs):
+        for k in a:
+            assert abs(a[k] - b[k]) <= 1e-4 * max(abs(a[k]), 1e-6), (k, a, b)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_raster_predictor_equals_the_padded_slide_predictor(dev, nccl_group,
+                                                             fast):
+    """The raster predictor at world size 1 on NCCL (resnet50, bf16, 8-view
+    TTA, 64^2 tiles, a 200 x 150 raster; the fast path with K2, K3 and K4
+    on stages (1, 2)) with every window in one forward, against
+    ``make_predictor`` over the padded raster: bit-equal, the same batch
+    through the same kernels."""
+    from uemda_tpu_torch.infer.fastpath import build_fastpath
+    from uemda_tpu_torch.infer.raster import RasterPlan, make_raster_predictor
+    from uemda_tpu_torch.infer.slide import make_predictor
+    from uemda_tpu_torch.ops.resblock import bottleneck_identity
+
+    model = DeeplabV2(DeeplabV2Config.uemda_default(6, resnet_type="resnet50"),
+                      device=dev, generator=torch.Generator().manual_seed(4))
+    model.eval()
+    net = (build_fastpath(model, fused_stages=(1, 2)) if fast
+           else model.to(torch.bfloat16))
+    hw, tile = (200, 150), (64, 64)
+    x = torch.randn((3,) + hw, generator=torch.Generator().manual_seed(5)
+                    ).to(dev)
+    plan = RasterPlan(hw, tile, 0.5, 1)
+    n_win = len(plan.origins(True))
+    k4 = bottleneck_identity.launches
+    got = make_raster_predictor(net, hw, tile, tta=True, window_chunk=n_win,
+                                compute_dtype=torch.bfloat16,
+                                return_probs=True)(x)
+    assert not fast or bottleneck_identity.launches > k4
+    padded = torch.zeros((1, 3, plan.hp, plan.wp), device=dev)
+    padded[0, :, :hw[0], :hw[1]] = x
+    with make_predictor(net, tile, (plan.hp, plan.wp), tta=True,
+                        compute_dtype=torch.bfloat16) as single:
+        want = single(padded)[0, :, :hw[0], :hw[1]]
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+def _collective_bodies(x, dy, w, b, v):
+    """What ``parallel/mesh.py``'s helpers run at world size > 1 (at 1 they
+    return early): the global BatchNorm forward and backward, the autograd
+    all-reduce sum, the flat gradient all-reduce and the all-gather."""
+    from uemda_tpu_torch.parallel import mesh
+
+    xi = x.detach().clone().requires_grad_()
+    wi = w.detach().clone().requires_grad_()
+    bi = b.detach().clone().requires_grad_()
+    y, mean, var = mesh._GlobalBatchNorm.apply(xi, wi, bi, 1e-5)
+    (mesh._AllReduceSum.apply(y) * dy).sum().backward()
+    mesh._all_reduce_flat([wi.grad, bi.grad])
+    return [y.detach(), mean, var, xi.grad, wi.grad, bi.grad,
+            mesh._all_gather(v)]
+
+
+def test_collective_bodies_replay_in_a_cuda_graph_on_nccl(dev, nccl_group):
+    """The collectives a data-parallel step takes at world size > 1, in the
+    NCCL group of one process: eagerly against the library BatchNorm
+    (y, dx 1e-4; dw, db 1e-3), then captured in one CUDA graph (what
+    ``--steps-per-call`` captures with each step) and replayed on new
+    inputs: equal to the eager bodies on those inputs within 1e-5."""
+    import torch.nn.functional as F
+
+    assert nccl_group == "nccl"
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def inputs():
+        return [torch.randn(8, 64, 32, 32, generator=g, device=dev) * 2 + 1,
+                torch.randn(8, 64, 32, 32, generator=g, device=dev),
+                torch.rand(64, generator=g, device=dev) + 0.5,
+                torch.randn(64, generator=g, device=dev),
+                torch.randn(4, 6, generator=g, device=dev)]
+
+    static = inputs()
+    eager = _collective_bodies(*static)
+    x, dy, w, b, v = (t.clone().requires_grad_(i in (0, 2, 3))
+                      for i, t in enumerate(static))
+    y = F.batch_norm(x, None, None, w, b, True, 0.0, 1e-5)
+    (y * dy).sum().backward()
+    lib = [y.detach(), x.detach().mean((0, 2, 3)),
+           x.detach().var((0, 2, 3), unbiased=False), x.grad,
+           w.grad, b.grad, v]
+    for got, want, tol in zip(eager, lib,
+                              (1e-4, 1e-5, 1e-4, 1e-4, 1e-3, 1e-3, 0.0)):
+        assert float((got - want).abs().max()) <= tol
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            _collective_bodies(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = _collective_bodies(*static)
+    fresh = inputs()
+    for t, f in zip(static, fresh):
+        t.copy_(f)
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, want in zip(out, _collective_bodies(*fresh)):
+        assert float((got - want).abs().max()) <= 1e-5
+
+
+def _dp_steps_on(dev, name, graph):
+    """Two f32 steps of the step case ``name`` of
+    ``tests/torch_parallel_cases.py`` (resnet18 without instance norm,
+    global batch 4) on ``dev``, on this rank's rows: through
+    ``ChunkRunner`` (``graph``: the first eager on the capture stream, the
+    second a replay of the captured step) or eager. Returns the steps'
+    losses, the parameters' sketches before and after, and the model's
+    buffers (BatchNorm's running statistics)."""
+    import torch_parallel_cases as cases  # pytest puts tests/ on sys.path
+    from uemda_tpu_torch.train import steps as S
+    from uemda_tpu_torch.train.graph import ChunkRunner
+    from uemda_tpu_torch.train.loop import build_state
+
+    kind, hp, _ = cases.STEP_CASES[name]
+    model = cases._model(1).to(dev)
+    proto = np.random.default_rng(3).normal(
+        size=(cases.C, cases.K)).astype(np.float32)
+    state = build_state(model, cases._cfg(), 40, prototypes=proto,
+                        feat_channels=cases.K)
+    make = {"src": S.make_src_step, "align": S.make_align_step,
+            "ssl": S.make_ssl_step}[kind]
+    step = make(model, S.StageHParams(**hp))
+
+    def sketch():
+        return cases.sketch((n, p.detach().cpu())
+                            for n, p in model.named_parameters())
+
+    pairs = []
+    for i in range(2):
+        bs, bt = cases.global_batches(10 + i)
+        if kind in ("src", "align"):
+            bt = {k: v for k, v in bt.items()
+                  if k == "image" or (k == "sup" and kind == "align")}
+        pairs.append(tuple({k: v.to(dev) for k, v in cases.local(b).items()}
+                           for b in (bs, bt)))
+    start = sketch()
+    if graph:
+        runner = ChunkRunner(step, 2333, dev)
+        out = runner(state, pairs)
+        runner.close()
+    else:
+        out = [step(state, bs, bt, 2333) for bs, bt in pairs]
+    torch.cuda.synchronize()
+    params = {n for n, _ in model.named_parameters()}
+    return {"loss": [{k: float(v) for k, v in o.items()} for o in out],
+            "start": start, "end": sketch(),
+            "buffers": {k: v.cpu() for k, v in model.state_dict().items()
+                        if k not in params and v.is_floating_point()}}
+
+
+def _raster_case(dev):
+    """(the raster predictor's f32 probabilities at this group's world
+    size, ``make_predictor``'s over the padded raster): resnet50, 8-view
+    TTA, 64^2 tiles, a 200 x 150 raster."""
+    from uemda_tpu_torch.infer.raster import RasterPlan, make_raster_predictor
+    from uemda_tpu_torch.infer.slide import make_predictor
+    from uemda_tpu_torch.parallel import mesh
+
+    model = DeeplabV2(DeeplabV2Config.uemda_default(6, resnet_type="resnet50"),
+                      device=dev, generator=torch.Generator().manual_seed(4))
+    model.eval()
+    hw, tile = (200, 150), (64, 64)
+    x = torch.randn((3,) + hw, generator=torch.Generator().manual_seed(5)
+                    ).to(dev)
+    got = make_raster_predictor(model, hw, tile, tta=True,
+                                compute_dtype=torch.float32,
+                                return_probs=True)(x).clone()
+    plan = RasterPlan(hw, tile, 0.5, mesh.world_size())
+    padded = torch.zeros((1, 3, plan.hp, plan.wp), device=dev)
+    padded[0, :, :hw[0], :hw[1]] = x
+    with make_predictor(model, tile, (plan.hp, plan.wp), tta=True,
+                        compute_dtype=torch.float32) as single:
+        want = single(padded)[0, :, :hw[0], :hw[1]].clone()
+    return got, want
+
+
+DP_CARD_CASES = ("src", "align", "ssl")
+
+
+def _two_card_rank(rank, port, path):
+    """Rank ``rank`` of ``test_two_cards_equal_one_card_at_the_global_batch``
+    on ``cuda:<rank>`` in an NCCL group of two: the step cases and the
+    raster, saved to ``<path>_<rank>.pt``."""
+    import torch.distributed as dist
+
+    from uemda_tpu_torch.parallel.multihost import init_multihost
+
+    torch.backends.cudnn.allow_tf32 = False   # as the 1-card reference
+    dev = init_multihost(f"127.0.0.1:{port}", 2, rank, device="cuda",
+                         local_rank=rank)
+    try:
+        res = {n: _dp_steps_on(dev, n, graph=True) for n in DP_CARD_CASES}
+        got, want = _raster_case(dev)
+        res["raster"] = (got.cpu(), float((got - want).abs().max()))
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, f"{path}_{rank}.pt")
+
+
+def test_two_cards_equal_one_card_at_the_global_batch(dev, tmp_path):
+    """Two NCCL ranks on two cards (skipped with fewer): stages 1-3 at
+    global batch 4, f32 without TF32 (cuDNN's default TF32 convolutions
+    differ by ~1e-4 between a batch of 2 and one of 4), two steps through
+    ``ChunkRunner`` (the second a replay of the captured step with its
+    collectives), against two eager steps of one card at the global batch,
+    with the CPU tests' bounds: every loss within 1e-4 relative, the
+    parameters' fingerprint within 1e-4 and their update within 1% of the
+    1-card update's norm, the BatchNorm buffers within 1e-4 of their
+    largest entry. The raster predictor at 2 ranks (halo rows and tails
+    over NCCL point-to-point) within 1e-5 of the single predictor over the
+    padded raster and of the 1-card raster: each rank's band forwards
+    another batch of windows. Prints each largest difference."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("two cards needed")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ref = {n: _dp_steps_on(dev, n, graph=False) for n in DP_CARD_CASES}
+        one_raster, _ = _raster_case(dev)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    path = str(tmp_path / "rank")
+    mp.spawn(_two_card_rank, args=(port, path), nprocs=2, join=True)
+
+    def sq(a, b):   # ||a - b||^2 estimated from the sketches' samples
+        return sum(float(((v.double() - b["sample"][k][0].double()) ** 2)
+                         .sum()) * n / v.numel()
+                   for k, (v, n) in a["sample"].items())
+
+    worst = collections.defaultdict(float)   # (what) -> largest measure
+    for r in range(2):
+        res = torch.load(f"{path}_{r}.pt")
+        for name in DP_CARD_CASES:
+            got, want = res[name], ref[name]
+            for i, (a, b) in enumerate(zip(got["loss"], want["loss"])):
+                for k in b:
+                    rel = abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+                    worst[f"{name} step {i + 1} loss"] = max(
+                        worst[f"{name} step {i + 1} loss"], rel)
+            fp = want["end"]["fp"]
+            worst[f"{name} fingerprint"] = max(
+                worst[f"{name} fingerprint"],
+                abs(got["end"]["fp"] - fp) / fp)
+            worst[f"{name} update"] = max(
+                worst[f"{name} update"],
+                (sq(got["end"], want["end"])
+                 / sq(want["end"], want["start"])) ** 0.5)
+            for k, w in want["buffers"].items():
+                worst[f"{name} buffers"] = max(
+                    worst[f"{name} buffers"],
+                    float((got["buffers"][k] - w).abs().max())
+                    / (float(w.abs().max()) + 1e-12))
+        got, err = res["raster"]
+        worst["raster vs padded"] = max(worst["raster vs padded"], err)
+        worst["raster vs 1 card"] = max(
+            worst["raster vs 1 card"],
+            float((got - one_raster.cpu()).abs().max()))
+    print("two cards against one:", dict(worst))
+    limits = {"loss": 1e-4, "fingerprint": 1e-4, "update": 1e-2,
+              "buffers": 1e-4, "padded": 1e-5, "card": 1e-5}
+    bad = {k: v for k, v in worst.items()
+           if not v <= limits[k.split()[-1]]}
+    assert not bad, bad

@@ -429,7 +429,9 @@ def test_mix_cli_runs_and_resumes_on_the_cpu(tmp_path, monkeypatch):
     restored model, ends chunk 1 at step 4, sweeps again and ends at step
     6; each run leaves its snapshot, the best model, ``best.json`` and
     ``metrics.jsonl``, and the soft labels of every target tile. The
-    multi-process flags are refused (ROADMAP.md queue A8)."""
+    multi-process flags are taken: ``--multihost 1`` (a gloo group of one
+    process) resumes to step 7 with a sweep first, and ``--num-devices 2``
+    goes to the launcher's 2 processes."""
     from tests.test_torch_pipeline import _tiny_config
     from uemda_tpu_torch.config import load_config
     from uemda_tpu_torch.tools import train_ssl_mix
@@ -469,7 +471,24 @@ def test_mix_cli_runs_and_resumes_on_the_cpu(tmp_path, monkeypatch):
     assert (run_dir / "Vaihingen_best.pth").exists()
     assert (run_dir / "Vaihingen_curr.pth").exists()
     assert len(list((tmp_path / "log" / "pseudo_label").glob("*.npy"))) == 4
-    for flags in (["--num-devices", "2"], ["--multihost", "1"]):
-        with pytest.raises(NotImplementedError, match="queue A8"):
-            train_ssl_mix.main(argv + flags)
+    import socket
+
+    import torch.distributed as dist
+
+    from uemda_tpu_torch.parallel import multihost
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    out = train_ssl_mix.main(argv + [
+        "--steps", "7", "--resume", "auto", "--multihost", "1",
+        "--coordinator", f"127.0.0.1:{port}", "--num-processes", "1",
+        "--process-id", "0"])
+    assert not dist.is_initialized() and len(sweeps) == 4
+    assert load_checkpoint(str(run_dir / "state_curr.pth"))["step"] == 7
+    spawned = []
+    monkeypatch.setattr(multihost, "_spawn",
+                        lambda fn, a, n: spawned.append((fn, n)))
+    assert train_ssl_mix.main(argv + ["--num-devices", "2"]) is None
+    assert spawned == [(train_ssl_mix._run, 2)]
     shutil.rmtree(tmp_path / "log")  # ~0.7 GB of checkpoints

@@ -83,9 +83,10 @@ def test_pipeline_twin_runs_the_five_steps_on_the_cpu(tmp_path):
 
 
 def test_stage3_refuses_what_is_not_ported(tmp_path, monkeypatch, capsys):
-    """Only the multi-process flag is left to refuse (ROADMAP.md queue A8):
-    the stage-3 CLI and the pipeline refuse ``--num-devices`` before they
-    touch a file. The pipeline forwards ``--resume auto`` to its three
+    """Nothing is refused any more (the name is kept from then): the
+    stage-3 CLI hands ``--num-devices 2`` to the launcher's 2 processes,
+    and the pipeline forwards it to its three training steps, as the JAX
+    tool (``tools/run_pipeline.py:82``). The pipeline forwards ``--resume auto`` to its three
     training steps and ``--pretrained`` to stage 1; ``--method proca``
     runs stage 1 without CORAL, ``train_align`` for step 3 and plain
     self-training (``--refine-label 0 --lt ce``) for step 5. The stage-3
@@ -96,10 +97,19 @@ def test_stage3_refuses_what_is_not_ported(tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
     common = ["--config-path", "2vaihingen", "--ckpt-model", "m.pth",
               "--ckpt-proto", "p.pth", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="queue A8"):
-        train_ssl_uem.main(common + ["--num-devices", "2"])
-    with pytest.raises(NotImplementedError, match="queue A8"):
-        run_pipeline.main(["--dry-run", "--num-devices", "2"])
+    from uemda_tpu_torch.parallel import multihost
+
+    spawned = []
+    monkeypatch.setattr(multihost, "_spawn",
+                        lambda fn, a, n: spawned.append((fn, n)))
+    train_ssl_uem.main(common + ["--num-devices", "2"])
+    assert spawned == [(train_ssl_uem._run, 2)]
+    run_pipeline.main(["--dry-run", "--num-devices", "2"])
+    cmds = [line.split() for line in capsys.readouterr().out.splitlines()
+            if line.startswith("+")]
+    assert [c[3].rsplit(".", 1)[1] for c in cmds
+            if " ".join(c[-2:]) == "--num-devices 2"] == [
+        "train_src", "train_align_uem", "train_ssl_uem"]
     run_pipeline.main(["--dry-run", "--resume", "auto"])
     cmds = [line.split() for line in capsys.readouterr().out.splitlines()
             if line.startswith("+")]

@@ -323,19 +323,42 @@ def test_infer_dir_matches_the_jax_tool(cli, tmp_path, monkeypatch, capsys):
                                       _read_png(tmp_path / "jax" / name))
 
 
-def test_unported_serving_flags_are_refused(tmp_path):
-    """``infer_single --raster 1`` and ``infer_dir --num-devices 2`` exit
-    before any work, naming the queue item they wait for."""
+def test_unported_serving_flags_are_refused(cli, tmp_path, monkeypatch):
+    """The serving flags once refused (the name is kept from then) run:
+    ``infer_single --raster 1`` (the row-sharded raster predictor, one
+    process on the CPU) writes the ids, colour and ground-truth PNGs of
+    the JAX tool's ``--raster 1`` (over the test's 8 virtual devices, f32);
+    ``infer_dir --num-devices 2 --device cpu`` writes, from 2 gloo
+    processes, the files of the 1-process run."""
+    import uemda_tpu.infer.raster as jax_raster
     from uemda_tpu_torch.tools import infer_dir, infer_single
 
-    with pytest.raises(SystemExit, match="A8"):
-        infer_single.main(["--ckpt-path", "x.pth", "--image-path", "x.png",
-                           "--raster", "1", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="A8"):
-        infer_dir.main(["--ckpt-path", "x.pth", "--img-dir", str(tmp_path),
-                        "--out-dir", str(tmp_path / "o"), "--num-devices",
-                        "2", "--device", "cpu"])
-    assert not (tmp_path / "o").exists()
+    cfg_file, jcfg_file, ckpt, img, _ = cli
+    image = str(img / "tile_000.png")
+    monkeypatch.setattr(jax_raster, "make_raster_predictor", functools.partial(
+        jax_raster.make_raster_predictor, compute_dtype="float32"))
+    args = ["--ckpt-path", ckpt, "--image-path", image, "--raster", "1"]
+    monkeypatch.setattr(sys, "argv", ["infer_single.py", "--config-path",
+                                      jcfg_file, "--out-dir",
+                                      str(tmp_path / "jax")] + args)
+    _jax_tool("infer_single").main()
+    infer_single.main(args + ["--config-path", cfg_file, "--out-dir",
+                              str(tmp_path / "port"), "--device", "cpu"])
+    for suffix in ("_ids.png", "_color.png", "_gt.png"):
+        np.testing.assert_array_equal(
+            _read_png(tmp_path / "port" / f"tile_000{suffix}"),
+            _read_png(tmp_path / "jax" / f"tile_000{suffix}"))
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    common = ["--config-path", cfg_file, "--ckpt-path", ckpt, "--img-dir",
+              str(img), "--batch-size", "2", "--device", "cpu"]
+    infer_dir.main(common + ["--out-dir", str(tmp_path / "one")])
+    assert infer_dir.main(common + ["--out-dir", str(tmp_path / "two"),
+                                    "--num-devices", "2"]) is None
+    names = sorted(os.listdir(tmp_path / "one"))
+    assert sorted(os.listdir(tmp_path / "two")) == names and len(names) == 6
+    for name in names:
+        np.testing.assert_array_equal(_read_png(tmp_path / "two" / name),
+                                      _read_png(tmp_path / "one" / name))
 
 
 HAND_BUILT = {

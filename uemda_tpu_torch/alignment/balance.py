@@ -18,6 +18,7 @@ from typing import Tuple
 import torch
 
 from uemda_tpu_torch.ops.labels import index_to_onehot
+from uemda_tpu_torch.parallel import mesh
 
 
 @dataclasses.dataclass
@@ -41,10 +42,11 @@ def init_class_balance(class_num: int, decay: float = 0.99,
 
 def _local_freq(label: torch.Tensor, class_num: int, ignore_label: int
                 ) -> torch.Tensor:
-    """(balance.py:45-53) the batch's class frequencies over valid pixels."""
+    """(balance.py:45-53) the batch's class frequencies over valid pixels,
+    over the global batch under data parallelism."""
     oh = index_to_onehot(label, class_num, ignore_label)        # (N, C)
-    local_cnt = (label != ignore_label).sum().float()
-    return oh.sum(dim=0) / (local_cnt + 1e-7)
+    local_cnt = mesh.gsum((label != ignore_label).sum().float())
+    return mesh.gsum(oh.sum(dim=0)) / (local_cnt + 1e-7)
 
 
 def class_weights(state: ClassBalanceState) -> torch.Tensor:

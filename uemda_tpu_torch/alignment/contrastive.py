@@ -13,13 +13,18 @@ there):
   highest score, hard pixels (predicted otherwise) first and ties broken by
   ``noise``, an explicit (B, N, C) uniform draw (the JAX function draws it
   from its key); slots with fewer pixels are masked out of the loss.
+
+Under data parallelism each runs on the gathered global batch
+(``parallel/mesh.py: global_batch``).
 """
 
 import torch
 
+from uemda_tpu_torch.parallel.mesh import global_batch
 from uemda_tpu_torch.utils.runtime import require_full_f32
 
 
+@global_batch("inputs", "targets")
 def triplet_loss(inputs: torch.Tensor, targets: torch.Tensor,
                  margin: float = 0.3) -> torch.Tensor:
     """inputs (N, K), targets (N,): ``mean(relu(margin - (d_an - d_ap)))``
@@ -34,6 +39,7 @@ def triplet_loss(inputs: torch.Tensor, targets: torch.Tensor,
         .mean()
 
 
+@global_batch("feats", "labels")
 def contrastive_anchors(feats: torch.Tensor, labels: torch.Tensor,
                         temperature: float = 0.1,
                         base_temperature: float = 0.07, eps: float = 1e-5
@@ -56,6 +62,7 @@ def contrastive_anchors(feats: torch.Tensor, labels: torch.Tensor,
     return -(temperature / base_temperature) * mean_log_prob_pos.mean()
 
 
+@global_batch("feats", "labels", "preds", "noise")
 def pixel_contrast_loss(feats: torch.Tensor, labels: torch.Tensor,
                         preds: torch.Tensor, noise: torch.Tensor,
                         num_classes: int, n_view: int = 100,

@@ -10,13 +10,21 @@ them to XLA -- in full f32: ``Precision.HIGHEST`` there, PyTorch's default
 
 import torch
 
+from uemda_tpu_torch.parallel import mesh
 from uemda_tpu_torch.utils.runtime import require_full_f32
 
 
 def _covariance(x: torch.Tensor) -> torch.Tensor:
-    n = x.shape[0]
-    xm = x - x.mean(dim=0, keepdim=True)
-    return torch.matmul(xm.t(), xm) / (n - 1)
+    """The covariance of the rows of the global batch: under data
+    parallelism the mean and the centred product are summed over the
+    ranks (two-pass, as on one rank)."""
+    if mesh.world_size() == 1:
+        n = x.shape[0]
+        xm = x - x.mean(dim=0, keepdim=True)
+        return torch.matmul(xm.t(), xm) / (n - 1)
+    n = x.shape[0] * mesh.world_size()
+    xm = x - mesh.gsum(x.sum(dim=0, keepdim=True)) / n
+    return mesh.gsum(torch.matmul(xm.t(), xm)) / (n - 1)
 
 
 def coral_loss(source: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

@@ -6,11 +6,13 @@ vectors and intra- and cross-domain Pearson-correlation regularization.
 The (n, n) correlation is one GEMM of the centered context rows, and the
 context one batched GEMM; both run in full f32, as JAX pins
 ``Precision.HIGHEST`` (:func:`require_full_f32`). Predictions are the
-heads' stride-16 logits (B, C, h, w), features (B, K, h, w).
+heads' stride-16 logits (B, C, h, w), features (B, K, h, w). The batch
+means and halves are the global batch's under data parallelism.
 """
 
 import torch
 
+from uemda_tpu_torch.parallel import mesh
 from uemda_tpu_torch.utils.runtime import require_full_f32
 
 EPS = 1e-7
@@ -24,8 +26,9 @@ def get_context(preds: torch.Tensor, feats: torch.Tensor,
     require_full_f32("DCA's class context")
     b, c = preds.shape[:2]
     k = feats.shape[1]
-    p = preds.float().reshape(b, c, -1)
-    f = feats.float().reshape(b, k, -1)
+    hw = preds.shape[2] * preds.shape[3]   # b may be 0: a rank's empty half
+    p = preds.float().reshape(b, c, hw)
+    f = feats.float().reshape(b, k, hw)
     vectors = torch.bmm(p, f.transpose(1, 2)) / (p.sum(dim=2)[..., None] + EPS)
     if ignore_bg:
         vectors = vectors[:, 1:, :]
@@ -58,15 +61,26 @@ def _mean_prob(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
     return (torch.softmax(p1, dim=1) + torch.softmax(p2, dim=1)) / 2
 
 
+def _batch_mean(ctx: torch.Tensor, rows: int) -> torch.Tensor:
+    """The mean over the samples of ``ctx`` (B, C, K): of the ``rows``
+    samples of the global batch they stand for, under data parallelism."""
+    if mesh.world_size() == 1:
+        return ctx.mean(0)
+    return mesh.gsum(ctx.sum(0)) / rows
+
+
 def icr(preds1, preds2, feats, num_classes: int = None,
         ignore_bg: bool = True) -> torch.Tensor:
     """Intra-domain covariance regularization (``dca_modules.py:79-105``):
     the batch's two halves' contexts, correlated; the probabilities are
     detached, the features carry the gradient."""
     probs = _mean_prob(preds1, preds2).detach()
-    b = probs.shape[0]
-    c1 = get_context(probs[:b // 2], feats[:b // 2], ignore_bg).mean(0)
-    c2 = get_context(probs[b // 2:], feats[b // 2:], ignore_bg).mean(0)
+    gb = probs.shape[0] * mesh.world_size()
+    first, second = mesh.halves(probs.shape[0])    # of the global batch
+    c1 = _batch_mean(get_context(probs[first], feats[first], ignore_bg),
+                     gb // 2)
+    c2 = _batch_mean(get_context(probs[second], feats[second], ignore_bg),
+                     gb - gb // 2)
     return _regularize(_corrcoef_rows(c1, c2))
 
 
@@ -76,8 +90,9 @@ def ccr(s_preds1, s_preds2, s_feats, t_preds1, t_preds2, t_feats,
     the source context detached, the gradient through ``t_feats`` only."""
     sp = _mean_prob(s_preds1, s_preds2).detach()
     tp = _mean_prob(t_preds1, t_preds2).detach()
-    cs = get_context(sp, s_feats.detach(), ignore_bg).mean(0)
-    ct = get_context(tp, t_feats, ignore_bg).mean(0)
+    gb = sp.shape[0] * mesh.world_size()
+    cs = _batch_mean(get_context(sp, s_feats.detach(), ignore_bg), gb)
+    ct = _batch_mean(get_context(tp, t_feats, ignore_bg), gb)
     return _regularize(_corrcoef_rows(cs, ct))
 
 
@@ -85,6 +100,8 @@ def mse_intra(preds1, preds2, feats, ignore_bg: bool = True) -> torch.Tensor:
     """(``dca_modules.py:136-159``) the mean squared difference of the
     halves' contexts."""
     probs = _mean_prob(preds1, preds2).detach()
+    if mesh.world_size() > 1:   # the halves of the global batch
+        probs, feats = mesh.gather_rows(probs), mesh.gather_rows(feats)
     b = probs.shape[0]
     c1 = get_context(probs[:b // 2], feats[:b // 2], ignore_bg)
     c2 = get_context(probs[b // 2:], feats[b // 2:], ignore_bg)
@@ -99,4 +116,4 @@ def mse_cross(s_preds1, s_preds2, s_feats, t_preds1, t_preds2, t_feats,
     tp = _mean_prob(t_preds1, t_preds2).detach()
     cs = get_context(sp, s_feats.detach(), ignore_bg)
     ct = get_context(tp, t_feats, ignore_bg)
-    return ((cs - ct) ** 2).mean()
+    return mesh.gmean((cs - ct) ** 2)

@@ -10,7 +10,9 @@ per-class thresholds).
 Layouts are the port's: logits (B, C, H, W) and weights (B, 1, H, W);
 images (B, 3, H, W) and labels (B, H, W). ``mixup`` takes its draws -- the
 batch permutation and the split row -- as arguments, as every random op
-of the port does.
+of the port does. Under data parallelism the means and counts are the
+global batch's, ``som`` ranks the gathered global batch and ``mixup``'s
+permutation runs over it.
 """
 
 from typing import Optional
@@ -18,7 +20,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from uemda_tpu_torch.parallel import mesh
+from uemda_tpu_torch.parallel.mesh import global_batch
 
+
+@global_batch("loss")
 def som(loss: torch.Tensor, ratio: float = 0.5) -> torch.Tensor:
     """Mean over the hardest ``ratio`` fraction of ``loss``, zero entries
     left out of the count (``tools.py:291-302``)."""
@@ -33,7 +39,7 @@ def entropy_loss(logits: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     the number of positive weights (``tools.py:376-385``)."""
     logp = torch.log_softmax(logits, dim=1)
     ent = -(torch.softmax(logits, dim=1) * weight * logp)
-    return ent.sum() / (weight > 0).sum().clamp(min=1)
+    return mesh.gsum(ent.sum()) / mesh.gsum((weight > 0).sum()).clamp(min=1)
 
 
 def kld_loss(logits: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -41,13 +47,13 @@ def kld_loss(logits: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     (``tools.py:388-398``)."""
     c = logits.shape[1]
     kld = -(1.0 / c) * weight * torch.log_softmax(logits, dim=1)
-    return kld.sum() / (weight > 0).sum().clamp(min=1)
+    return mesh.gsum(kld.sum()) / mesh.gsum((weight > 0).sum()).clamp(min=1)
 
 
 def bce_logits_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Mean binary cross entropy on logits, in the JAX package's stable
     form ``max(x, 0) - x t + log1p(exp(-|x|))`` (``tools.py:263-267``)."""
-    return torch.mean(pred.clamp(min=0) - pred * target
+    return mesh.gmean(pred.clamp(min=0) - pred * target
                       + torch.log1p(torch.exp(-pred.abs())))
 
 
@@ -66,7 +72,10 @@ def mixup(perm: torch.Tensor, lam: int, s_img, s_lab, t_img, t_lab):
     label, target image, target label)."""
     h = s_img.shape[2]
     cut = torch.arange(h, device=s_img.device) < lam
-    t_img_p, t_lab_p = t_img[perm], t_lab[perm]
+    # ``perm`` permutes the global batch: this rank's rows of the gathered
+    # permuted target
+    t_img_p = mesh.shard_rows(mesh.gather_rows(t_img)[perm])
+    t_lab_p = mesh.shard_rows(mesh.gather_rows(t_lab)[perm])
     img_cut, lab_cut = cut[None, None, :, None], cut[None, :, None]
     return (torch.where(img_cut, s_img, t_img_p),
             torch.where(lab_cut, s_lab, t_lab_p),

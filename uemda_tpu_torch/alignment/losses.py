@@ -11,6 +11,11 @@ with an exact ``gather``, never a one-hot product in TF32 or bf16. A
 class-balance pixel weight (``alignment/balance.py``) multiplies the
 per-pixel terms.
 
+Under data parallelism (``parallel/mesh.py``) every mean, count and
+histogram is over the global batch: the numerators, the counts and the
+GHM/GDP bins are summed over the ranks, and OHEM sorts the gathered CEs of
+every rank. At world size 1 each is the plain expression.
+
 Every loss can be captured in a CUDA graph: no ``.item()``, no host branch
 on data, no op that sizes its output from the data. OHEM's k is a device
 tensor that masks a full sort; the GHM/GDP histograms count by comparing
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 
 from uemda_tpu_torch.ops.resize import upsample_logits
+from uemda_tpu_torch.parallel import mesh
 from uemda_tpu_torch.ops.uncertainty import pixel_entropy, uvem_weight
 
 
@@ -54,7 +60,7 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     ce = cross_entropy_per_pixel(flat, lab, ignore_label)
     if pixel_weight is not None:
         ce = ce * pixel_weight.reshape(-1)
-    return ce.mean()
+    return mesh.gmean(ce)
 
 
 def ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -70,11 +76,21 @@ def ohem_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     if pixel_weight is not None:
         ce = ce * pixel_weight.reshape(-1)
     loss_thresh = float(-np.log(np.float32(thresh)))   # an f32 value
-    n_min = torch.div((lab != ignore_label).sum(), 5, rounding_mode="floor")
-    k = torch.maximum(n_min, (ce > loss_thresh).sum())
-    desc = torch.sort(ce, descending=True).values
-    keep = torch.arange(ce.shape[0], device=ce.device) < k
-    return (desc * keep).sum() / torch.clamp_min(k, 1).float()
+    n_min = torch.div(mesh.gsum((lab != ignore_label).sum()), 5,
+                      rounding_mode="floor")
+    k = torch.maximum(n_min, mesh.gsum((ce > loss_thresh).sum()))
+    if mesh.world_size() == 1:
+        desc = torch.sort(ce, descending=True).values
+        keep = torch.arange(ce.shape[0], device=ce.device) < k
+        return (desc * keep).sum() / torch.clamp_min(k, 1).float()
+    # the sort runs over the global batch's pixels: every rank sorts the
+    # gathered CEs, marks the k largest and sums its own marked ones
+    every = mesh.gather_rows(ce.detach())
+    order = torch.sort(every, descending=True).indices
+    top = torch.arange(every.shape[0], device=ce.device) < k
+    keep = torch.zeros_like(top).scatter_(0, order, top)
+    keep = keep[mesh.rows(ce.shape[0])]
+    return mesh.gsum((ce * keep).sum()) / torch.clamp_min(k, 1).float()
 
 
 def focal_loss(logits: torch.Tensor, labels: torch.Tensor, gamma: float = 2.0,
@@ -84,7 +100,7 @@ def focal_loss(logits: torch.Tensor, labels: torch.Tensor, gamma: float = 2.0,
     flat, lab = _flat(logits, labels)
     ce = cross_entropy_per_pixel(flat, lab, ignore_label)
     pt = torch.exp(-ce)
-    return ((1.0 - pt) ** gamma * ce).mean()
+    return mesh.gmean((1.0 - pt) ** gamma * ce)
 
 
 @dataclasses.dataclass
@@ -146,7 +162,7 @@ def _ghm_gradient_and_bins(flat: torch.Tensor, lab: torch.Tensor,
     g = torch.abs(torch.gather(probs, -1, safe[:, None])[:, 0] - 1.0)
     g = torch.where(valid, g, torch.full_like(g, -1.0)).detach()
     hist, inds = ghm_bins(g, bins)
-    return g, hist, inds
+    return g, mesh.gsum(hist), inds
 
 
 def _ema(state: GHMState, hist: torch.Tensor) -> torch.Tensor:
@@ -173,7 +189,8 @@ def ghm_loss(logits: torch.Tensor, labels: torch.Tensor, state: GHMState,
     inv = 1.0 / torch.clamp_min(acc, 1e-12)
     weights = _bin_lookup(inv, inds, state.bins)
     ce = cross_entropy_per_pixel(flat, lab, ignore_label)
-    loss = (ce * weights).sum() / ((lab != ignore_label).sum() + 1e-7)
+    loss = mesh.gsum((ce * weights).sum()) / (
+        mesh.gsum((lab != ignore_label).sum()) + 1e-7)
     return loss, state.replace(acc_sum=acc)
 
 
@@ -195,8 +212,8 @@ def gdp_loss(logits: torch.Tensor, labels: torch.Tensor, state: GHMState,
     if pixel_weight is not None:
         w = w + pixel_weight.reshape(-1)
     ce = cross_entropy_per_pixel(flat, lab, ignore_label)
-    loss = (ce * w / n_weight_terms).sum() / (
-        (lab != ignore_label).sum() + 1e-7)
+    loss = mesh.gsum((ce * w / n_weight_terms).sum()) / (
+        mesh.gsum((lab != ignore_label).sum()) + 1e-7)
     return loss, state.replace(acc_sum=acc)
 
 
@@ -220,7 +237,7 @@ def ups_loss(logits: torch.Tensor, labels: torch.Tensor,
     if pixel_weight is not None:
         ce = pixel_weight.reshape(-1) * ce
     valid_cnt = ((u <= threshold) & (lab != ignore_label)).sum()
-    return ce.sum() / (valid_cnt + 1e-7)
+    return mesh.gsum(ce.sum()) / (mesh.gsum(valid_cnt) + 1e-7)
 
 
 def uvem_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -258,7 +275,7 @@ def uvem_loss(logits: torch.Tensor, labels: torch.Tensor,
     if pixel_weight is not None:
         w = w * pixel_weight.reshape(-1)
     valid_cnt = (trained & (lab != ignore_label)).sum()
-    return (w * ce).sum() / (valid_cnt + 1e-7)
+    return mesh.gsum((w * ce).sum()) / (mesh.gsum(valid_cnt) + 1e-7)
 
 
 def loss_calc(preds: Sequence[torch.Tensor], label: torch.Tensor,

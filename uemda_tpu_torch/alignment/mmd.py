@@ -8,20 +8,24 @@ from the graph as in JAX. The all-pairs distances are one (N + M)^2 GEMM,
 in full f32 as JAX pins ``Precision.HIGHEST``.
 
 This module's :func:`mmd_linear` divides by the feature width;
-``models/discriminator.py``'s does not. Both are kept, as in JAX.
+``models/discriminator.py``'s does not. Both are kept, as in JAX. Under
+data parallelism both run on the gathered global batch.
 """
 
 import torch
 
+from uemda_tpu_torch.parallel.mesh import global_batch
 from uemda_tpu_torch.utils.runtime import require_full_f32
 
 
+@global_batch("f_x", "f_y")
 def mmd_linear(f_x: torch.Tensor, f_y: torch.Tensor) -> torch.Tensor:
     """(``mmd.py:41-45``) ``||mean_x - mean_y||^2 / d`` in f32."""
     delta = f_x.float().mean(0) - f_y.float().mean(0)
     return (delta @ delta) / delta.shape[0]
 
 
+@global_batch("source", "target")
 def mmd_rbf(source: torch.Tensor, target: torch.Tensor,
             kernel_mul: float = 2.0, kernel_num: int = 5,
             fix_sigma: float = None) -> torch.Tensor:

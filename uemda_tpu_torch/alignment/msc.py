@@ -7,12 +7,16 @@ of its ``k`` most similar sources (the first class on a tie, as
 ``argmax``), a confidence from its top-``m`` like- and unlike-labelled
 similarities, and the ``mu`` most confident targets enter a masked-softmax
 contrastive objective over the source rows that have both a positive and a
-negative. Fixed shapes, top-k in place of the reference's loops.
+negative. Fixed shapes, top-k in place of the reference's loops, over
+the global batch under data parallelism (gathered).
 """
 
 import torch
 
+from uemda_tpu_torch.parallel.mesh import global_batch
 
+
+@global_batch("src_features", "src_labels", "tgt_features")
 def msc_loss(src_features: torch.Tensor, src_labels: torch.Tensor,
              tgt_features: torch.Tensor, num_classes: int, k: int = 5,
              m: int = 3, mu: int = 8) -> torch.Tensor:

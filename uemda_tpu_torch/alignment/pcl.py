@@ -5,7 +5,8 @@ The port's copy of ``uemda_tpu/alignment/pcl.py`` (reference
 (L2-normalized feature) . (L2-normalized prototype) / T logits, with
 ignored pixels out of the mean. The reference drops ignored rows by boolean
 indexing; here, as in the JAX package, the same mean is a masked sum over
-max(valid count, 1). The normalization is ``F.normalize``'s,
+max(valid count, 1), both over the global batch under data parallelism.
+The normalization is ``F.normalize``'s,
 x / max(||x||, 1e-12). The prototypes take no gradient.
 """
 
@@ -13,6 +14,7 @@ import torch
 
 from uemda_tpu_torch.alignment.losses import cross_entropy_per_pixel
 from uemda_tpu_torch.alignment.prototypes import pixels
+from uemda_tpu_torch.parallel import mesh
 
 
 def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -29,5 +31,5 @@ def prototype_contrastive_loss(prototypes: torch.Tensor, feat: torch.Tensor,
     logits = torch.matmul(f, p.t()) / temperature               # (N, C)
     y = labels.reshape(-1)
     ce = cross_entropy_per_pixel(logits, y, ignore_label)
-    valid = (y != ignore_label).sum().float()
-    return ce.sum() / torch.clamp(valid, min=1.0)
+    valid = mesh.gsum((y != ignore_label).sum().float())
+    return mesh.gsum(ce.sum()) / torch.clamp(valid, min=1.0)

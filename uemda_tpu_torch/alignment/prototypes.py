@@ -40,6 +40,7 @@ from uemda_tpu_torch.ops.labels import (
 )
 from uemda_tpu_torch.ops.resize import resize_bilinear, upsample_logits
 from uemda_tpu_torch.ops.segment import superpixel_view_probs
+from uemda_tpu_torch.parallel import mesh
 from uemda_tpu_torch.utils.runtime import require_full_f32, resolve_device
 
 EPS = 1e-7
@@ -119,8 +120,8 @@ def compute_local_prototypes(feat: torch.Tensor, label_down: torch.Tensor,
     f32 (the prototypes are long-lived EMA state)."""
     require_full_f32("compute_local_prototypes")
     oh = index_to_onehot(label_down, class_num, ignore_label)   # (N, C)
-    n_instance = oh.sum(dim=0)[:, None]                        # (C, 1)
-    sums = torch.matmul(oh.t(), pixels(feat).float())
+    n_instance = mesh.gsum(oh.sum(dim=0)[:, None])             # (C, 1)
+    sums = mesh.gsum(torch.matmul(oh.t(), pixels(feat).float()))
     local = sums / (n_instance + EPS)
     return torch.where(n_instance < 1, prototypes, local)
 
@@ -152,9 +153,10 @@ def update_avg(state: AlignerState, feat: torch.Tensor,
     label_down = downscale_label(label_full, scale_factor, class_num,
                                  state.ignore_label)
     oh = index_to_onehot(label_down, class_num, state.ignore_label)
-    sums = torch.matmul(oh.t(), pixels(feat.detach()).float())
-    return state.replace(data_sum=state.data_sum + sums,
-                         data_cnt=state.data_cnt + oh.sum(dim=0)[:, None])
+    sums = mesh.gsum(torch.matmul(oh.t(), pixels(feat.detach()).float()))
+    return state.replace(
+        data_sum=state.data_sum + sums,
+        data_cnt=state.data_cnt + mesh.gsum(oh.sum(dim=0)[:, None]))
 
 
 def init_avg(state: AlignerState) -> AlignerState:
@@ -188,10 +190,11 @@ def align_class(state: AlignerState, feat_s: torch.Tensor,
     """``Aligner.align_class`` (alignment.py:128-154)."""
     ig = state.ignore_label
     label_down = downscale_label(label_s, scale_factor, class_num, ig)
-    half = feat_s.shape[0] // 2
-    p1 = compute_local_prototypes(feat_s[:half], label_down[:half],
+    # the global batch's halves (this rank's rows of each)
+    first, second = mesh.halves(feat_s.shape[0])
+    p1 = compute_local_prototypes(feat_s[first], label_down[first],
                                   state.prototypes, class_num, ig)
-    p2 = compute_local_prototypes(feat_s[half:], label_down[half:],
+    p2 = compute_local_prototypes(feat_s[second], label_down[second],
                                   state.prototypes, class_num, ig)
     loss_inter = _class_align_loss(p1, p2, class_num)
     if feat_t is None or label_t is None:
@@ -219,8 +222,8 @@ def _instance_align_loss(state: AlignerState, feat: torch.Tensor,
                      largest=False, sorted=True).values
     d_pos = (dist * mask_pos).sum(dim=1, keepdim=True)
     loss = torch.clamp(d_pos - neg[:, 1:] + margin, min=1e-6) * not_ignored
-    cnt = not_ignored.sum() * (hard_num - 1)
-    return loss.sum() / (cnt + EPS)
+    cnt = mesh.gsum(not_ignored.sum()) * (hard_num - 1)
+    return mesh.gsum(loss.sum()) / (cnt + EPS)
 
 
 def align_instance(state: AlignerState, feat_s: torch.Tensor,
@@ -293,8 +296,8 @@ def label_refine(state: AlignerState, label_soft: torch.Tensor,
         weight = lw if weight is None else weight + lw
 
     if mode in ("all", "s") and sup is not None:  # superpixel view (:238-258)
-        # the boundary id is the batch's max, not each sample's
-        ignored = (sup == sup.max())[:, None]              # (B, 1, H, W)
+        # the boundary id is the (global) batch's max, not each sample's
+        ignored = (sup == mesh.gmax(sup.max()))[:, None]   # (B, 1, H, W)
         pooled = superpixel_view_probs(label_soft, sup, max_segments)
         sw = _max_normalize(_softmax_t(pooled, temp))
         if mode == "all":
@@ -305,11 +308,15 @@ def label_refine(state: AlignerState, label_soft: torch.Tensor,
     if mode == "n":  # neighbour view (alignment.py:260-286)
         require_full_f32("label_refine's neighbour view")
         fd = pixels(feat).float()
-        sq = (fd * fd).sum(-1)
-        d2 = sq[:, None] + sq[None, :] - 2.0 * torch.matmul(fd, fd.t())
+        # the neighbours come from every pixel of the global batch: this
+        # rank's rows against the gathered ones
+        every = mesh.gather_rows(fd)
+        sq, sq_all = (fd * fd).sum(-1), (every * every).sum(-1)
+        d2 = sq[:, None] + sq_all[None, :] - 2.0 * torch.matmul(fd, every.t())
         simi = 1.0 / (torch.sqrt(torch.clamp(d2, min=0.0)) + EPS)
         topk_idx = torch.topk(simi, topk + 1, dim=-1).indices
-        hard = torch.argmax(1.0 / pearson_dist(fd, state.prototypes), dim=-1)
+        hard = torch.argmax(1.0 / pearson_dist(every, state.prototypes),
+                            dim=-1)
         neigh_cls = hard[topk_idx[:, 1:]]                   # (N, topk)
         importance = 1.0 - torch.arange(topk, dtype=torch.float32,
                                         device=fd.device) / topk
@@ -336,7 +343,8 @@ def update_prototype_by_target(state: AlignerState, feat_t: torch.Tensor,
     soft_down = resize_bilinear(label_t_soft.float(), (h, w),
                                 align_corners=True)
     f, s = pixels(feat_t.detach()).float(), pixels(soft_down)
-    local = torch.matmul(s.t(), f) / f.shape[0]                 # (C, K)
+    local = mesh.gsum(torch.matmul(s.t(), f)) / (f.shape[0]
+                                                 * mesh.world_size())
     new = (1.0 - state.decay) * local + state.decay * state.prototypes
     return state.replace(prototypes=new)
 

@@ -7,16 +7,19 @@ holds one top channel of each selected class, gated by the sigmoid of its
 weight; each group's instance covariance is pushed towards diagonal with a
 margin-relaxed off-diagonal penalty. The rank is a stable descending sort,
 as ``jnp.argsort``'s; the covariance runs in full f32, as JAX pins
-``Precision.HIGHEST``.
+``Precision.HIGHEST``. Under data parallelism it runs on the gathered
+global batch.
 """
 
 from typing import Sequence
 
 import torch
 
+from uemda_tpu_torch.parallel.mesh import global_batch
 from uemda_tpu_torch.utils.runtime import require_full_f32
 
 
+@global_batch("feats")
 def saw_loss(feats: torch.Tensor, classifier_weights: torch.Tensor,
              selected_classes: Sequence[int], relax_denom: float = 2.0
              ) -> torch.Tensor:

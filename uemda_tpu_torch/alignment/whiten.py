@@ -6,12 +6,15 @@ reference builds the whitener but no tool calls it). Per class and per
 channel group, the masked feature covariance is pushed towards the
 identity with an MSE; a class with at most one pixel contributes the
 identity (loss 0), as the reference's early return. The covariances of
-all groups of a class are one batched GEMM.
+all groups of a class are one batched GEMM. Under data parallelism the
+loss runs on the gathered global batch.
 """
 
 from typing import Sequence
 
 import torch
+
+from uemda_tpu_torch.parallel.mesh import global_batch
 
 
 def _group_covariances(fg: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -29,6 +32,7 @@ def _group_covariances(fg: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(num <= 1, eye.expand_as(cov), cov)
 
 
+@global_batch("feats", "labels")
 def class_ware_whitening_loss(feats: torch.Tensor, labels: torch.Tensor,
                               class_ids: Sequence[int], groups: int = 32
                               ) -> torch.Tensor:

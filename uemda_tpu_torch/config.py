@@ -199,3 +199,15 @@ def load_config(name_or_path: str, snapshot_postfix: str = "") -> PairConfig:
         cfg = dataclasses.replace(
             cfg, snapshot_dir=cfg.snapshot_dir + snapshot_postfix)
     return cfg
+
+
+def snapshot_config(cfg: PairConfig, run_dir: str) -> None:
+    """Archive the resolved config as ``<run_dir>/config.json``
+    (``uemda_tpu/config.py:217-221``, reference ``tools.py:180``), the same
+    bytes as the JAX package writes. Under data parallelism only process 0
+    writes (the trainers call it there)."""
+    import json
+
+    os.makedirs(run_dir, exist_ok=True)
+    with open(os.path.join(run_dir, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)

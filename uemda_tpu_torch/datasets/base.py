@@ -143,14 +143,18 @@ def _host_crop_batch(dataset, indices, u, crop_hw) -> Dict[str, np.ndarray]:
 
 
 def infinite_batches(dataset, batch_size: int, seed: int = 0,
-                     skip_batches: int = 0, host_crop=None
-                     ) -> Iterator[Dict[str, np.ndarray]]:
+                     skip_batches: int = 0, process_shard=None,
+                     host_crop=None) -> Iterator[Dict[str, np.ndarray]]:
     """Shuffled epoch-cycling batch iterator (DALoader semantics:
     RandomSampler + drop_last=True, ``daLoader.py:38-55``), the numpy
-    stream of ``uemda_tpu/datasets/base.py:118-177`` without its multi-host
-    ``process_shard``: the same seed and skip give the same batches as the
-    JAX package. ``skip_batches`` fast-forwards the shuffle stream without
-    reading any tile.
+    stream of ``uemda_tpu/datasets/base.py:118-177``: the same seed and
+    skip give the same batches as the JAX package. ``skip_batches``
+    fast-forwards the shuffle stream without reading any tile.
+
+    ``process_shard=(start, size)``: data parallelism -- every rank draws
+    the same global shuffle stream but reads only rows [start, start +
+    size) of each global batch of ``batch_size`` (``parallel/multihost.py:
+    local_batch_slice``), so the ranks' batches concatenate to one rank's.
 
     ``host_crop=(ch, cw)`` crops every sample on the host before it ships
     (:func:`_host_crop_batch`): 4x fewer bytes to upload for 1024^2 tiles
@@ -158,7 +162,8 @@ def infinite_batches(dataset, batch_size: int, seed: int = 0,
     ``default_rng((seed, 9157, batch index))``, the index counting skipped
     batches too, so a skip replays the same crops. The device crop then
     takes the whole (crop-sized) tile; flips and rot90 stay on the
-    device."""
+    device. The origins are drawn for the global batch before
+    ``process_shard`` takes this rank's rows."""
     rng = np.random.default_rng(seed)
     n = len(dataset)
     skipped = 0
@@ -174,11 +179,16 @@ def infinite_batches(dataset, batch_size: int, seed: int = 0,
             idx = perm[i:i + batch_size]
             if len(idx) < batch_size:
                 idx = np.concatenate([idx, perm[:batch_size - len(idx)]])
-            if host_crop is None:
+            u = (np.random.default_rng((seed, 9157, this_b)).random(
+                (len(idx), 2)) if host_crop is not None else None)
+            if process_shard is not None:
+                start, size = process_shard
+                idx = idx[start:start + size]
+                if u is not None:
+                    u = u[start:start + size]
+            if u is None:
                 yield dataset.batch(idx)
             else:
-                u = np.random.default_rng((seed, 9157, this_b)).random(
-                    (len(idx), 2))
                 yield _host_crop_batch(dataset, idx, u, host_crop)
 
 

@@ -5,7 +5,9 @@ Port of ``uemda_tpu/infer/evaluate.py`` (reference ``uemda/utils/eval.py:
 on worker threads, the last batch padded) into the slide(+TTA) predictor,
 on the card one captured CUDA graph; the (C, C) confusion matrix
 accumulates on the device, and only the final matrix crosses to the host.
-IsprsDA drops class 0 from the means (``eval.py:16-17``).
+IsprsDA drops class 0 from the means (``eval.py:16-17``). Under data
+parallelism the eval CLI shards the split over the ranks and sums their
+confusion matrices (``data_parallel``).
 """
 
 from typing import Optional, Tuple
@@ -22,6 +24,7 @@ from uemda_tpu_torch.datasets.prefetch import (
 )
 from uemda_tpu_torch.infer.slide import make_predictor
 from uemda_tpu_torch.ops.metrics import PixelMetricSummary, confusion_matrix
+from uemda_tpu_torch.parallel import mesh
 from uemda_tpu_torch.utils.runtime import resolve_device
 from uemda_tpu_torch.utils.viz import VisualizeSegmm
 
@@ -50,14 +53,36 @@ def collect_calib_batches(dataset, batch_size, mean, std, n,
     return out
 
 
+class RankShare:
+    """Rank ``r`` of ``n``'s share of an evaluation split: images r, r + n,
+    r + 2n, ... under the dataset's interface (``meta``, ``__len__``,
+    ``filename``, ``item``, ``batch``)."""
+
+    def __init__(self, dataset, r: int, n: int):
+        self.dataset, self.ids = dataset, list(range(r, len(dataset), n))
+        self.meta = dataset.meta
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    def filename(self, i: int) -> str:
+        return self.dataset.filename(self.ids[i])
+
+    def item(self, i: int):
+        return self.dataset.item(self.ids[i])
+
+    def batch(self, indices):
+        return self.dataset.batch([self.ids[int(i)] for i in indices])
+
+
 def device_batches(dataset, batch_size: int, depth: int = 2,
                    decode_workers: int = 1, device=None,
                    with_label: bool = False):
     """Stream ``(indices, images, n_valid, label)`` with the decode, the
     batch padding and the host-to-device copy on worker threads, so the
     next batch's transfer overlaps the current batch's compute (the twin of
-    ``uemda_tpu/infer/evaluate.py:23-61`` without the mesh, which waits for
-    the port's data parallelism). ``images``: uint8 (B, 3, H, W) on
+    ``uemda_tpu/infer/evaluate.py:23-61``; under data parallelism a rank
+    streams its share, :class:`RankShare`). ``images``: uint8 (B, 3, H, W) on
     ``device`` (channels_last; normalization casts on the device, so the
     copy ships 4x fewer bytes than f32), the last batch padded with zero
     images to ``batch_size`` so that one captured predictor serves the whole
@@ -139,6 +164,7 @@ def evaluate_dataset(
     vis_dir: Optional[str] = None,
     decode_workers: int = 1,
     capture: bool = True,
+    data_parallel: bool = False,
 ):
     """``model``: a callable (N, 3, th, tw) -> (N, C, th, tw) probabilities
     (the eval-mode ``DeeplabV2`` or a ``FastpathModel``) on ``device``.
@@ -151,9 +177,16 @@ def evaluate_dataset(
     crosses to the host. ``vis_dir``: palette PNGs of each image's argmax
     (``uemda_tpu/infer/evaluate.py:121,140-144``), read back one batch
     late through pinned buffers. Returns ``(summary, miou)``; the summary
-    also holds the (C, C) ``confusion_matrix`` as nested lists."""
+    also holds the (C, C) ``confusion_matrix`` as nested lists.
+
+    ``data_parallel`` (the eval CLI's ``--num-devices``/``--multihost``):
+    each rank evaluates its share of the split (:class:`RankShare`) and
+    the confusion matrices are summed over the ranks, so every rank
+    returns what one rank evaluating the whole split would."""
     device = resolve_device(device)
     meta = dataset.meta
+    if data_parallel and mesh.world_size() > 1:
+        dataset = RankShare(dataset, mesh.rank(), mesh.world_size())
     viz = VisualizeSegmm(vis_dir, meta.palette) if vis_dir else None
     readback = HostReadback()
 
@@ -175,6 +208,8 @@ def evaluate_dataset(
             write(readback.push(indices, {"pred": pred.to(torch.uint8)}))
     if viz is not None:
         write(readback.flush())
+    if data_parallel:
+        cm = mesh.gsum(cm)
 
     pm = PixelMetricSummary(meta.num_classes, class_names=meta.class_names,
                             ignore_labels=list(meta.eval_ignore_labels))

@@ -14,8 +14,13 @@ JAX package logs and falls back to the standard forward when the fold is
 unusable (an odd tile side), the port raises: a sweep never runs another
 path than the one asked for. ``color_dir`` writes the mined hard labels
 (K8's strict-threshold selection, ``ops/mine.py``) as palette PNGs, as the
-reference's ``_color`` directory. The multi-host sweep waits for the port's
-data parallelism (ROADMAP.md queue A8).
+reference's ``_color`` directory.
+
+Under data parallelism (``uemda_tpu/infer/pseudo_gen.py:30-61``) process
+0 alone runs the sweep, on its own device; the other ranks wait at a
+barrier and return an empty dict. The barrier is released in a
+``finally``, so a failed sweep raises its own error on process 0 instead
+of leaving the others waiting out the group's timeout.
 """
 
 import copy
@@ -24,17 +29,38 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from uemda_tpu_torch.datasets.io import save_prob
 from uemda_tpu_torch.datasets.prefetch import HostReadback
 from uemda_tpu_torch.infer.evaluate import predict_batches
 from uemda_tpu_torch.infer.fastpath import build_fastpath
 from uemda_tpu_torch.ops.mine import uvem_mine
+from uemda_tpu_torch.parallel.multihost import is_main_process, process_count
 from uemda_tpu_torch.utils.runtime import resolve_device
 
 
+def generate_pseudo_labels(model, dataset, mean, std, **kwargs
+                           ) -> Dict[str, np.ndarray]:
+    """The sweep (:func:`_generate_pseudo_labels_local`, which documents
+    every argument), on process 0 alone under data parallelism: the other
+    ranks wait at a barrier until the labels are written (module
+    docstring) and return {}."""
+    if process_count() == 1:
+        return _generate_pseudo_labels_local(model, dataset, mean, std,
+                                             **kwargs)
+    if not is_main_process():
+        dist.barrier()
+        return {}
+    try:
+        return _generate_pseudo_labels_local(model, dataset, mean, std,
+                                             **kwargs)
+    finally:
+        dist.barrier()   # releases the ranks waiting above
+
+
 @torch.no_grad()
-def generate_pseudo_labels(
+def _generate_pseudo_labels_local(
     model,
     dataset,
     mean,

@@ -80,7 +80,13 @@ def make_predictor(
     caller's, already in the dtype it wants (the fast path's biases stay
     f32 on purpose). ``epilogue``, a function of the stitched
     probabilities, runs inside the same capture, and the call returns its
-    result instead (the sweep's fp16 cast and mining)."""
+    result instead (the sweep's fp16 cast and mining). An image smaller
+    than the tile in either side raises ``ValueError``, as the JAX
+    predictor refuses it (its window slice cannot cut the tile)."""
+    if image_hw[0] < tile[0] or image_hw[1] < tile[1]:
+        raise ValueError(f"image {tuple(image_hw)} is smaller than the slide "
+                         f"tile {tuple(tile)}: every window must lie inside "
+                         "the image")
     coords = window_grid(image_hw, tile, overlap)
     th, tw = tile
 

@@ -26,6 +26,7 @@ from uemda_tpu_torch.models.deeplabv2 import init_weights
 from uemda_tpu_torch.models.heads import ASPPHead
 from uemda_tpu_torch.models.resnet import ResNetEncoder
 from uemda_tpu_torch.ops.resize import resize_bilinear
+from uemda_tpu_torch.parallel.mesh import global_batch
 from uemda_tpu_torch.utils.runtime import resolve_device
 
 
@@ -159,8 +160,10 @@ class DeeplabV2MMD(nn.Module):
         return torch.softmax(logits, dim=1)
 
 
+@global_batch("f_s", "f_t")
 def mmd_linear(f_s: torch.Tensor, f_t: torch.Tensor) -> torch.Tensor:
     """Linear-kernel MMD between reduced features, as this baseline uses
-    it: ``||mean(f_s) - mean(f_t)||^2``."""
+    it: ``||mean(f_s) - mean(f_t)||^2`` (of the gathered global batch
+    under data parallelism)."""
     delta = f_s.mean(dim=0) - f_t.mean(dim=0)
     return (delta * delta).sum()

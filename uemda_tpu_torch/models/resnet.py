@@ -35,6 +35,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from uemda_tpu_torch.models.config import BackboneConfig
+from uemda_tpu_torch.parallel import mesh
 
 
 # > 0 while a checkpointed stage is recomputed for the backward: BatchNorm
@@ -81,7 +82,10 @@ class BatchNorm(nn.BatchNorm2d):
     writes the batch statistics (momentum 1.0 into scratch buffers) and the
     update is computed below. The affine parameters are used in f32 even
     when the caller hands in a bf16 copy: flax's BatchNorm(dtype=f32) takes
-    the bf16-rounded values in f32 too."""
+    the bf16-rounded values in f32 too. Under data parallelism (world size
+    > 1) train mode normalizes with the global batch's statistics
+    (``parallel/mesh.py: batch_norm``), and the running ones move as one
+    rank's at the global batch would."""
 
     def __init__(self, num_features: int, frozen: bool = False):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -94,6 +98,14 @@ class BatchNorm(nn.BatchNorm2d):
                              self.running_var.float(), w, b, False, 0.0,
                              self.eps)
             return y.to(x.dtype)
+        if mesh.world_size() > 1:
+            # the global batch's statistics (parallel/mesh.py)
+            y, batch_mean, biased = mesh.batch_norm(x, w, b, self.eps)
+            if not _RECOMPUTE[0]:
+                with torch.no_grad():
+                    self.running_mean.mul_(0.9).add_(0.1 * batch_mean)
+                    self.running_var.mul_(0.9).add_(0.1 * biased)
+            return y
         c = x.shape[1]
         # zeros, not empty: the library scales the old value by 1 - 1.0,
         # and 0 * NaN garbage would stay NaN

@@ -17,6 +17,8 @@ uses the biased one (``F.batch_norm``'s split, ``trans_norm.py:193-201``).
 import torch
 import torch.nn as nn
 
+from uemda_tpu_torch.parallel import mesh
+
 
 class TransNorm2d(nn.Module):
     """Parameters ``weight`` (flax ``scale``, drawn from U[0, 1) as flax's
@@ -61,8 +63,16 @@ class TransNorm2d(nn.Module):
         stats = []
         for h in halves:
             n = h.numel() // self.num_features
-            mean = h.mean(dim=(0, 2, 3))
-            v_b = h.var(dim=(0, 2, 3), unbiased=False)
+            if mesh.world_size() == 1:
+                mean = h.mean(dim=(0, 2, 3))
+                v_b = h.var(dim=(0, 2, 3), unbiased=False)
+            else:
+                # each rank's halves are its rows of the two domains: the
+                # statistics of each domain's global batch, two-pass
+                n = n * mesh.world_size()
+                mean = mesh.gsum(h.sum(dim=(0, 2, 3))) / n
+                dev = h - mean.view(1, -1, 1, 1)
+                v_b = mesh.gsum((dev * dev).sum(dim=(0, 2, 3))) / n
             stats.append((mean, v_b, v_b * n / max(n - 1, 1)))
         (ms, vbs, vus), (mt, vbt, vut) = stats
         z = torch.cat([self._bn(halves[0], ms, vbs),

@@ -21,6 +21,7 @@ import torch
 
 from uemda_tpu_torch.datasets.augment import to_device
 from uemda_tpu_torch.ops.labels import one_hot_ignore
+from uemda_tpu_torch.parallel import mesh
 
 
 @dataclasses.dataclass
@@ -142,6 +143,8 @@ def cutmix_inbatch(draws: MixDraws, data: torch.Tensor,
     """The in-batch variant (cutmix.py:33-53): the box pasted from the
     batch permuted by ``draws.perm``."""
     mask = box_mask(tuple(targets.shape[-2:]), draws.lam, draws.cx, draws.cy)
-    _, _, new_data, new_targets = paste(mask, data[draws.perm],
-                                        targets[draws.perm], data, targets)
+    # ``perm`` permutes the global batch under data parallelism
+    src = mesh.shard_rows(mesh.gather_rows(data)[draws.perm])
+    src_t = mesh.shard_rows(mesh.gather_rows(targets)[draws.perm])
+    _, _, new_data, new_targets = paste(mask, src, src_t, data, targets)
     return new_data, new_targets

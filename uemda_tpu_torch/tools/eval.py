@@ -18,7 +18,10 @@ PNGs of the predictions to ``<snapshot_dir>/vis-<checkpoint name>``;
 the console and to the run directory (``snapshot_dir``); prints one JSON
 line with the mean metrics. On the card the predictor is one captured CUDA
 graph, fed by the double-buffered ``device_batches``.
-``--num-devices`` waits for the port's data parallelism (ROADMAP.md A8).
+``--num-devices N`` (N > 1) evaluates over N processes, one a card (over
+gloo on the CPU with ``--device cpu``): each rank evaluates its share of
+the split and the confusion matrices are summed, so the result is one
+process's; process 0 logs and prints.
 """
 
 import argparse
@@ -31,12 +34,14 @@ from uemda_tpu_torch.config import load_config
 from uemda_tpu_torch.datasets.base import SegDataset
 from uemda_tpu_torch.infer.evaluate import evaluate_dataset
 from uemda_tpu_torch.models.port import load_checkpoint
+from uemda_tpu_torch.parallel.multihost import is_main_process, launch
 from uemda_tpu_torch.train.loop import build_model
 from uemda_tpu_torch.utils.log import (
     get_console_file_logger,
     logging_args,
     str2bool,
 )
+from uemda_tpu_torch.utils.runtime import resolve_device
 
 
 def main(argv=None):
@@ -67,22 +72,35 @@ def main(argv=None):
     parser.add_argument("--decode-workers", type=int, default=1,
                         help="host-side image-decode thread pool (>1 pays "
                         "off on multi-core hosts)")
+    parser.add_argument("--num-devices", type=int, default=None,
+                        help="N > 1: N processes, one a card (gloo on the "
+                        "CPU with --device cpu), each evaluating its share")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 
     from uemda_tpu_torch.infer.fastpath import parse_int8_stages_flag
 
-    int8_stages = parse_int8_stages_flag(args.int8_stages, bool(args.int8),
-                                         bool(args.fastpath))
+    # checked before any process starts
+    args.int8_stage_list = parse_int8_stages_flag(
+        args.int8_stages, bool(args.int8), bool(args.fastpath))
+    return launch(_run, args)
 
+
+def _run(args):
+    """The evaluation in this process: the whole split, or this rank's
+    share of it (``parallel/multihost.py: launch``)."""
+    int8_stages = args.int8_stage_list
+    device = resolve_device(args.device)
     cfg = load_config(args.config_path)
     run_dir = cfg.snapshot_dir
-    logger = get_console_file_logger("eval", run_dir)
-    logging_args(args, logger)
-    model = build_model(cfg, args.device)
+    main_rank = is_main_process()
+    logger = None
+    if main_rank:
+        logger = get_console_file_logger("eval", run_dir)
+        logging_args(args, logger)
+    model = build_model(cfg, device)
     model.load_state_dict(load_checkpoint(args.ckpt_path))
-    dtype = (torch.bfloat16 if torch.device(args.device).type == "cuda"
-             else torch.float32)
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
 
     split = cfg.test if args.test else cfg.val
     dataset = SegDataset(cfg.meta, list(split.image_dir), list(split.mask_dir)[0])
@@ -99,7 +117,7 @@ def main(argv=None):
 
             calib = collect_calib_batches(
                 dataset, batch_size, split.mean, split.std, args.calib_batches,
-                tile=cfg.crop, device=args.device)
+                tile=cfg.crop, device=device)
         model = build_fastpath(model, dtype=dtype, int8=bool(args.int8),
                                calibration_batches=calib,
                                int8_stages=int8_stages)
@@ -112,10 +130,12 @@ def main(argv=None):
     summary, miou = evaluate_dataset(
         model, dataset, split.mean, split.std, tile=cfg.crop,
         tta=bool(args.tta), batch_size=batch_size,
-        compute_dtype=dtype, device=args.device, logger=logger,
-        vis_dir=vis_dir, decode_workers=args.decode_workers)
-    print(json.dumps({"miou": miou, **{k: summary[k] for k in
-                                       ("mf1", "mprecision", "mrecall")}}))
+        compute_dtype=dtype, device=device, logger=logger,
+        vis_dir=vis_dir, decode_workers=args.decode_workers,
+        data_parallel=True)
+    if main_rank:
+        print(json.dumps({"miou": miou, **{k: summary[k] for k in
+                                           ("mf1", "mprecision", "mrecall")}}))
     return summary
 
 

@@ -12,9 +12,11 @@ stream through ``predict_batches`` (decode on ``--decode-workers`` threads
 and upload on worker threads, the last batch padded) into the predictor,
 on the card one captured CUDA graph, and the ids come back through reused
 pinned buffers one batch late. ``--fastpath``, ``--int8``,
-``--calib-batches`` and ``--int8-stages`` as the eval CLI. ``--num-devices``
-waits for the port's data parallelism (ROADMAP.md A8) and is refused.
-Prints ``<n> images -> <dir> in <s>s (<r> img/s)``. Needs PIL.
+``--calib-batches`` and ``--int8-stages`` as the eval CLI (the calibration
+on the directory's first batches). ``--num-devices N`` (N > 1) runs N
+processes, one a card (gloo on the CPU with ``--device cpu``), each
+writing its share of the images. Process 0 prints ``<n> images -> <dir>
+in <s>s (<r> img/s)`` for all of them. Needs PIL.
 """
 
 import argparse
@@ -26,11 +28,14 @@ import torch
 from uemda_tpu_torch.config import load_config
 from uemda_tpu_torch.datasets.base import SegDataset
 from uemda_tpu_torch.datasets.prefetch import HostReadback
-from uemda_tpu_torch.infer.evaluate import predict_batches
+from uemda_tpu_torch.infer.evaluate import RankShare, predict_batches
 from uemda_tpu_torch.infer.quant import serving_model
 from uemda_tpu_torch.models.port import load_checkpoint
+from uemda_tpu_torch.parallel import mesh
+from uemda_tpu_torch.parallel.multihost import is_main_process, launch
 from uemda_tpu_torch.train.loop import build_model
 from uemda_tpu_torch.utils.log import str2bool
+from uemda_tpu_torch.utils.runtime import resolve_device
 from uemda_tpu_torch.utils.viz import VisualizeSegmm
 
 
@@ -58,27 +63,33 @@ def main(argv=None):
     parser.add_argument("--color", type=str2bool, default=1,
                         help="write palette PNGs")
     parser.add_argument("--num-devices", type=int, default=None,
-                        help="not ported yet (several cards)")
+                        help="N > 1: N processes, one a card (gloo on the "
+                        "CPU with --device cpu), each writing its share")
     parser.add_argument("--decode-workers", type=int, default=1,
                         help="host-side image-decode thread pool (PNG/TIFF "
                         "decompression releases the GIL; >1 pays off on "
                         "multi-core hosts)")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
-    if args.num_devices is not None:
-        raise SystemExit("--num-devices: inference over several cards waits "
-                         "for the port's data parallelism (ROADMAP.md A8)")
 
     from uemda_tpu_torch.infer.fastpath import parse_int8_stages_flag
 
-    int8_stages = parse_int8_stages_flag(args.int8_stages, bool(args.int8),
-                                         bool(args.fastpath))
+    # checked before any process starts
+    args.int8_stage_list = parse_int8_stages_flag(
+        args.int8_stages, bool(args.int8), bool(args.fastpath))
+    return launch(_run, args)
+
+
+def _run(args):
+    """The directory's images, or this rank's share of them
+    (``parallel/multihost.py: launch``)."""
     from PIL import Image
 
+    int8_stages = args.int8_stage_list
     cfg = load_config(args.config_path)
-    model = build_model(cfg, args.device)
+    dev = resolve_device(args.device)
+    model = build_model(cfg, dev)
     model.load_state_dict(load_checkpoint(args.ckpt_path))
-    dev = torch.device(args.device)
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     dataset = SegDataset(cfg.meta, args.img_dir, None, label_type="none")
     split = cfg.val
@@ -96,6 +107,8 @@ def main(argv=None):
                 args.calib_batches, tile=cfg.crop, device=dev)
     net = serving_model(model, bool(args.fastpath), bool(args.int8), dtype,
                         **kw)
+    if mesh.world_size() > 1:   # this rank's share of the images
+        dataset = RankShare(dataset, mesh.rank(), mesh.world_size())
 
     os.makedirs(args.out_dir, exist_ok=True)
     viz = VisualizeSegmm(args.out_dir, cfg.meta.palette) if args.color else None
@@ -122,8 +135,11 @@ def main(argv=None):
         write(readback.push(indices, {"pred": pred}))
         done += n
     write(readback.flush())
+    done = int(mesh.gsum(torch.tensor(done, device=dev)))
     dt = time.time() - t0
-    print(f"{done} images -> {args.out_dir} in {dt:.1f}s ({done / dt:.2f} img/s)")
+    if is_main_process():
+        print(f"{done} images -> {args.out_dir} in {dt:.1f}s "
+              f"({done / dt:.2f} img/s)")
 
 
 if __name__ == "__main__":

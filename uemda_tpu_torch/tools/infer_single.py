@@ -13,8 +13,10 @@ one image (``--slide 0``: one forward of the whole image) with optional
 substitution, ``<stem>_gt.png``. ``--fastpath 1`` serves the folded fast
 path, ``--int8 1`` int8 (``infer/quant.py``; with ``--fastpath``, only the
 compute-bound GEMMs). On the card the predictor is one captured CUDA graph.
-``--raster 1`` (rows sharded over several cards with a halo exchange) waits
-for the port's data parallelism (ROADMAP.md A8) and is refused. Needs PIL.
+``--raster 1`` runs the whole image through the row-sharded raster
+predictor (``infer/raster.py``) over every card of the host, as the JAX
+tool over every chip: one process a card, the halo rows exchanged between
+them; on the CPU one process. Needs PIL.
 """
 
 import argparse
@@ -27,10 +29,13 @@ from uemda_tpu_torch.config import load_config
 from uemda_tpu_torch.datasets.augment import normalize
 from uemda_tpu_torch.datasets.io import read_image
 from uemda_tpu_torch.infer.quant import serving_model
+from uemda_tpu_torch.infer.raster import make_raster_predictor
 from uemda_tpu_torch.infer.slide import make_predictor
 from uemda_tpu_torch.models.port import load_checkpoint
+from uemda_tpu_torch.parallel.multihost import is_main_process, launch
 from uemda_tpu_torch.train.loop import build_model
 from uemda_tpu_torch.utils.log import str2bool
+from uemda_tpu_torch.utils.runtime import resolve_device
 from uemda_tpu_torch.utils.viz import VisualizeSegmm
 
 
@@ -50,21 +55,26 @@ def main(argv=None):
                         help="folded serving fast path (infer/fastpath.py); "
                         "with --int8, quantizes only the compute-bound GEMMs")
     parser.add_argument("--raster", type=str2bool, default=0,
-                        help="not ported yet: shards the image's rows over "
-                        "several cards with a halo exchange")
+                        help="whole-image inference with the rows sharded "
+                        "over every card of the host (halo exchange)")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
-    if args.raster:
-        raise SystemExit("--raster 1: row-sharded inference with a halo "
-                         "exchange across cards waits for the port's data "
-                         "parallelism (ROADMAP.md A8); run with --raster 0")
+    # the raster spans the host's cards, one process a card
+    args.num_devices = (torch.cuda.device_count() if args.raster
+                        and torch.device(args.device).type == "cuda"
+                        else None)
+    return launch(_run, args)
 
+
+def _run(args):
+    """The image in this process: the slide predictor, or this rank's band
+    of the raster predictor (``parallel/multihost.py: launch``)."""
     from PIL import Image
 
     cfg = load_config(args.config_path)
-    model = build_model(cfg, args.device)
+    dev = resolve_device(args.device)
+    model = build_model(cfg, dev)
     model.load_state_dict(load_checkpoint(args.ckpt_path))
-    dev = torch.device(args.device)
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
 
     img = read_image(args.image_path)
@@ -72,16 +82,25 @@ def main(argv=None):
     split = cfg.val
     x = normalize(torch.from_numpy(np.array(img[None])).to(dev)
                   .permute(0, 3, 1, 2), split.mean, split.std)
-    # the forward tile is cfg.crop when sliding, else the image's own dims
-    tile = tuple(cfg.crop) if args.slide else hw
+    # the forward tile is cfg.crop when sliding or rastering, else the
+    # image's own dims
+    tile = tuple(cfg.crop) if (args.slide or args.raster) else hw
     if args.fastpath:
         from uemda_tpu_torch.infer.fastpath import check_fastpath_tile
 
         check_fastpath_tile(tile)
     net = serving_model(model, args.fastpath, args.int8, dtype)
-    with make_predictor(net, tile, hw, tta=bool(args.tta),
-                        compute_dtype=dtype) as predictor:
-        pred = predictor(x).argmax(dim=1)[0].to(torch.uint8).cpu().numpy()
+    if args.raster:
+        predictor = make_raster_predictor(net, hw, tile=tile,
+                                          tta=bool(args.tta),
+                                          compute_dtype=dtype)
+        pred = predictor(x[0]).to(torch.uint8).cpu().numpy()
+        if not is_main_process():
+            return None
+    else:
+        with make_predictor(net, tile, hw, tta=bool(args.tta),
+                            compute_dtype=dtype) as predictor:
+            pred = predictor(x).argmax(dim=1)[0].to(torch.uint8).cpu().numpy()
 
     os.makedirs(args.out_dir, exist_ok=True)
     stem = os.path.splitext(os.path.basename(args.image_path))[0]

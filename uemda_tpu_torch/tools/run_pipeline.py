@@ -24,8 +24,9 @@ the chain on every stage-best checkpoint that exists, with
 ``--gate-tolerance`` and ``--gate-class-tolerance``; a breach fails the
 run. After the chain, a stage whose best mIoU (``best.json``) falls below
 the stage it started from is reported. ``--resume`` (``auto`` or a
-path) goes to the three training steps. Not ported yet, and refused:
-``--num-devices`` (ROADMAP.md queue A8).
+path) goes to the three training steps, and so does ``--num-devices``
+(each of them then runs as that many processes, one a card;
+``tools/run_pipeline.py:82``).
 """
 
 import argparse
@@ -71,17 +72,12 @@ def main(argv=None):
     parser.add_argument("--gate-class-tolerance", type=float, default=0.02)
     parser.add_argument("--pretrained", type=str, default=None)
     parser.add_argument("--resume", type=str, default="")
-    parser.add_argument("--num-devices", type=int, default=None)
+    parser.add_argument("--num-devices", type=int, default=None,
+                        help="forwarded to the three training steps")
     parser.add_argument("--device", type=str, default=None,
                         help="forwarded to every step; default: the card")
     parser.add_argument("--dry-run", action="store_true")
     args = parser.parse_args(argv)
-
-    refused = {"--num-devices": ("A8", args.num_devices is not None)}
-    for flag, (item, hit) in refused.items():
-        if hit:
-            raise NotImplementedError(f"{flag}: not ported yet (ROADMAP.md "
-                                      f"queue {item})")
 
     from uemda_tpu_torch.config import load_config
 
@@ -92,6 +88,7 @@ def main(argv=None):
     if args.resume:
         ov += ["--resume", args.resume]
     dev = ["--device", args.device] if args.device else []
+    nd = ["--num-devices", str(args.num_devices)] if args.num_devices else []
     cfg_arg = ["--config-path", args.config_path]
 
     def tool(name):
@@ -102,7 +99,8 @@ def main(argv=None):
         # proca (runs/proca/*.sh): no CORAL domain alignment in stage 1
         pre = ["--pretrained", args.pretrained] if args.pretrained else []
         run(tool("train_src") + cfg_arg
-            + ["--align-domain", "0" if proca else "1"] + pre + ov + dev,
+            + ["--align-domain", "0" if proca else "1"] + pre + ov + nd
+            + dev,
             args.dry_run)
     if 2 in sel:
         run(tool("init_prototypes") + cfg_arg
@@ -113,11 +111,12 @@ def main(argv=None):
         ckpts = ["--ckpt-model", f"{log}/src/{tset}_best.pth",
                  "--ckpt-proto", f"{log}/src/prototypes_init.pth"]
         if proca:
-            run(tool("train_align") + cfg_arg + ckpts + ov + dev, args.dry_run)
+            run(tool("train_align") + cfg_arg + ckpts + ov + nd + dev,
+                args.dry_run)
         else:
             run(tool("train_align_uem") + cfg_arg
                 + ["--align-domain", "1", "--refine-label", "1"] + ckpts + ov
-                + dev, args.dry_run)
+                + nd + dev, args.dry_run)
     if 4 in sel:
         run(tool("init_prototypes") + cfg_arg
             + ["--stage", "2", "--ckpt-model", f"{log}/align/{tset}_best.pth",
@@ -132,8 +131,8 @@ def main(argv=None):
             flags += ["--gen-fastpath", "1"]
         run(tool("train_ssl_uem") + cfg_arg + flags
             + ["--ckpt-model", f"{log}/align/{tset}_best.pth",
-               "--ckpt-proto", f"{log}/align/prototypes_init.pth"] + ov + dev,
-            args.dry_run)
+               "--ckpt-proto", f"{log}/align/prototypes_init.pth"] + ov + nd
+            + dev, args.dry_run)
     if args.gate:
         # every stage-best checkpoint that exists: the int8 error depends on
         # the feature distribution, one checkpoint is not evidence

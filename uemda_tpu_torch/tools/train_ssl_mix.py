@@ -33,22 +33,23 @@ import os
 
 import torch
 
-from uemda_tpu_torch.config import load_config
+from uemda_tpu_torch.config import load_config, snapshot_config
 from uemda_tpu_torch.datasets.base import SegDataset, infinite_batches
 from uemda_tpu_torch.datasets.prefetch import prefetch
 from uemda_tpu_torch.infer.pseudo_gen import generate_pseudo_labels
 from uemda_tpu_torch.models.port import load_checkpoint, load_prototypes
+from uemda_tpu_torch.parallel.multihost import is_main_process, launch
 from uemda_tpu_torch.train.loop import (
     add_loop_flags,
-    add_unported_flags,
+    add_parallel_flags,
     build_model,
     build_state,
     default_hparams,
     host_crop_of,
     make_eval_hook,
     make_source_iter,
+    process_shard,
     maybe_resume,
-    refuse_unported,
     run_regen_chunks,
     run_training_loop,
     source_loss_of,
@@ -100,10 +101,15 @@ def main(argv=None):
                              "full-state resume)")
     parser.add_argument("--device", type=str, default=None,
                         help="default: the card (cuda)")
-    add_unported_flags(parser)
+    add_parallel_flags(parser)
     add_loop_flags(parser)
     args = parser.parse_args(argv)
-    refuse_unported(args)
+    return launch(_run, args)
+
+
+def _run(args):
+    """The trainer in this process: one device, or one rank of the data-
+    parallel group ``launch`` made (``parallel/multihost.py``)."""
     if args.refine_label and not args.ckpt_proto:
         parser.error("--refine-label 1 requires --ckpt-proto")
 
@@ -111,7 +117,11 @@ def main(argv=None):
     cfg = load_config(args.config_path, snapshot_postfix=f"/{args.mix}")
     run_dir = cfg.snapshot_dir
     os.makedirs(run_dir, exist_ok=True)
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    main_rank = is_main_process()
+    if main_rank:
+        snapshot_config(cfg, run_dir)
+    logging.basicConfig(level=logging.INFO if main_rank else logging.WARNING,
+                        format="%(message)s")
     logger = logging.getLogger("uemda_tpu_torch.train_ssl_mix")
     logger.info(f"args: {vars(args)}")
     on_card = device.type == "cuda"
@@ -158,8 +168,10 @@ def main(argv=None):
     def target_stream(skip):
         ds = SegDataset(cfg.meta, list(cfg.target.image_dir), pseudo_dir,
                         label_type="prob", read_sup=need_sup)
-        return prefetch(infinite_batches(ds, cfg.target.batch_size, seed=1,
-                                         skip_batches=skip, host_crop=crop))
+        return prefetch(infinite_batches(
+            ds, cfg.target.batch_size, seed=1, skip_batches=skip,
+            process_shard=process_shard(cfg.target.batch_size),
+            host_crop=crop))
 
     eval_fn, on_best = make_eval_hook(cfg, run_dir, logger=logger)
     return run_regen_chunks(

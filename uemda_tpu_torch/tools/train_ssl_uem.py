@@ -34,14 +34,15 @@ import os
 
 import torch
 
-from uemda_tpu_torch.config import load_config
+from uemda_tpu_torch.config import load_config, snapshot_config
 from uemda_tpu_torch.datasets.base import SegDataset
 from uemda_tpu_torch.infer.pseudo_gen import generate_pseudo_labels
 from uemda_tpu_torch.models.port import load_checkpoint, load_prototypes
 from uemda_tpu_torch.utils.log import str2bool
+from uemda_tpu_torch.parallel.multihost import is_main_process, launch
 from uemda_tpu_torch.train.loop import (
     add_loop_flags,
-    add_unported_flags,
+    add_parallel_flags,
     build_model,
     build_state,
     default_hparams,
@@ -50,7 +51,6 @@ from uemda_tpu_torch.train.loop import (
     make_source_iter,
     make_target_iter,
     maybe_resume,
-    refuse_unported,
     run_training_loop,
     source_loss_of,
 )
@@ -91,16 +91,25 @@ def main(argv=None):
                              "full-state resume)")
     parser.add_argument("--device", type=str, default=None,
                         help="default: the card (cuda)")
-    add_unported_flags(parser)
+    add_parallel_flags(parser)
     add_loop_flags(parser)
     args = parser.parse_args(argv)
-    refuse_unported(args)
+    return launch(_run, args)
+
+
+def _run(args):
+    """The trainer in this process: one device, or one rank of the data-
+    parallel group ``launch`` made (``parallel/multihost.py``)."""
 
     device = resolve_device(args.device)
     cfg = load_config(args.config_path, snapshot_postfix="/ssl")
     run_dir = cfg.snapshot_dir
     os.makedirs(run_dir, exist_ok=True)
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    main_rank = is_main_process()
+    if main_rank:
+        snapshot_config(cfg, run_dir)
+    logging.basicConfig(level=logging.INFO if main_rank else logging.WARNING,
+                        format="%(message)s")
     logger = logging.getLogger("uemda_tpu_torch.train_ssl_uem")
     logger.info(f"args: {vars(args)}")
     on_card = device.type == "cuda"

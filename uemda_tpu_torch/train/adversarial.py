@@ -42,6 +42,7 @@ import torch
 from uemda_tpu_torch.alignment.extra_losses import bce_logits_loss
 from uemda_tpu_torch.models.discriminator import FCDiscriminator
 from uemda_tpu_torch.ops.resize import upsample_logits
+from uemda_tpu_torch.parallel import mesh
 from uemda_tpu_torch.train.state import TrainState
 from uemda_tpu_torch.train.steps import (
     _SWAPPED,
@@ -74,6 +75,7 @@ class Adam:
     @torch.no_grad()
     def update(self) -> None:
         grads = [p.grad for p in self.params]
+        mesh.all_reduce_grads(grads)   # data parallelism: sum over ranks
         if any(g is None for g in grads):
             missing = [n for n, g in zip(self.names, grads) if g is None]
             raise RuntimeError(f"no gradient for {missing[:3]} ...")
@@ -212,8 +214,10 @@ class AdvStep(_Step):
             loss_adv = bce_logits_loss(d_out, torch.ones_like(d_out))
             grad_t, = torch.autograd.grad(loss_adv, soft_t)
         loss = loss_seg + self.lambda_adv * loss_adv
-        # the same gradient as loss's, D's part taken above
-        (loss_seg + self.lambda_adv * (soft_t * grad_t).sum()).backward()
+        # the same gradient as loss's, D's part taken above (under data
+        # parallelism ``grad_t`` is N times this rank's true share, which
+        # mesh.backward's 1/N restores)
+        mesh.backward(loss_seg + self.lambda_adv * (soft_t * grad_t).sum())
         seg.opt.update()
         _write_back(seg, kept)
 
@@ -225,7 +229,7 @@ class AdvStep(_Step):
             out_s, out_t = disc(soft_s), disc(soft_t.detach())
             loss_d = 0.5 * (bce_logits_loss(out_s, torch.ones_like(out_s))
                             + bce_logits_loss(out_t, torch.zeros_like(out_t)))
-            loss_d.backward()
+            mesh.backward(loss_d)
         adv.d_opt.update()
         return {"loss": loss.detach(), "loss_seg": loss_seg.detach(),
                 "loss_adv": loss_adv.detach(), "loss_d": loss_d.detach()}

@@ -20,7 +20,11 @@ cuDNN and the kernels' caches are set up by it), then one step is captured
 replayed. Each replay's metrics are cloned before the next replay writes
 over them. On the CPU a chunk is K eager steps, so the chunk schedule runs
 there too; on the card a step that cannot be captured raises: nothing falls
-back to eager steps.
+back to eager steps. Under data parallelism on NCCL the step's
+collectives (the BatchNorm statistics, the loss sums, the gradient
+all-reduce) are captured with it (``chip_smoke.py``'s ``[dp]`` replays
+them from a graph on a group of one); a gloo group's cannot be, and a
+chunk on the card over gloo raises.
 """
 
 import collections
@@ -34,6 +38,7 @@ from uemda_tpu_torch.infer.graph import (
     count_replay,
     kernel_wrappers,
 )
+from uemda_tpu_torch.parallel import mesh
 from uemda_tpu_torch.train.state import TrainState
 
 # replays the host may run ahead of the device: each holds a batch upload's
@@ -147,6 +152,14 @@ class ChunkRunner:
                 raise TypeError(
                     f"steps_per_call > 1 on the card captures the step: "
                     f"{type(step_fn).__name__} has no prepare/run")
+            if mesh.world_size() > 1 and mesh.backend() != "nccl":
+                # the step's collectives go into the graph: NCCL's can be
+                # captured, gloo's cannot
+                raise RuntimeError(
+                    f"steps_per_call > 1 on the card captures the step with "
+                    f"its collectives; the process group's backend is "
+                    f"{mesh.backend()!r}, and only 'nccl' collectives can be "
+                    f"captured in a CUDA graph")
             self.stream = torch.cuda.Stream(self.device)
 
     def __call__(self, state: TrainState, pairs: Iterable

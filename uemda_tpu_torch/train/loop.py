@@ -34,9 +34,15 @@ a hung device raises ``TimeoutError`` instead of hanging the run.
 
 The mix, DCA and UVEM-ablation trainers run in ``GENE_EVERY`` chunks
 with a pseudo-label sweep between them (:func:`run_regen_chunks`;
-:func:`sweep_streams` for the last two), and the trainers refuse the
-data-parallel flags through :func:`add_unported_flags` and
-:func:`refuse_unported`.
+:func:`sweep_streams` for the last two).
+
+Data parallelism (``parallel/``, as ``uemda_tpu/train/loop.py:310-400,
+598-643``): every rank runs the same loop on its rows of each global
+batch (:func:`process_shard` in every stream), and process 0 alone locks
+the run dir, reads back and logs the metrics, writes ``metrics.jsonl``,
+``best.json``, the snapshots and the checkpoints, and evaluates. The other
+ranks never read back, so no deadline runs on them: they wait at the next
+step's first collective while process 0 evaluates.
 """
 
 import copy
@@ -64,6 +70,12 @@ from uemda_tpu_torch.models.config import DeeplabV2Config, PPMConfig
 from uemda_tpu_torch.models.deeplabv2 import DeeplabV2
 from uemda_tpu_torch.models.port import load_pretrained_backbone
 from uemda_tpu_torch.models.resnet import ResNetEncoder
+from uemda_tpu_torch.parallel.multihost import (
+    add_multihost_flags,
+    is_main_process,
+    local_batch_slice,
+    process_count,
+)
 from uemda_tpu_torch.train.checkpoints import (
     AsyncSaver,
     RunDirLock,
@@ -194,28 +206,27 @@ def add_loop_flags(parser) -> None:
                              "here")
 
 
-def add_unported_flags(parser) -> None:
-    """The JAX trainers' data-parallel flags, which the port accepts only
-    to refuse (:func:`refuse_unported`) until ROADMAP.md queue A8:
-    ``--num-devices`` and the multi-process flags."""
-    parser.add_argument("--num-devices", type=int, default=None)
-    parser.add_argument("--multihost", type=int, default=0)
-    parser.add_argument("--coordinator", type=str, default=None)
-    parser.add_argument("--num-processes", type=int, default=None)
-    parser.add_argument("--process-id", type=int, default=None)
+def add_parallel_flags(parser) -> None:
+    """The JAX trainers' data-parallel flags under their names and defaults
+    (``tools/train_src.py:61,71``): ``--num-devices`` N > 1 starts N local
+    processes, one a device, and ``--multihost``, ``--coordinator``,
+    ``--num-processes`` and ``--process-id`` join a group started
+    elsewhere (``parallel/multihost.py: launch``)."""
+    parser.add_argument("--num-devices", type=int, default=None,
+                        help="N > 1: N local processes, rank i on cuda:i (on "
+                             "the CPU over gloo with --device cpu), one "
+                             "global batch split over them")
+    add_multihost_flags(parser)
 
 
-def refuse_unported(args) -> None:
-    """Raise ``NotImplementedError`` naming the first flag of
-    :func:`add_unported_flags` that was given."""
-    for flag, hit in (("--num-devices", args.num_devices is not None),
-                      ("--multihost", bool(args.multihost)),
-                      ("--coordinator", args.coordinator is not None),
-                      ("--num-processes", args.num_processes is not None),
-                      ("--process-id", args.process_id is not None)):
-        if hit:
-            raise NotImplementedError(f"{flag}: not ported yet (ROADMAP.md "
-                                      "queue A8)")
+def process_shard(batch_size: int):
+    """This process's (start, size) rows of every global batch under data
+    parallelism (``parallel/multihost.py: local_batch_slice``), None for
+    one process (``uemda_tpu/train/loop.py:598-609``). Every stream that
+    feeds a train step takes it."""
+    if process_count() == 1:
+        return None
+    return local_batch_slice(batch_size)
 
 
 def host_crop_of(args, cfg) -> object:
@@ -229,9 +240,10 @@ def make_source_iter(cfg: PairConfig, seed: int = 0, skip: int = 0,
     """The labelled source stream behind the decode stage's thread."""
     ds = SegDataset(cfg.meta, list(cfg.source.image_dir),
                     list(cfg.source.mask_dir)[0])
-    return prefetch(infinite_batches(ds, cfg.source.batch_size, seed=seed,
-                                     skip_batches=skip,
-                                     host_crop=host_crop)), ds
+    return prefetch(infinite_batches(
+        ds, cfg.source.batch_size, seed=seed, skip_batches=skip,
+        process_shard=process_shard(cfg.source.batch_size),
+        host_crop=host_crop)), ds
 
 
 def make_target_iter(cfg: PairConfig, seed: int = 1, read_sup: bool = False,
@@ -243,9 +255,10 @@ def make_target_iter(cfg: PairConfig, seed: int = 1, read_sup: bool = False,
     ds = SegDataset(cfg.meta, list(cfg.target.image_dir), prob_dir,
                     read_sup=read_sup,
                     label_type="prob" if prob_dir else "none")
-    return prefetch(infinite_batches(ds, cfg.target.batch_size, seed=seed,
-                                     skip_batches=skip,
-                                     host_crop=host_crop)), ds
+    return prefetch(infinite_batches(
+        ds, cfg.target.batch_size, seed=seed, skip_batches=skip,
+        process_shard=process_shard(cfg.target.batch_size),
+        host_crop=host_crop)), ds
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -350,7 +363,7 @@ def maybe_resume(state: TrainState, run_dir: str, resume, logger):
     if src is None:
         for stale in ("best.json", "metrics.jsonl"):
             p = os.path.join(run_dir, stale)
-            if os.path.exists(p):
+            if is_main_process() and os.path.exists(p):
                 os.remove(p)
         return state, 0, state_path
     state.load_state_dict(load_checkpoint(src))
@@ -421,7 +434,7 @@ def run_training_loop(state: TrainState, step_fn: Callable, source_iter,
     statistics (``ChunkRunner.close``) or None, 'saver': the snapshot
     writer's ``fetch_s``, ``write_s`` and ``nbytes`` or None}."""
     lock = None
-    if state_path:
+    if state_path and is_main_process():
         lock = RunDirLock(os.path.dirname(os.path.abspath(state_path)))
         lock.acquire()
     try:
@@ -452,6 +465,11 @@ def _run_training_loop(state, step_fn, source_iter, target_iter, stop_steps,
                 return fn()
         return _deadline(on_stream, timeout, what)
 
+    # under data parallelism process 0 alone reads back, logs, evaluates
+    # and writes the run dir (module docstring)
+    main = is_main_process()
+    if not main:
+        state_path = eval_fn = on_best = None
     run_dir = os.path.dirname(os.path.abspath(state_path)) if state_path \
         else None
     best_json = os.path.join(run_dir, "best.json") if run_dir else None
@@ -485,10 +503,12 @@ def _run_training_loop(state, step_fn, source_iter, target_iter, stop_steps,
     try:
         while state.step - step_offset < stop_steps:
             i = state.step - step_offset
-            if profile_dir is not None and i == trace_start:
+            # every rank keeps the window's single steps; process 0 traces
+            if profile_dir is not None and i == trace_start and main:
                 prof = _start_profiler(dev)
-            if prof is not None and i == trace_stop:
-                _stop_profiler(prof, dev, profile_dir, logger)
+            if profile_dir is not None and i == trace_stop:
+                if prof is not None:
+                    _stop_profiler(prof, dev, profile_dir, logger)
                 prof = profile_dir = None
             k = 1
             if runner is not None and i > 0 and profile_dir is None:
@@ -508,7 +528,7 @@ def _run_training_loop(state, step_fn, source_iter, target_iter, stop_steps,
                     on_step(state.step - len(chunk) + j + 1, m)
             metrics = chunk[-1]
             i = state.step - step_offset
-            if i == 1 or i % log_every == 0:
+            if main and (i == 1 or i % log_every == 0):
                 m = deadline(lambda: {k: float(v) for k, v in metrics.items()},
                              f"metric readback @ iter {i}")
                 msg = ", ".join(f"{k}={v:.4g}" for k, v in m.items())
@@ -592,9 +612,10 @@ def sweep_streams(model, cfg: PairConfig, pseudo_dir: str, read_sup: bool,
     def target_stream(skip: int):
         ds = SegDataset(cfg.meta, list(cfg.target.image_dir), pseudo_dir,
                         label_type="prob", read_sup=read_sup)
-        return prefetch(infinite_batches(ds, cfg.target.batch_size, seed=1,
-                                         skip_batches=skip,
-                                         host_crop=host_crop))
+        return prefetch(infinite_batches(
+            ds, cfg.target.batch_size, seed=1, skip_batches=skip,
+            process_shard=process_shard(cfg.target.batch_size),
+            host_crop=host_crop))
 
     return regen, target_stream
 

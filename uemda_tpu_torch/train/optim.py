@@ -37,6 +37,8 @@ from typing import Callable, Dict, List, Sequence
 
 import torch
 
+from uemda_tpu_torch.parallel import mesh
+
 FREEZE_SUBTREES = {
     # freeze_at levels -> trunk children (resnet.py:119-130)
     1: ["conv1", "bn1", "stem"],
@@ -128,6 +130,7 @@ class SGD:
         keep their addresses); returns the global gradient norm (before
         clipping) as a device scalar. Does not advance :attr:`count`."""
         grads = [p.grad for p in self.params]
+        mesh.all_reduce_grads(grads)   # data parallelism: sum over ranks
         if any(g is None for g in grads):
             missing = [n for n, g in zip(self.names, grads) if g is None]
             raise RuntimeError(f"no gradient for {missing[:3]} ...")

@@ -27,6 +27,12 @@ model's device for the dropout masks -- so a step's draws do not depend on
 what ran before it, like JAX's ``fold_in(key, step)``. Tests inject the
 draws (:class:`StepDraws`) instead.
 
+Under data parallelism (``parallel/mesh.py``) each rank holds its rows of
+the global batch: the draws are made for the global batch and sliced to
+the rank's rows, every reduction over the batch is global, the step
+backpropagates its share of the replicated loss and the optimizer sums the
+gradients over the ranks. At world size 1 none of that changes a bit.
+
 A step is two parts: :meth:`_Step.prepare` (the host's: the draws, made
 and uploaded) and :meth:`_Step.run` (the device's: no host
 synchronisation, and every tensor of the state written in place), which
@@ -77,6 +83,7 @@ from uemda_tpu_torch.ops.mixing import (
 )
 from uemda_tpu_torch.ops.pseudo import pseudo_selection
 from uemda_tpu_torch.ops.resize import upsample_logits
+from uemda_tpu_torch.parallel import mesh
 from uemda_tpu_torch.train.state import TrainState
 
 
@@ -147,6 +154,25 @@ def step_generators(seed: int, step: int, device: torch.device
     host = torch.Generator().manual_seed(int(a) >> 1)
     dev = torch.Generator(device=device).manual_seed(int(b) >> 1)
     return host, dev
+
+
+def global_draws(draws: AugDraws) -> AugDraws:
+    """This rank's rows of augmentation draws made for the global batch
+    (``parallel/mesh.py``); the draws themselves at world size 1."""
+    if mesh.world_size() == 1:
+        return draws
+    return AugDraws(mesh.shard_rows(draws.offsets), mesh.shard_rows(draws.d4),
+                    draws.mode)
+
+
+def rank_dropout_masks(model, batch: int, crop_hw,
+                       generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """:func:`draw_dropout_masks` for the global batch of ``batch`` local
+    rows, then this rank's rows: every rank draws the same bits, as one
+    rank at the global batch would."""
+    masks = draw_dropout_masks(model, batch * mesh.world_size(), crop_hw,
+                               generator)
+    return {k: mesh.shard_rows(m) for k, m in masks.items()}
 
 
 def draw_dropout_masks(model, batch: int, crop_hw, generator: torch.Generator
@@ -288,9 +314,11 @@ class _Step:
         dev = batch_s["image"].device
         if draws is None:
             def draw(batch, mode):
+                # for the global batch, then this rank's rows
                 image = batch["image"]
-                return draw_augment(host_gen, image.shape[0], image.shape[1:3],
-                                    hp.crop, mode)
+                return global_draws(draw_augment(
+                    host_gen, image.shape[0] * mesh.world_size(),
+                    image.shape[1:3], hp.crop, mode))
 
             draws = StepDraws(
                 draw(batch_s, "oneof"),
@@ -298,7 +326,7 @@ class _Step:
 
         def masks(given, batch):
             if given is None:
-                return draw_dropout_masks(self.model, batch["image"].shape[0],
+                return rank_dropout_masks(self.model, batch["image"].shape[0],
                                           hp.crop, dev_gen)
             return {k: to_device(m.bool(), dev) for k, m in given.items()}
 
@@ -327,7 +355,7 @@ class _Step:
         bs, bt = self._augment(batch_s, batch_t, draws)
         params = cast_params(model, self.dtype)
         metrics = self.losses(state, bs, bt, params, draws)
-        metrics["loss"].backward()
+        mesh.backward(metrics["loss"])
         state.opt.update()
         _write_back(state, kept)
         return {k: v.detach() for k, v in metrics.items()}
@@ -556,11 +584,11 @@ class SslStep(_Step):
         loss_src = self._source_loss(state, [p1, p2], bs["label"])
         loss_tgt = self._target_loss(state, [t1, t2], label_t, w, u)
         with torch.no_grad():
-            selected = (label_t != hp.ignore_label).float().mean()
-            trained = (u <= hp.uvem_t).float().mean()
+            selected = mesh.gmean((label_t != hp.ignore_label).float())
+            trained = mesh.gmean((u <= hp.uvem_t).float())
         return {"loss": loss_src + loss_tgt, "loss_source": loss_src,
                 "loss_target": loss_tgt, "selected": selected,
-                "trained": trained, "w_mean": w.mean()}
+                "trained": trained, "w_mean": mesh.gmean(w)}
 
 
 class MixStep(SslStep):
@@ -614,7 +642,7 @@ class MixStep(SslStep):
         drop_m = draws.drop_m if draws is not None else None
         if self.mining_forward:
             if drop_m is None:
-                drop_m = draw_dropout_masks(self.model,
+                drop_m = rank_dropout_masks(self.model,
                                             batch_t["image"].shape[0],
                                             hp.crop, dev_gen)
             drop_m = {k: to_device(m.bool(), dev) for k, m in drop_m.items()}
@@ -771,8 +799,9 @@ class InitProtoStep:
         if draws is None:
             image = batch_s["image"]
             host_gen, _ = step_generators(seed, index, torch.device("cpu"))
-            draws = draw_augment(host_gen, image.shape[0], image.shape[1:3],
-                                 hp.crop, "oneof")
+            draws = global_draws(draw_augment(
+                host_gen, image.shape[0] * mesh.world_size(),
+                image.shape[1:3], hp.crop, "oneof"))
         self.model.train()
         bs = augment_batch(batch_s, hp.crop, hp.src_mean, hp.src_std, draws)
         with torch.no_grad():

@@ -8,9 +8,13 @@ package pins ``Precision.HIGHEST``.
 """
 
 import torch
+import torch.distributed as dist
 
 
 def resolve_device(device=None) -> torch.device:
+    """``device`` (None: the card). A rank of a data-parallel group
+    (``parallel/``) resolves a bare 'cuda' to its own card, the current
+    device its launcher set."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -18,6 +22,9 @@ def resolve_device(device=None) -> torch.device:
             "device='cpu' to run its plain PyTorch versions on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise RuntimeError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None and dist.is_available() \
+            and dist.is_initialized():
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
