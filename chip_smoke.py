@@ -67,7 +67,16 @@ weights from a seed):
   the collectives a step takes at world size > 1 (global BatchNorm, the
   all-reduces, the all-gather) captured in a CUDA graph on the NCCL group
   and replayed against their eager run; and two ranks sharing the card
-  over gloo for the step's collectives.
+  over gloo for the step's collectives;
+* ``[tools]`` the analysis and gate tools on the chain's model:
+  ``class_rates`` of the in-memory splits against a numpy recount,
+  ``sample_features`` (the train-mode forward, K1) of four 1024^2 tiles a
+  domain, the host-crop A/B (``hostcrop_ab``) at the loveda_synth
+  geometry, ``profile_summary`` on a chrome trace of three stage-1 steps
+  (each stream's busy time against its union counted apart, the events
+  that overlap on a stream), ``real_data_gate`` on the model's ``.pth``
+  (pins, the strict load, ``--kind imagenet --out``, the eval stage) and
+  ``slide_predict`` against an eager predictor.
 
 ``[serve-graph]`` takes every bf16 serving mode through the captured
 slide predictor (``infer/graph.py``) at batch 1, 8 and 32 on 512^2 tiles,
@@ -193,11 +202,12 @@ CARD = [""]    # nvidia-smi's name and power limit, filled by main()
 
 
 def profile_steps(what, step_fn, state, src_it, tgt_it, dev, ms_step, n=3,
-                  run=None):
+                  run=None, trace=None):
     """``n`` more steps under the profiler (eager steps of ``step_fn``, or
     ``run()``, which takes ``n`` steps): device time per step, the device's
     idle share, device time by kernel and by operator, and the host's
-    operator time. Returns the device ms a step and the idle share of the
+    operator time. ``trace``: the profile also written there as a chrome
+    trace. Returns the device ms a step and the idle share of the
     event-timed step ``ms_step``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -216,6 +226,8 @@ def profile_steps(what, step_fn, state, src_it, tgt_it, dev, ms_step, n=3,
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    if trace is not None:
+        prof.export_chrome_trace(trace)
     rows, ops, total_us = profile_rows(prof, n)
     if total_us <= 0:
         phase("profile", f"{what}: device time not measured (profiler saw "
@@ -2984,6 +2996,308 @@ def prep_phase(dev, ctx, astate):
     return counts, timing
 
 
+TOOLS_TILES = 4   # [tools]: 1024^2 tiles a domain for sample_features
+AB_STEPS, AB_WARMUP, AB_PAIRS = 10, 3, 2   # [tools]: the host-crop A/B
+
+
+def _numpy_majority(label, s, nc, min_ratio=0.75):
+    """``downscale_label`` recounted in numpy: each s x s cell's most
+    frequent class (ignore -1 voting as class ``nc``, ties to the lower
+    class), ignore where the winner is ``nc`` or holds less than
+    ``min_ratio`` of the cell."""
+    import numpy as np
+
+    h, w = label.shape
+    lab = np.where(label == -1, nc, label).reshape(h // s, s, w // s, s)
+    counts = np.stack([(lab == c).sum(axis=(1, 3)) for c in range(nc + 1)],
+                      -1)
+    win = counts.argmax(-1)
+    ok = (win != nc) & (counts.max(-1) >= min_ratio * s * s)
+    return np.where(ok, win, -1).astype(np.int32)
+
+
+def _stream_overlaps(evs):
+    """(union ns, summed ns, [(overlap ns, earlier name, later name)]) of
+    one stream's (start, end, name) events sorted by start: the union
+    counted with numpy, apart from ``profile_summary``'s, and each event
+    that starts before the stream's earlier events have ended (on Hopper
+    a kernel may start before its predecessor ends: programmatic
+    dependent launch)."""
+    import numpy as np
+
+    a = np.array([(s, e) for s, e, _ in evs], np.int64)
+    prev = np.maximum.accumulate(a[:, 1])
+    before = np.concatenate([a[:1, 0], prev[:-1]])
+    union = int(np.clip(a[:, 1] - np.maximum(a[:, 0], before), 0, None).sum())
+    lap = [(int(min(a[i, 1], before[i]) - a[i, 0]), evs[i - 1][2], evs[i][2])
+           for i in range(1, len(evs)) if a[i, 0] < before[i]]
+    return union, int((a[:, 1] - a[:, 0]).sum()), lap
+
+
+def tools_phase(dev, ctx):
+    """``[tools]``: the analysis and gate tools on the chain's model
+    (ResNet-50 OS16, twin PPM heads, instance norm, 2urban), every launch
+    count set to 0 just before and read just after (returned). (a)
+    ``class_rates`` of the in-memory source and target splits against a
+    numpy recount; (b) ``sample_features`` of ``TOOLS_TILES`` 1024^2 tiles
+    a domain (labels against a numpy recount of the same draws, finite
+    features, the BatchNorm buffers unchanged, ms an image); (c)
+    ``hostcrop_ab`` at the loveda_synth geometry in memory (1024^2 tiles,
+    512^2 crops, batch 8); (d) ``profile_summary`` on a chrome trace of
+    three stage-1 steps (each stream's busy time against the union of its
+    events counted apart, the events that overlap on a stream, the
+    device's busy share beside ``profile_steps``' idle share); (e)
+    ``real_data_gate`` on the model's ``.pth`` (pins, the strict load,
+    ``--kind imagenet --out``, the eval stage against
+    ``evaluate_dataset``); (f) ``slide_predict`` against an eager
+    predictor."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from uemda_tpu_torch.datasets.augment import normalize
+    from uemda_tpu_torch.infer.evaluate import evaluate_dataset
+    from uemda_tpu_torch.infer.slide import make_predictor, slide_predict
+    from uemda_tpu_torch.tools import hostcrop_ab, profile_summary
+    from uemda_tpu_torch.tools import real_data_gate as gate
+    from uemda_tpu_torch.tools.class_distribution import class_rates
+    from uemda_tpu_torch.tools.tsne_dataset import (
+        sample_features,
+        train_features,
+    )
+    from uemda_tpu_torch.train.loop import build_state, default_hparams
+    from uemda_tpu_torch.train.steps import make_src_step
+
+    cfg, model = ctx["cfg"], ctx["model"]
+    nc = cfg.class_num
+    src = ctx["src"]
+    tgt = dataclasses.replace(ctx["tgt"], sup=None)
+    torch.cuda.synchronize()
+    for fn in WRAPPERS:
+        fn.launches = 0
+    t_phase = time.time()
+
+    # (a) class rates of the in-memory splits
+    for name, ds in (("source", src), ("target", tgt)):
+        got = class_rates(ds)
+        lbl = ds.labels[(ds.labels >= 0) & (ds.labels < nc)]
+        want = np.bincount(lbl, minlength=nc).astype(np.float64)
+        want /= want.sum()
+        if not np.array_equal(got, want):
+            fail(f"class_rates of the {name} split {got} against the numpy "
+                 f"recount {want}")
+        phase("tools", f"class_rates {name} ({len(ds)} x "
+              f"{ds.images.shape[1]}^2, {nc} classes) = numpy recount: "
+              f"{np.round(got, 5).tolist()}")
+
+    # (b) sample_features: train-mode features of TOOLS_TILES tiles a domain
+    model.eval()
+    before = {k: v.clone() for k, v in model.named_buffers()}
+    for name, ds, st, seed in (("source", src, cfg.source, 0),
+                               ("target", tgt, cfg.target, 1)):
+        sub = dataclasses.replace(ds, images=ds.images[:TOOLS_TILES],
+                                  labels=ds.labels[:TOOLS_TILES])
+        feats, labels = sample_features(model, sub, st.mean, st.std,
+                                        max_images=TOOLS_TILES, seed=seed)
+        rng = np.random.default_rng(seed)
+        want = []
+        for lab in sub.labels:
+            l_ = _numpy_majority(lab, 16, nc).reshape(-1)
+            keep = np.flatnonzero(l_ >= 0)
+            want.append(l_[rng.choice(keep, size=min(64, len(keep)),
+                                      replace=False)])
+        want = np.concatenate(want)
+        if not (np.array_equal(labels, want) and np.isfinite(feats).all()
+                and feats.shape == (len(want), 2048)):
+            fail(f"sample_features {name}: labels equal to the numpy recount "
+                 f"{np.array_equal(labels, want)}, finite "
+                 f"{bool(np.isfinite(feats).all())}, shape {feats.shape}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(TOOLS_TILES):
+            train_features(model, sub.images[i:i + 1], st.mean, st.std)
+        torch.cuda.synchronize()
+        ms_img = (time.perf_counter() - t0) * 1e3 / TOOLS_TILES
+        phase("tools", f"sample_features {name}: {TOOLS_TILES} tiles of "
+              f"{sub.images.shape[1]}^2, {len(labels)} samples x 2048 f32, "
+              f"finite; labels = numpy recount of the same draws; "
+              f"{ms_img:.3f} ms an image (train-mode forward, host to host)")
+    changed = [k for k, v in model.named_buffers()
+               if not torch.equal(v, before[k])]
+    if changed or model.training:
+        fail(f"sample_features moved the model's buffers {changed[:3]} or "
+             f"left it in train mode ({model.training})")
+    phase("tools", "sample_features left the model's BatchNorm buffers "
+          "unchanged and the model in eval mode")
+    del before
+
+    # (c) the host-crop A/B at the loveda_synth geometry, in memory
+    ab_cfg = dataclasses.replace(cfg, name="loveda_synth (in memory)")
+
+    def make_iters(host_crop):
+        return (stream(src, 50, host_crop), stream(tgt, 51, host_crop))
+
+    t0 = time.time()
+    record, losses = hostcrop_ab.run_ab(model, ab_cfg, make_iters, AB_STEPS,
+                                        AB_WARMUP, AB_PAIRS)
+    if not all(np.isfinite(ls).all() for v in losses.values() for ls in v):
+        fail(f"hostcrop_ab: losses {losses}")
+    phase("tools", f"hostcrop_ab ({AB_PAIRS} pairs, {AB_WARMUP} warm-up + "
+          f"{AB_STEPS} timed stage-1 steps an arm, bf16, batch {BATCH}, "
+          f"{src.images.shape[1]}^2 tiles -> {cfg.crop[0]}^2, the loss read "
+          f"back every step) in {time.time() - t0:.1f} s; {CARD[0]}:")
+    print(json.dumps(record), flush=True)
+
+    # (d) profile_summary on a trace of three stage-1 steps
+    hp = default_hparams(cfg, align_domain=True, compute_dtype="bfloat16")
+    m_ = copy.deepcopy(model)
+    state = build_state(m_, cfg, 1000)
+    src_it, tgt_it = stream(src, 52), stream(tgt, 53)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        dev_ms, idle = profile_steps(
+            "stage-1 step for profile_summary", make_src_step(m_, hp), state,
+            src_it, tgt_it, dev, record["mean_off_ms"], trace=path)
+        events = profile_summary.load_events(path)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            summary = profile_summary.main([path, "--top", "5"])[path]
+    src_it.close()
+    tgt_it.close()
+    del m_, state
+    devices = summary["devices"]
+    if not devices:
+        fail("profile_summary found no device events in a CUDA trace")
+    for pid, s_ in devices.items():
+        for tid, busy in sorted(s_["line_busy_us"].items(),
+                                key=lambda kv: -kv[1]):
+            evs = sorted((e["ts"], e["ts"] + e["dur"], e["name"])
+                         for e in events
+                         if e.get("cat") in profile_summary.DEVICE_CATS
+                         and e["pid"] == pid and e["tid"] == tid)
+            union, summed, lap = _stream_overlaps(evs)
+            if abs(busy - union / 1e3) > 1e-6 * union / 1e3:
+                fail(f"profile_summary device {pid} stream {tid}: busy "
+                     f"{busy} us against {union / 1e3} us, the union of "
+                     "its events counted apart")
+            largest = "".join(
+                f"; {o / 1e3:.3f} us {a[:40]} -> {b[:40]}"
+                for o, a, b in sorted(lap, reverse=True)[:3])
+            phase("tools", f"profile_summary device {pid} stream {tid}: "
+                  f"{len(evs)} events, busy {busy / 1e3:.3f} ms = their "
+                  f"union counted apart (1e-6); summed durations "
+                  f"{summed / 1e6:.3f} ms: {len(lap)} events start before "
+                  f"the stream's earlier ones end, overlapping "
+                  f"{sum(o for o, _, _ in lap) / 1e3:.3f} us in all"
+                  f"{largest}")
+        share = s_["busy_us"] / s_["span_us"]
+        phase("tools", f"profile_summary on a chrome trace of 3 stage-1 steps "
+              f"(device {pid}): span {s_['span_us'] / 1e3:.3f} ms, "
+              f"{len(s_['line_busy_us'])} streams; device busy share "
+              f"{share:.4f} (idle {1 - share:.4f}); profile_steps' idle "
+              f"share {idle:.4f} of the A/B's 'off' step "
+              f"{record['mean_off_ms']} ms (device {dev_ms:.3f} ms a step)")
+    for line in buf.getvalue().splitlines()[1:]:
+        phase("tools", "  " + line.strip())
+
+    # (e) the gate on the model's .pth
+    model.eval()
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = os.path.join(d, "flagship.pth")
+        torch.save({k: v.cpu() for k, v in model.state_dict().items()}, ckpt)
+        digest = gate.sha256_file(ckpt)
+        base = ["--torch-ckpt", ckpt, "--kind", "deeplabv2",
+                "--resnet-type", "resnet50", "--num-classes", str(nc),
+                "--skip-parity"]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            ok = gate.main(base + ["--expect-sha256", digest[:16]])
+            try:
+                gate.main(base + ["--expect-sha256", "0" * 16])
+                wrong = None
+            except SystemExit as e:
+                wrong = e.code
+        lines = [json.loads(x) for x in out.getvalue().splitlines()]
+        if not (ok["ok"] and ok["sha_ok"] and wrong == 1
+                and lines[-1]["failed"] == "checksum"):
+            fail(f"real_data_gate pins: {lines}, exit {wrong}")
+        args = gate.build_parser().parse_args(base)
+        loaded = gate.port_and_load(args, gate.load_ref_sd(ckpt), dev)
+        x = normalize(torch.from_numpy(np.ascontiguousarray(
+            tgt.images[:2, :TILE, :TILE])).to(dev).permute(0, 3, 1, 2),
+            cfg.target.mean, cfg.target.std)
+        with torch.no_grad():
+            same = torch.equal(loaded(x), model(x))
+        if not same:
+            fail("real_data_gate: the strictly loaded model's eval forward "
+                 "differs from the source model's")
+        trunk = os.path.join(d, "resnet50-trunk.pth")
+        torch.save({k: v.cpu() for k, v in
+                    model.encoder.resnet.state_dict().items()}, trunk)
+        ported = os.path.join(d, "ported.pth")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rec = gate.main(["--torch-ckpt", trunk, "--num-classes", str(nc),
+                             "--allow-unverified", "--skip-parity", "--out",
+                             ported])
+        saved = torch.load(ported, map_location="cpu", weights_only=True)
+        own = model.encoder.resnet.state_dict()
+        bad = [k for k, v in own.items()
+               if not torch.equal(saved["encoder.resnet." + k], v.cpu())]
+        if not rec["ok"] or bad:
+            fail(f"real_data_gate --kind imagenet --out: {rec}, trunk keys "
+                 f"that differ {bad[:3]}")
+    split = cfg.val
+    miou_gate = gate.eval_miou(loaded, ctx["val"], split, cfg.crop, dev)
+    dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    direct = copy.deepcopy(model).to(dtype)
+    _, miou_direct = evaluate_dataset(
+        direct, ctx["val"], split.mean, split.std, tile=tuple(cfg.crop),
+        batch_size=split.batch_size, compute_dtype=dtype, device=dev)
+    if miou_gate != miou_direct:
+        fail(f"real_data_gate eval stage mIoU {miou_gate} against "
+             f"evaluate_dataset's {miou_direct}")
+    phase("tools", f"real_data_gate on the model's .pth: a correct "
+          f"--expect-sha256 pin passes, a wrong one exits 1 'checksum'; the "
+          f"strict load's eval forward on 2 x {TILE}^2 tiles bit-equal to the "
+          f"source model's; --kind imagenet --out holds the file's trunk; the "
+          f"eval stage's mIoU {miou_gate:.6f} = evaluate_dataset's "
+          f"({str(dtype).split('.')[1]}, {len(ctx['val'])} x "
+          f"{ctx['val'].images.shape[1]}^2)")
+    del loaded
+
+    # (f) slide_predict against an eager predictor
+    xs = normalize(torch.from_numpy(tgt.images[:1]).to(dev)
+                   .permute(0, 3, 1, 2), cfg.target.mean, cfg.target.std)
+    got = slide_predict(direct, xs, tuple(cfg.crop), tta=True,
+                        compute_dtype=dtype)
+    with make_predictor(direct, tuple(cfg.crop), tuple(xs.shape[2:]),
+                        tta=True, compute_dtype=dtype, capture=False) as eager:
+        want = eager(xs)
+    if not torch.equal(got, want):
+        fail(f"slide_predict differs from the eager predictor by "
+             f"{max_err(got, want)}")
+    phase("tools", f"slide_predict ({str(dtype).split('.')[1]}, 8-view TTA, "
+          f"{tuple(xs.shape)} with "
+          f"{cfg.crop[0]}^2 tiles) bit-equal to make_predictor(capture="
+          f"False)")
+    del direct, got, want
+    torch.cuda.synchronize()
+    counts = {fn.__name__: fn.launches for fn in WRAPPERS}
+    for name in ("instance_norm", "instance_norm_backward",
+                 "tail_upsample_softmax_mean", "crop_normalize"):
+        if counts[name] <= 0:
+            fail(f"{name} was not launched on the [tools] path")
+    phase("tools", f"phase {time.time() - t_phase:.1f} s; {CARD[0]}")
+    phase("launches", f"[tools] path (class rates, sample_features, the "
+          f"host-crop A/B, the profiled steps, the gate, slide_predict): "
+          f"{json.dumps(counts)}")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     import torch
 
@@ -3877,6 +4191,11 @@ def main():
     #    predictor; two gloo ranks sharing the card
     dp_launches = dp_phase(dev, ctx, sctx)
     del sctx
+    mark("tools")
+    # 11c. the analysis and gate tools on the chain's model: class rates,
+    #    sample_features, the host-crop A/B, the profile reader, the gate,
+    #    slide_predict, with their own counts
+    tools_launches = tools_phase(dev, ctx)
 
     mark("timing")
     # 12. timing (bf16, the serving and training dtype; K9 on uint8 tiles,
@@ -4070,11 +4389,12 @@ def main():
                                      abl_launches)]
         n_prep = prep_launches[fn_name]
         n_dp = dp_launches[fn_name]
+        n_tools = tools_launches[fn_name]
         record.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": (n_serve + n_fused + n_int8 + n_train + n_align
                          + n_prep + n_ssl + n_mix + n_zoo + sum(n_da)
-                         + n_dp),
+                         + n_dp + n_tools),
             "launches_serve": n_serve, "launches_fused": n_fused,
             "launches_int8": n_int8, "launches_train": n_train,
             "launches_align": n_align, "launches_prep": n_prep,
@@ -4082,6 +4402,7 @@ def main():
             "launches_mix": n_mix, "launches_zoo": n_zoo,
             "launches_adv": n_da[0], "launches_dca": n_da[1],
             "launches_abl": n_da[2], "launches_dp": n_dp,
+            "launches_tools": n_tools,
             "max_abs_err": errs[(name, dn)], "ms": ms,
             "ms_with_host": host_ms,
             "plain_ms": plain_ms, "bound_ms": bound,

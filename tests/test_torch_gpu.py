@@ -9,8 +9,9 @@ on the card against the CPU, the fused and int8 fast paths, training
 steps that go through the kernels (the adversarial and DCA steps eager
 against their CUDA-graph replays), TransNorm and the discriminator in
 bf16 against f32, the captured serving predictor against eager calls (and
-its pool, and a capture that fails), and the card as the entry points'
-default.
+its pool, and a capture that fails), ``sample_features`` on the card
+against the CPU, ``slide_predict`` against an eager predictor, the trace
+reader on a CUDA trace, and the card as the entry points' default.
 
 These tests need an NVIDIA GPU and skip without one. They import neither JAX
 nor the JAX package, so they run where only PyTorch is installed; the
@@ -1926,3 +1927,104 @@ def test_two_cards_equal_one_card_at_the_global_batch(dev, tmp_path):
     bad = {k: v for k, v in worst.items()
            if not v <= limits[k.split()[-1]]}
     assert not bad, bad
+
+
+def test_sample_features_on_the_card_equals_the_cpu(dev):
+    """``tsne_dataset.sample_features`` (the train-mode forward, K1 on the
+    card) against the same model on the CPU (plain instance norm):
+    ResNet-18, two 128^2 LoveDA tiles, f32 without TF32; the same picks,
+    the features within the eval forward's gate (rtol 1e-3 / atol 2e-4),
+    K1 launched, every BatchNorm buffer unchanged on both sides."""
+    import copy
+
+    from uemda_tpu_torch.datasets.meta import LoveDA
+    from uemda_tpu_torch.datasets.synthetic import synthetic_split
+    from uemda_tpu_torch.tools.tsne_dataset import sample_features
+
+    ds = synthetic_split(LoveDA, n=2, hw=128, seed=3)
+    cpu = DeeplabV2(DeeplabV2Config.uemda_default(7, resnet_type="resnet18"),
+                    device="cpu", generator=torch.Generator().manual_seed(6))
+    card = copy.deepcopy(cpu).to(dev)
+    before = {k: v.clone() for k, v in cpu.state_dict().items()}
+    mean, std = (120.0, 82.0, 81.0), (55.0, 39.0, 38.0)
+    k1 = instance_norm.launches
+    got, got_l = sample_features(card, ds, mean, std, samples_per_image=32)
+    assert instance_norm.launches > k1
+    want, want_l = sample_features(cpu, ds, mean, std, samples_per_image=32)
+    assert np.array_equal(got_l, want_l) and got.shape == (64, 512)
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=2e-4)
+    for model in (cpu, card):
+        for k, v in model.state_dict().items():
+            assert torch.equal(v.cpu(), before[k]), k
+
+
+def test_slide_predict_equals_the_eager_predictor(dev):
+    """``slide_predict`` (one call, no capture) bit-equal to an eager
+    ``make_predictor`` on the same bf16 model, with and without TTA:
+    ResNet-18, a (2, 3, 160, 96) batch, 64^2 tiles; K3 launched."""
+    from uemda_tpu_torch.infer.slide import make_predictor, slide_predict
+
+    model = DeeplabV2(DeeplabV2Config.uemda_default(6, resnet_type="resnet18"),
+                      device=dev, generator=torch.Generator().manual_seed(2))
+    model = model.to(torch.bfloat16)
+    x = _randn((2, 3, 160, 96), 8, dev, torch.float32)
+    for tta in (False, True):
+        k3 = tail_upsample_softmax_mean.launches
+        got = slide_predict(model, x, (64, 64), tta=tta)
+        assert tail_upsample_softmax_mean.launches > k3
+        with make_predictor(model, (64, 64), (160, 96), tta=tta,
+                            capture=False) as eager:
+            want = eager(x)
+        assert got.shape == (2, 6, 160, 96) and torch.equal(got, want), tta
+
+
+def test_profile_summary_reads_a_cuda_trace(dev, tmp_path):
+    """A chrome trace of matmuls on two streams and a copy: the reader
+    finds the card's events; each stream's busy time is at most its
+    events' summed durations (a Hopper kernel may start before its
+    predecessor on the stream ends) and equals their union counted
+    apart, to 1e-6; the device's busy time lies between the largest
+    stream's and their sum; both matmuls are in the top list with their
+    five calls."""
+    import json as json_
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from uemda_tpu_torch.tools import profile_summary
+
+    a = torch.randn(2048, 2048, device=dev)
+    side = torch.cuda.Stream(dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            b = a @ a
+            with torch.cuda.stream(side):
+                c = a @ a.t()
+        host = c.cpu()
+        torch.cuda.synchronize()
+    assert host.shape == b.shape
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    events = profile_summary.load_events(path)
+    res = profile_summary.main([path, "--top", "3"])[path]
+    assert res["devices"], "no device events in a CUDA trace"
+    for pid, s in res["devices"].items():
+        lines = s["line_busy_us"]
+        for tid, busy in lines.items():
+            iv = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                        if e.get("cat") in profile_summary.DEVICE_CATS
+                        and e["pid"] == pid and e["tid"] == tid)
+            union, end = 0, None
+            for a0, a1 in iv:
+                start = a0 if end is None else max(a0, end)
+                union += max(a1 - start, 0)
+                end = a1 if end is None else max(end, a1)
+            summed = sum(a1 - a0 for a0, a1 in iv)
+            assert abs(busy * 1e3 - union) <= 1e-6 * union, (tid, busy, union)
+            assert union <= summed
+        assert max(lines.values()) <= s["busy_us"] <= sum(lines.values()) \
+            + 1e-9
+        assert s["busy_us"] <= s["span_us"]
+        assert sum(s["calls"][n] >= 5 for n, _ in s["top"]) >= 2, s["top"]
+    assert json_.loads(open(path).read())["traceEvents"]

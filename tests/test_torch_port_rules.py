@@ -26,9 +26,14 @@ PKG = ROOT / "uemda_tpu_torch"
 BANNED = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "uemda_tpu")
 
 
+RUNS = PKG / "runs"   # config files, run by load_config: not modules
+
+
 def _modules():
     out = []
     for f in sorted(PKG.rglob("*.py")):
+        if f.parent == RUNS:
+            continue
         parts = f.relative_to(ROOT).with_suffix("").parts
         out.append(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
     return out
@@ -85,6 +90,44 @@ print("clean", len({_modules()!r}))
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.split() == ["clean", str(len(_modules()))]
+
+
+def test_loading_the_config_twins_loads_no_jax():
+    """A fresh interpreter that refuses JAX, flax and ``uemda_tpu`` loads
+    every ``uemda_tpu_torch/runs/*_config.py`` through ``load_config``
+    (the files :func:`_modules` leaves out: loading one writes its data,
+    so the generator is replaced by a recorder here)."""
+    code = f"""
+import sys
+BANNED = {BANNED!r}
+for name in list(sys.modules):
+    if name.split(".")[0] in BANNED:
+        del sys.modules[name]
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BANNED:
+            raise ImportError("the port may not import " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import os
+import uemda_tpu_torch.datasets.synthetic as synth
+from uemda_tpu_torch.config import load_config
+calls = []
+synth.make_synthetic_dataset = lambda root, meta, **kw: calls.append(root)
+os.path.isdir = lambda p: False
+names = sorted(f for f in os.listdir({str(RUNS)!r}) if f.endswith(".py"))
+for f in names:
+    load_config(os.path.join({str(RUNS)!r}, f))
+left = sorted(n for n in sys.modules if n.split(".")[0] in BANNED)
+assert not left, left
+print(len(names), len(calls))
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.split() == ["5", "10"]
 
 
 def test_entry_points_need_the_card_unless_asked_for_cpu(monkeypatch):

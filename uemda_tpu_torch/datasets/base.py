@@ -215,3 +215,19 @@ def sequential_batches(dataset, batch_size: int = 1,
     finally:
         if ex is not None:
             ex.shutdown(wait=False)
+
+
+def kfold_indices(n: int, k: int = 10, fold: int = 0, seed: int = 2333):
+    """Deterministic k-fold split ``(train_idx, val_idx)``
+    (``uemda_tpu/datasets/base.py:208-219``; ever's
+    CrossValSamplerGenerator behind DALoader's CV config, which every
+    shipped config disables with fold -1): a ``default_rng(seed)``
+    permutation of ``range(n)`` cut into ``k`` folds, ``fold % k`` held
+    out. ``fold < 0``: every index trains, none validates."""
+    if fold < 0:
+        return np.arange(n), np.arange(0)
+    perm = np.random.default_rng(seed).permutation(n)
+    folds = np.array_split(perm, k)
+    val = folds[fold % k]
+    train = np.concatenate([f for j, f in enumerate(folds) if j != fold % k])
+    return train, val

@@ -25,12 +25,21 @@ def _blocky_labels(rng, hw: int, num_classes: int, cell: int = 16) -> np.ndarray
 
 
 def _render(rng, label: np.ndarray, num_classes: int, shift: float = 0.0,
-            noise: float = 12.0):
-    """Class-colored image with noise; ``shift`` emulates a domain gap."""
+            noise: float = 12.0, palette_mix: float = 0.0):
+    """Class-colored image with noise; ``shift`` emulates a domain gap.
+    The harder-shift knobs (``uemda_tpu/datasets/synthetic.py:24-47``):
+    ``noise`` is the pixel noise's sigma (past the ~29-level palette step
+    per-pixel class evidence turns ambiguous while the 16-pixel blocks stay
+    recoverable by pooling); ``palette_mix`` rotates each class's color
+    that fraction of the way toward the next class's (a systematic
+    confusion of adjacent classes)."""
     palette = (
         np.linspace(40, 215, num_classes)[:, None]
         * np.array([[1.0, 0.8, 0.6]])
     )  # (C, 3)
+    if palette_mix > 0.0:
+        palette = (1.0 - palette_mix) * palette + palette_mix * np.roll(
+            palette, -1, axis=0)
     img = palette[label] + rng.normal(0, noise, size=label.shape + (3,))
     img = img + shift
     return np.clip(img, 0, 255).astype(np.uint8)
@@ -67,11 +76,15 @@ def synthetic_split(meta: DatasetMeta, n: int, hw: int, seed: int = 0,
 
 def make_synthetic_dataset(root: str, meta: DatasetMeta, n_train: int = 8,
                            n_val: int = 2, hw: int = 64, seed: int = 0,
-                           domain_shift: float = 0.0, with_sup: bool = True
-                           ) -> Tuple[str, str]:
+                           domain_shift: float = 0.0, with_sup: bool = True,
+                           pad_border: int = 0, noise: float = 12.0,
+                           palette_mix: float = 0.0) -> Tuple[str, str]:
     """Write train/val splits as PNGs and, with ``with_sup``, the superpixel
     maps as uint16 ``.tif`` under ``ann_dir/<split>_sup_shrink``; returns
-    (img_dir_train, ann_dir_train)."""
+    (img_dir_train, ann_dir_train). ``noise`` and ``palette_mix``: see
+    :func:`_render`. ``pad_border``: every other tile (even index) gets a
+    black border of that many pixels on its top and left with raw mask 0
+    there, LoveDA's padding (raw 0 is ignore under its offset -1)."""
     from PIL import Image
 
     rng = np.random.default_rng(seed)
@@ -84,8 +97,12 @@ def make_synthetic_dataset(root: str, meta: DatasetMeta, n_train: int = 8,
             os.makedirs(ann_dir + "_sup_shrink", exist_ok=True)
         for i in range(n):
             label = _blocky_labels(rng, hw, meta.num_classes)
-            img = _render(rng, label, meta.num_classes, shift=domain_shift)
+            img = _render(rng, label, meta.num_classes, shift=domain_shift,
+                          noise=noise, palette_mix=palette_mix)
             raw = (label - meta.offset).astype(np.uint8)
+            if pad_border > 0 and i % 2 == 0:
+                raw[:pad_border] = img[:pad_border] = 0
+                raw[:, :pad_border] = img[:, :pad_border] = 0
             Image.fromarray(img).save(os.path.join(img_dir, f"tile_{i:03d}.png"))
             Image.fromarray(raw).save(os.path.join(ann_dir, f"tile_{i:03d}.png"))
             if with_sup:

@@ -116,3 +116,20 @@ def make_predictor(
         return out if epilogue is None else epilogue(out)
 
     return Predictor(predict, capture)
+
+
+def slide_predict(model: Callable[[torch.Tensor], torch.Tensor],
+                  images: torch.Tensor, tile: Tuple[int, int] = (512, 512),
+                  tta: bool = False,
+                  compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """One-off slide(+TTA) prediction of ``images`` (B, 3, H, W), normalized
+    (``uemda_tpu/infer/slide.py:133-136``): a :func:`make_predictor` for
+    their size, called once without a capture (a CUDA graph would be paid
+    for one batch), then released. ``model`` as :func:`make_predictor`
+    takes it, its weights already in ``compute_dtype``."""
+    predictor = make_predictor(model, tile, tuple(images.shape[2:]), tta=tta,
+                               compute_dtype=compute_dtype, capture=False)
+    try:
+        return predictor(images)
+    finally:
+        predictor.close()

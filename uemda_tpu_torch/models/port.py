@@ -219,14 +219,21 @@ def load_pretrained_backbone(model, path: str) -> None:
     keep their init, ``fc.*`` and ``num_batches_tracked`` are ignored. A
     trunk key the model has and the file lacks, a trunk key of the file the
     model lacks (another depth), or a shape mismatch raises before anything
-    is written. Any other suffix (a JAX ``.msgpack``) is refused: convert it
-    with ``tools/port_weights.py --kind export`` and load the ``.pth``."""
+    is written. A full model's state dict (reference keys, ``encoder.*``:
+    what ``tools/real_data_gate.py --kind imagenet --out`` writes) loads
+    whole and strictly, as the JAX package loads a full-variables
+    ``--pretrained`` file. Any other suffix (a JAX ``.msgpack``) is
+    refused: convert it with ``tools/port_weights.py --kind export`` and
+    load the ``.pth``."""
     if not path.endswith((".pth", ".pt")):
         raise ValueError(
             f"--pretrained {path!r}: the port reads torchvision-style .pth/.pt "
             "ImageNet weights; convert a JAX checkpoint with "
             "'python tools/port_weights.py --kind export' first")
     sd = load_checkpoint(path)
+    if any(k.startswith("encoder.") for k in sd):
+        model.load_state_dict(sd)
+        return
     trunk = model.encoder.resnet
     own = {k: v for k, v in trunk.state_dict().items()
            if not k.endswith("num_batches_tracked")}

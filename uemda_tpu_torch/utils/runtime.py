@@ -4,8 +4,11 @@ Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 ``RuntimeError`` when CUDA is missing. The CPU runs only when the caller asks
 for it (``device="cpu"``), as the tests do -- nothing falls back to it.
 Also the check that f32 matrix products run in full f32, where the JAX
-package pins ``Precision.HIGHEST``.
+package pins ``Precision.HIGHEST``, and the import of an optional package
+that a tool cannot run without.
 """
+
+import importlib
 
 import torch
 import torch.distributed as dist
@@ -38,3 +41,15 @@ def require_full_f32(what: str) -> None:
             "package); TF32 is on: torch.get_float32_matmul_precision() is "
             f"{torch.get_float32_matmul_precision()!r}, PyTorch's default is "
             "'highest'")
+
+
+def require_package(module: str, package: str, what: str):
+    """``module`` imported, for ``what``; without it an ``ImportError``
+    names the package to install. Nothing is skipped: the tools that draw
+    figures or embed features need these packages, and the card's machine
+    lacks some of them."""
+    try:
+        return importlib.import_module(module)
+    except ImportError as e:
+        raise ImportError(f"{what} needs the {package!r} package "
+                          f"(import {module!r} failed: {e})") from e
