@@ -1,0 +1,8 @@
+"""K2, the fast path's stem (stem.cu), in the single-tile requests: its
+roofline share in the profiled stretch."""
+
+from benchmark.harness.readers import roofline
+
+
+def read(run):
+    return roofline(run, "k2")
