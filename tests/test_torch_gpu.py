@@ -1225,21 +1225,29 @@ def test_pinned_ring_never_hands_out_a_slot_in_flight(dev):
     ``upload_batches`` while the consumer's stream is kept busy arrive
     intact and in order."""
     from uemda_tpu_torch.datasets.prefetch import PinnedRing, upload_batches
+    from uemda_tpu_torch.utils import trace
 
     ring = PinnedRing(2)
     stream = torch.cuda.Stream()
     first = None
-    with torch.cuda.stream(stream):
-        for i in range(2):
+    trace.enable()
+    try:
+        waits = trace.snapshot()["counters"].get("upload.ring_waits", 0)
+        with torch.cuda.stream(stream):
+            for i in range(2):
+                host, ev = ring.acquire("x", (1 << 20,), np.float32)
+                host.fill_(i)
+                if i == 0:
+                    torch.cuda._sleep(200_000_000)  # ~0.1 s on the stream
+                    first = host
+                torch.empty_like(host, device=dev).copy_(host,
+                                                         non_blocking=True)
+                ev.record(stream)
             host, ev = ring.acquire("x", (1 << 20,), np.float32)
-            host.fill_(i)
-            if i == 0:
-                torch.cuda._sleep(200_000_000)  # ~0.1 s on the stream
-                first = host
-            torch.empty_like(host, device=dev).copy_(host, non_blocking=True)
-            ev.record(stream)
-        host, ev = ring.acquire("x", (1 << 20,), np.float32)
-    assert host is first and ev.query() and ring.waits == 1
+        waits = trace.snapshot()["counters"]["upload.ring_waits"] - waits
+    finally:
+        trace.disable()
+    assert host is first and ev.query() and waits == 1
 
     src = [{"x": np.full((64, 64), i, np.float32),
             "y": np.full((8,), -i, np.int32)} for i in range(12)]
@@ -2028,3 +2036,99 @@ def test_profile_summary_reads_a_cuda_trace(dev, tmp_path):
         assert s["busy_us"] <= s["span_us"]
         assert sum(s["calls"][n] >= 5 for n, _ in s["top"]) >= 2, s["top"]
     assert json_.loads(open(path).read())["traceEvents"]
+
+
+def _two_phases(dev, cycles):
+    from uemda_tpu_torch.utils import trace
+
+    with trace.phases(dev):
+        trace.phase("one")
+        torch.cuda._sleep(cycles[0])
+        trace.phase("two")
+        torch.cuda._sleep(cycles[1])
+
+
+def test_phase_timers_of_a_captured_graph(dev):
+    """A captured toy step of two phases (``torch.cuda._sleep`` of about 5
+    and 10 ms): five replays run back to back with no synchronisation
+    between them, then one ``snapshot`` reads each phase's device time
+    within 5% of the same sleeps timed by CUDA events, and the replay's as
+    their sum. The same step captured with tracing off holds no marker: a
+    profiler trace of its replay has no ``uemda_phase_mark`` kernel, where
+    the traced graph's replay has three."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from uemda_tpu_torch.utils import trace
+
+    cycles = (10_000_000, 20_000_000)
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ref = [[], []]
+    for _ in range(3):
+        evs[0].record()
+        torch.cuda._sleep(cycles[0])
+        evs[1].record()
+        torch.cuda._sleep(cycles[1])
+        evs[2].record()
+        torch.cuda.synchronize()
+        ref[0].append(evs[0].elapsed_time(evs[1]))
+        ref[1].append(evs[1].elapsed_time(evs[2]))
+    ref = [float(np.median(r)) for r in ref]
+
+    def captured():
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            _two_phases(dev, cycles)   # eager: makes the ring
+        torch.cuda.current_stream().wait_stream(stream)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=stream):
+            _two_phases(dev, cycles)
+        return g
+
+    def marks(g):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            g.replay()
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages()
+                   if "uemda_phase_mark" in e.key)
+
+    trace.reset()
+    trace.enable()
+    try:
+        g = captured()
+        before = trace.snapshot()
+        for _ in range(5):
+            g.replay()
+        after = trace.snapshot()
+        assert after["replays"]["n"] - before["replays"]["n"] == 5
+        assert after["replays"]["lost"] == 0
+        got = [(after["phases"][p]["ns"] - before["phases"].get(
+            p, {"ns": 0})["ns"]) / 5 / 1e6 for p in ("one", "two")]
+        whole = (after["replays"]["ns"] - before["replays"]["ns"]) / 5 / 1e6
+        assert marks(g) == 3
+    finally:
+        trace.disable()
+        trace.reset()
+    for g_ms, r_ms in zip(got, ref):
+        assert abs(g_ms - r_ms) <= 0.05 * r_ms, (got, ref)
+    assert abs(whole - sum(got)) <= 1e-3 * whole
+    assert marks(captured()) == 0
+
+
+def test_profile_dir_spans_the_sweeps_readback(dev, tmp_path):
+    """On the card the sweeps' host waits land in the run's ``spans.json``
+    (``run_regen_chunks`` with ``profile_dir``): ``readback.wait`` once a
+    batch, and the upload worker's copies under the batch that started it;
+    the evaluations' apart, under ``loop.eval``. Each sweep's first batch
+    captures its predictor; the second is a replay (``predict.launch``)."""
+    from test_torch_trace import profile_regen_run   # beside this file
+
+    spans = profile_regen_run(tmp_path / "prof", dev)["spans"]
+    for under in ("", "loop.eval/"):
+        assert spans[under + "serve.batch"]["n"] == 2 * 2
+        assert spans[under + "readback.wait"]["n"] == 2 * 2
+        assert spans[under + "serve.batch/upload.copy"]["n"] == 2 * 2
+        call = under + "serve.batch/predict.call"
+        assert spans[call]["n"] == 2 * 2
+        assert spans[call + "/predict.launch"]["n"] == 2 * 1

@@ -24,14 +24,21 @@ from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from uemda_tpu_torch.utils import trace
+
 _POLL_S = 0.1  # how often a worker blocked on a full queue looks for a stop
 
 
-def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
+def prefetch(iterator: Iterator, depth: int = 2, name: str = "decode"
+             ) -> Iterator:
     """Wrap any batch iterator with a depth-bounded background thread.
 
     Worker exceptions (decode/IO failures) re-raise in the consumer: a
-    corrupt tile must fail the run, not silently truncate the dataset."""
+    corrupt tile must fail the run, not silently truncate the dataset.
+    While tracing is on (``utils/trace.py``) each get is the span
+    ``<name>.wait`` on the consumer's thread, the queue's depth seen at
+    each get adds to the counter ``<name>.depth``, and the worker's spans
+    hang under the span open where the first batch was asked for."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     stop = object()
     closed = threading.Event()
@@ -45,7 +52,10 @@ def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
                 continue
         return False
 
+    origin = trace.here()
+
     def worker():
+        trace.adopt(origin)
         try:
             for item in iterator:
                 if not put(item):
@@ -57,9 +67,14 @@ def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
 
     t = threading.Thread(target=worker, daemon=True)
     t.start()
+    wait_span, depth_count = name + ".wait", name + ".depth"
     try:
         while True:
-            item = q.get()
+            with trace.span(wait_span) as sp:
+                trace.count(depth_count, q.qsize())
+                item = q.get()
+                if item is stop:
+                    sp.discard()
             if item is stop:
                 return
             if isinstance(item, tuple) and len(item) == 2 and item[0] is stop:
@@ -75,12 +90,13 @@ class PinnedRing:
     turn and reused: no page-locking per batch. A slot is handed out again
     only once the copy that last used it has completed (its event), so no
     pinned buffer is overwritten, nor read, while a copy of it is in
-    flight."""
+    flight. While tracing is on, each hand-out that had to wait for a copy
+    in flight counts to ``<name>.ring_waits``."""
 
-    def __init__(self, slots: int = 3):
+    def __init__(self, slots: int = 3, name: str = "upload"):
         self.slots = slots
         self._rings: Dict[tuple, list] = {}
-        self.waits = 0  # hand-outs that had to wait for a copy in flight
+        self._waits = name + ".ring_waits"
 
     def acquire(self, key, shape, dtype: np.dtype):
         """(pinned host tensor, its event) of the next slot for ``key``."""
@@ -95,7 +111,7 @@ class PinnedRing:
         host, ev = slots[turn]
         ring[0] = (turn + 1) % self.slots
         if not ev.query():
-            self.waits += 1
+            trace.count(self._waits)
             ev.synchronize()
         return host, ev
 
@@ -112,22 +128,29 @@ def upload_batches(iterator: Iterator[Dict[str, Any]], device,
     stream waits for the batch's copies (an event) and records its use of
     the tensors, so the allocator never hands their memory to the next
     upload while a step still reads them. On the CPU the arrays are wrapped
-    as they are."""
+    as they are. While tracing is on the consumer's wait for a batch is the
+    span ``upload.wait`` (with the counter ``upload.depth``, as
+    :func:`prefetch`'s) and the worker's copy of one ``upload.copy``."""
     device = torch.device(device)
 
     def moves(k, v) -> bool:
         return isinstance(v, np.ndarray) and (keys is None or k in keys)
 
     if device.type != "cuda":
-        for batch in iterator:
+        while True:
+            with trace.span("upload.wait") as sp:
+                batch = next(iterator, None)
+                if batch is None:
+                    sp.discard()
+                    return
             yield {k: torch.from_numpy(np.ascontiguousarray(v))
                    if moves(k, v) else v for k, v in batch.items()}
-        return
     stream = torch.cuda.Stream(device)
     ring = PinnedRing(depth + 1)
 
     def upload(batch):
-        with torch.cuda.device(device), torch.cuda.stream(stream):
+        with trace.span("upload.copy"), torch.cuda.device(device), \
+                torch.cuda.stream(stream):
             out = {}
             for k, v in batch.items():
                 if not moves(k, v):
@@ -143,7 +166,7 @@ def upload_batches(iterator: Iterator[Dict[str, Any]], device,
             done.record(stream)
         return out, done
 
-    staged = prefetch((upload(b) for b in iterator), depth)
+    staged = prefetch((upload(b) for b in iterator), depth, name="upload")
     try:
         for out, done in staged:
             cur = torch.cuda.current_stream(device)
@@ -165,10 +188,11 @@ class HostReadback:
     while the device computes batch i + 1. The arrays handed back are views
     of the pinned buffers, valid until the next :meth:`push`; a caller that
     keeps one copies it. On the CPU the tensors' own arrays are handed
-    back, in the same order."""
+    back, in the same order. While tracing is on, the host's wait for a
+    batch's copies is the span ``readback.wait``."""
 
     def __init__(self):
-        self._ring = PinnedRing(2)
+        self._ring = PinnedRing(2, name="readback")
         self._pending: Optional[Tuple[Any, Dict[str, Any], Any]] = None
 
     def push(self, tag, tensors: Dict[str, torch.Tensor]
@@ -199,6 +223,7 @@ class HostReadback:
             return None
         tag, hosts, done = item
         if done is not None:
-            done.synchronize()
+            with trace.span("readback.wait"):
+                done.synchronize()
         return tag, {k: v.numpy() if isinstance(v, torch.Tensor) else v
                      for k, v in hosts.items()}

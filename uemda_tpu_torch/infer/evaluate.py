@@ -25,6 +25,7 @@ from uemda_tpu_torch.datasets.prefetch import (
 from uemda_tpu_torch.infer.slide import make_predictor
 from uemda_tpu_torch.ops.metrics import PixelMetricSummary, confusion_matrix
 from uemda_tpu_torch.parallel import mesh
+from uemda_tpu_torch.utils import trace
 from uemda_tpu_torch.utils.runtime import resolve_device
 from uemda_tpu_torch.utils.viz import VisualizeSegmm
 
@@ -127,25 +128,37 @@ def predict_batches(model, dataset, mean, std, tile: Tuple[int, int],
     sweep's ``epilogue`` inside it), released when the loop ends. Yields
     ``(indices, n_valid, label, output)``, the output the predictor's for
     the padded batch (its static buffers on the card: read, or enqueue
-    reads of, them before the next batch)."""
+    reads of, them before the next batch). While tracing is on
+    (``utils/trace.py``) each batch's wait, normalization and predictor
+    call is the span ``serve.batch``, the wait its child
+    ``upload.wait``."""
     # mean and std on the device once: a per-batch host tensor would be a
     # synchronous copy
     mean = torch.as_tensor(mean, dtype=torch.float32, device=device)
     std = torch.as_tensor(std, dtype=torch.float32, device=device)
     predictor, hw = None, None
+    batches = device_batches(dataset, batch_size,
+                             decode_workers=decode_workers, device=device,
+                             with_label=with_label)
     try:
-        for indices, images, n, label in device_batches(
-                dataset, batch_size, decode_workers=decode_workers,
-                device=device, with_label=with_label):
-            if predictor is None or tuple(images.shape[2:]) != hw:
-                if predictor is not None:
-                    predictor.close()
-                hw = tuple(images.shape[2:])
-                predictor = make_predictor(model, tile, hw, tta=tta,
-                                           compute_dtype=compute_dtype,
-                                           capture=capture, epilogue=epilogue)
-            yield indices, n, label, predictor(normalize(images, mean, std))
+        while True:
+            with trace.span("serve.batch") as sp:
+                batch = next(batches, None)
+                if batch is None:
+                    sp.discard()
+                    return
+                indices, images, n, label = batch
+                if predictor is None or tuple(images.shape[2:]) != hw:
+                    if predictor is not None:
+                        predictor.close()
+                    hw = tuple(images.shape[2:])
+                    predictor = make_predictor(
+                        model, tile, hw, tta=tta, compute_dtype=compute_dtype,
+                        capture=capture, epilogue=epilogue)
+                out = predictor(normalize(images, mean, std))
+            yield indices, n, label, out
     finally:
+        batches.close()  # stops the decode and upload workers
         if predictor is not None:
             predictor.close()
 

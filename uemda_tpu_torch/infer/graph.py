@@ -30,6 +30,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from uemda_tpu_torch.utils import trace
+
 
 def kernel_wrappers():
     """The port's kernel wrappers (each counts its launches): what a
@@ -116,7 +118,10 @@ class Predictor:
     input of another shape is refused (make a predictor for it). On the
     CPU, and with ``capture=False``, each call runs ``fn`` eagerly.
     :meth:`close` releases the graph and its pool; the predictor is also a
-    context manager that closes it."""
+    context manager that closes it. While tracing is on
+    (``utils/trace.py``) a call is the span ``predict.call``, and a replay's
+    input copy and launch its children ``predict.load`` and
+    ``predict.launch``."""
 
     def __init__(self, fn: Callable, capture: bool = True):
         self.fn = fn  # keeps the model, whose weights the graph reads, alive
@@ -124,6 +129,10 @@ class Predictor:
         self.graph = None
 
     def __call__(self, x: torch.Tensor):
+        with trace.span("predict.call"):
+            return self._call(x)
+
+    def _call(self, x: torch.Tensor):
         if not self.capture or x.device.type != "cuda":
             return self.fn(x)
         if self.graph is None:
@@ -134,10 +143,12 @@ class Predictor:
                 f"captured predictor: input {tuple(x.shape)} {x.dtype} on "
                 f"{x.device} does not match the captured {tuple(s.shape)} "
                 f"{s.dtype} on {s.device}; make a predictor for it")
-        s.copy_(x)
-        self.graph.replay()
-        count_replay(self.wrappers, self.launches)
-        self.replays += 1
+        with trace.span("predict.load"):
+            s.copy_(x)
+        with trace.span("predict.launch"):
+            self.graph.replay()
+            count_replay(self.wrappers, self.launches)
+            self.replays += 1
         return self.out
 
     def _capture(self, example: torch.Tensor):

@@ -18,9 +18,20 @@ Device events are those of category ``kernel``, ``gpu_memcpy`` and
 over the ``cpu_op``, ``cuda_runtime``, ``user_annotation`` and
 ``python_function`` events. A trace of a CPU run has no device events, and
 the summary says so.
+
+Then the program's spans (``utils/trace.py``: on while ``--profile-dir``
+traces, each a ``user_annotation`` range): per name the count, the total
+and the self time (the total less the part its children on the same
+thread cover); the device's idle time under each span, every idle gap put
+down to the innermost program span open on the thread that issued the
+launch ending the gap (none where no span was open, or no launch is
+found); and the longest gaps so named. Where ``spans.json`` lies beside
+the trace, the program spans are the names it holds, and its table of
+the graph replays' phases (device ms a replay) is printed too.
 """
 
 import argparse
+import bisect
 import collections
 import decimal
 import glob
@@ -31,18 +42,22 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "cuda_runtime", "user_annotation", "python_function")
 
 
+def _union_runs(intervals):
+    """The union of [start, end, ...) intervals as [start, end, the interval
+    that opened the run] runs, in time order."""
+    runs = []
+    for iv in sorted(intervals, key=lambda iv: (iv[0], iv[1])):
+        if runs and iv[0] <= runs[-1][1]:
+            runs[-1][1] = max(runs[-1][1], iv[1])
+        else:
+            runs.append([iv[0], iv[1], iv])
+    return runs
+
+
 def _union_busy(intervals):
     """Total covered time of [start, end) intervals
     (``tools/profile_summary.py:23-33``)."""
-    busy, last_end = 0, None
-    for s, e in sorted(intervals):
-        if last_end is None or s >= last_end:
-            busy += e - s
-            last_end = e
-        elif e > last_end:
-            busy += e - last_end
-            last_end = e
-    return busy
+    return sum(e - s for s, e, _ in _union_runs(intervals))
 
 
 def find_traces(path: str):
@@ -95,6 +110,110 @@ def summarize(events, cats, top_k: int = 20):
     return out
 
 
+def program_spans(events, names=None):
+    """{name: {'n', 'total_us', 'self_us'}} of the ``user_annotation``
+    events (those named in ``names``, if given): a span's self time is its
+    duration less its children's, the spans of its thread that lie inside
+    it."""
+    by_tid = collections.defaultdict(list)
+    for e in events:
+        if e.get("cat") == "user_annotation" \
+                and (names is None or e["name"] in names):
+            by_tid[(e["pid"], e["tid"])].append(e)
+    out = {}
+    for evs in by_tid.values():
+        evs.sort(key=lambda e: (e["ts"], -e["dur"]))
+        stack, child = [], collections.defaultdict(int)
+        for i, e in enumerate(evs):
+            while stack and evs[stack[-1]]["ts"] + evs[stack[-1]]["dur"] \
+                    <= e["ts"]:
+                stack.pop()
+            if stack:
+                child[stack[-1]] += e["dur"]
+            stack.append(i)
+        for i, e in enumerate(evs):
+            s = out.setdefault(e["name"], {"n": 0, "total_us": 0.0,
+                                           "self_us": 0.0})
+            s["n"] += 1
+            s["total_us"] += e["dur"] / 1e3
+            s["self_us"] += (e["dur"] - child[i]) / 1e3
+    return out
+
+
+def idle_gaps(events):
+    """[(ns, start, the device event ending the gap)] of every device idle
+    gap: the union of all devices' and streams' events, as
+    :func:`summarize` takes it."""
+    runs = _union_runs((e["ts"], e["ts"] + e["dur"], e) for e in events
+                       if e.get("cat") in DEVICE_CATS)
+    return [(b[0] - a[1], a[1], b[2][2]) for a, b in zip(runs, runs[1:])]
+
+
+def idle_by_span(events, names=None):
+    """{'spans': {name: idle ns}, 'none': idle ns, 'gaps': [(ns, name or
+    None)] longest first}: each device idle gap put down to the innermost
+    ``user_annotation`` (named in ``names``, if given) open on the thread
+    that issued the launch ending it, found by the launch's correlation
+    id; None where no span was open or no launch is found."""
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") == "cuda_runtime"
+                and "correlation" in e.get("args", {})}
+    spans = collections.defaultdict(list)
+    for e in events:
+        if e.get("cat") == "user_annotation" \
+                and (names is None or e["name"] in names):
+            spans[(e["pid"], e["tid"])].append(e)
+    starts = {}
+    for k, evs in spans.items():
+        evs.sort(key=lambda e: (e["ts"], -e["dur"]))
+        starts[k] = [e["ts"] for e in evs]
+
+    def innermost(launch):
+        key = (launch["pid"], launch["tid"])
+        evs, t = spans.get(key, []), launch["ts"]
+        for i in range(bisect.bisect_right(starts.get(key, []), t) - 1,
+                       -1, -1):
+            if evs[i]["ts"] + evs[i]["dur"] > t:
+                return evs[i]["name"]
+        return None
+
+    out = {"spans": collections.defaultdict(int), "none": 0, "gaps": []}
+    for ns, _, ev in idle_gaps(events):
+        launch = launches.get(ev.get("args", {}).get("correlation"))
+        name = innermost(launch) if launch is not None else None
+        if name is None:
+            out["none"] += ns
+        else:
+            out["spans"][name] += ns
+        out["gaps"].append((ns, name))
+    out["spans"] = dict(out["spans"])
+    out["gaps"].sort(key=lambda g: -g[0])
+    return out
+
+
+def _print_spans(spans, idle, phases, top):
+    print(f"-- program spans: {'name':<24} {'count':>7} {'total ms':>11} "
+          f"{'self ms':>11} {'idle ms':>10}")
+    for name, s in sorted(spans.items(), key=lambda kv: -kv[1]["total_us"]):
+        print(f"   {name:<38} {s['n']:>7} {s['total_us'] / 1e3:11.3f} "
+              f"{s['self_us'] / 1e3:11.3f} "
+              f"{idle['spans'].get(name, 0) / 1e6:10.3f}")
+    whole = sum(idle["spans"].values()) + idle["none"]
+    if whole:
+        print(f"   device idle {whole / 1e6:.3f} ms, under a program span "
+              f"{1 - idle['none'] / whole:.1%}; longest gaps:")
+        for ns, name in idle["gaps"][:top]:
+            print(f"     {ns / 1e6:10.3f} ms under {name or 'no span'}")
+    if phases and phases["phases"]:
+        print(f"-- graph replays' phases ({phases['replays']['n']} replays "
+              f"read, {phases['replays']['lost']} written over), device ms "
+              f"a replay:")
+        n = max(phases["replays"]["n"], 1)
+        for name, p in phases["phases"].items():
+            print(f"   {name:<24} {p['ns'] / n / 1e6:10.3f}")
+        print(f"   {'replay':<24} {phases['replays']['ns'] / n / 1e6:10.3f}")
+
+
 def _print_plane(kind, pid, s, top, line_word):
     span = s["span_us"]
     print(f"-- {kind} {pid}  span {span / 1e3:.3f} ms")
@@ -141,7 +260,19 @@ def main(argv=None):
             hosts = summarize(events, HOST_CATS, args.top)
             for pid, s in sorted(hosts.items(), key=lambda kv: str(kv[0])):
                 _print_plane("host", pid, s, args.top, "thread")
-        result[path] = {"devices": devices, "hosts": hosts}
+        record = os.path.join(os.path.dirname(path), "spans.json")
+        phases = names = None
+        if os.path.exists(record):
+            with open(record) as f:
+                phases = json.load(f)
+            # its spans are paths (``step/step.prepare``): the last name
+            names = {path.rsplit("/", 1)[-1] for path in phases["spans"]}
+        spans = program_spans(events, names)
+        idle = idle_by_span(events, names)
+        if spans or phases:
+            _print_spans(spans, idle, phases, args.top)
+        result[path] = {"devices": devices, "hosts": hosts, "spans": spans,
+                        "idle": idle, "phases": phases}
     return result
 
 

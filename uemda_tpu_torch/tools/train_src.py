@@ -19,7 +19,8 @@ mean gradient of k micro-batches (the schedule's horizon is then the
 number of updates). ``--steps-per-call K`` runs K steps a call (on the
 card, replays of a CUDA graph of the step), ``--host-crop 1`` crops the
 samples on the host before their upload and ``--profile-dir`` traces steps
-10-15. The whole train state is snapshotted to
+10-15 and turns the tracer on for the run (``spans.json`` beside the
+trace: its spans, counters and the graph replays' phase times). The whole train state is snapshotted to
 ``<snapshot_dir>/src/state_curr.pth`` at every evaluation and at the end,
 beside ``metrics.jsonl`` and ``best.json``; ``--resume auto`` (or a
 snapshot's path) goes on from it exactly: the same state, draws and

@@ -27,6 +27,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from uemda_tpu_torch.utils import trace
+
 _tmp_seq = itertools.count()  # unique tmp suffix per in-process writer
 
 
@@ -86,7 +88,9 @@ class AsyncSaver:
     ``fetch_s``: the caller's seconds of the last :meth:`save` (the wait
     for the write before it included); ``write_s``: the worker's seconds
     of the last write, the wait on the copies included; ``nbytes``: the
-    tensors' bytes of the last snapshot."""
+    tensors' bytes of the last snapshot. While tracing is on
+    (``utils/trace.py``) the caller's part is the span ``snapshot.fetch``
+    and the worker's ``snapshot.write``."""
 
     def __init__(self):
         self._q: "queue.Queue" = queue.Queue()
@@ -105,9 +109,10 @@ class AsyncSaver:
                     return
                 path, tree, event = item
                 t0 = time.perf_counter()
-                if event is not None:
-                    event.synchronize()
-                save_checkpoint(path, tree)
+                with trace.span("snapshot.write"):
+                    if event is not None:
+                        event.synchronize()
+                    save_checkpoint(path, tree)
                 self.write_s = time.perf_counter() - t0
             except Exception as e:  # noqa: BLE001 - raised on save or wait
                 self._err = e
@@ -120,6 +125,10 @@ class AsyncSaver:
             raise err
 
     def save(self, path: str, tree, stream=None) -> None:
+        with trace.span("snapshot.fetch"):
+            self._save(path, tree, stream)
+
+    def _save(self, path: str, tree, stream) -> None:
         t0 = time.perf_counter()
         self._q.join()  # the buffers are the last write's until it ends
         self._raise_pending()

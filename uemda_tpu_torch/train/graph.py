@@ -40,6 +40,7 @@ from uemda_tpu_torch.infer.graph import (
 )
 from uemda_tpu_torch.parallel import mesh
 from uemda_tpu_torch.train.state import TrainState
+from uemda_tpu_torch.utils import trace
 
 # replays the host may run ahead of the device: each holds a batch upload's
 # device memory until the device has passed it
@@ -116,19 +117,26 @@ class StepGraph:
                  ) -> Dict[str, torch.Tensor]:
         """One step by replay: the host's part, the copies into the static
         buffers, the replay and the step count; returns a copy of the
-        step's metrics."""
-        draws = self.step.prepare(state, batch_s, batch_t, seed)
-        _load(self.static_s, batch_s, "batch_s")
-        _load(self.static_t, batch_t, "batch_t")
-        _load(self.static_draws, draws, "draws")
-        state.opt.set_lr()
-        self.graph.replay()
-        count_replay(self.wrappers, self.launches)
-        for p, g in zip(self.params, self.grads):
-            p.grad = g
-        state.advance()
-        self.replays += 1
-        return {k: v.clone() for k, v in self.metrics.items()}
+        step's metrics. While tracing is on: the span ``step`` and its
+        children ``step.prepare`` (the draws and
+        their upload), ``step.load`` (the static buffers' copies) and
+        ``step.launch`` (the rest)."""
+        with trace.span("step"):
+            with trace.span("step.prepare"):
+                draws = self.step.prepare(state, batch_s, batch_t, seed)
+            with trace.span("step.load"):
+                _load(self.static_s, batch_s, "batch_s")
+                _load(self.static_t, batch_t, "batch_t")
+                _load(self.static_draws, draws, "draws")
+            with trace.span("step.launch"):
+                state.opt.set_lr()
+                self.graph.replay()
+                count_replay(self.wrappers, self.launches)
+                for p, g in zip(self.params, self.grads):
+                    p.grad = g
+                state.advance()
+                self.replays += 1
+                return {k: v.clone() for k, v in self.metrics.items()}
 
 
 class ChunkRunner:
@@ -166,9 +174,16 @@ class ChunkRunner:
                  ) -> List[Dict[str, torch.Tensor]]:
         """The chunk's steps, one a (source, target) batch pair of
         ``pairs``, read one at a time just before its step: the upload
-        stage keeps filling while the device runs the steps before."""
+        stage keeps filling while the device runs the steps before. While
+        tracing is on, each step is the span ``step`` (a replay's
+        :class:`StepGraph`'s) and the host's wait for the device to come
+        within :data:`MAX_AHEAD` replays ``step.ahead_wait``."""
         if self.device.type != "cuda":
-            return [self.step_fn(state, bs, bt, self.seed) for bs, bt in pairs]
+            out = []
+            for bs, bt in pairs:
+                with trace.span("step"):
+                    out.append(self.step_fn(state, bs, bt, self.seed))
+            return out
         out = []
         pairs = iter(pairs)
         if self.graph is None:
@@ -177,7 +192,7 @@ class ChunkRunner:
             step, (bs, bt) = self.step_fn, next(pairs)
             cur = torch.cuda.current_stream(self.device)
             self.stream.wait_stream(cur)
-            with torch.cuda.stream(self.stream):
+            with trace.span("step"), torch.cuda.stream(self.stream):
                 draws = step.prepare(state, bs, bt, self.seed)
                 state.opt.set_lr()
                 out.append(step.run(state, bs, bt, draws))
@@ -191,7 +206,8 @@ class ChunkRunner:
             ev.record()
             self._ahead.append(ev)
             if len(self._ahead) > MAX_AHEAD:
-                self._ahead.popleft().synchronize()
+                with trace.span("step.ahead_wait"):
+                    self._ahead.popleft().synchronize()
         return out
 
     def close(self) -> Optional[dict]:

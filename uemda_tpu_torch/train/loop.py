@@ -19,7 +19,9 @@ thread with its own CUDA stream and a ring of reused pinned buffers) feed
 the loop, ``--host-crop`` crops each sample on the host before its upload,
 and ``steps_per_call`` K runs chunks of K steps, on the card as replays of
 a CUDA graph of the step (``train/graph.py``), under the JAX package's
-chunk rule. ``profile_dir`` traces steps 10-15 with ``torch.profiler``.
+chunk rule. ``profile_dir`` traces steps 10-15 with ``torch.profiler``
+and turns the tracer (``utils/trace.py``) on for the run, its record
+written beside the trace at the end.
 
 The state on disk, as ``uemda_tpu/train/loop.py:121-184,302-549,571-574``:
 with ``state_path`` the loop locks its run dir (``train/checkpoints.py``'s
@@ -45,6 +47,7 @@ ranks never read back, so no deadline runs on them: they wait at the next
 step's first collective while process 0 evaluates.
 """
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -87,6 +90,7 @@ from uemda_tpu_torch.train.lr import poly_warmup_schedule
 from uemda_tpu_torch.train.optim import SGD, freeze_mask
 from uemda_tpu_torch.train.state import TrainState
 from uemda_tpu_torch.train.steps import StageHParams
+from uemda_tpu_torch.utils import trace
 
 
 def resolve_model_name(model: str) -> str:
@@ -203,7 +207,10 @@ def add_loop_flags(parser) -> None:
                              "same flag")
     parser.add_argument("--profile-dir", type=str, default=None,
                         help="write a torch.profiler trace of steps 10-15 "
-                             "here")
+                             "here (trace.json), and turn the tracer "
+                             "(uemda_tpu_torch/utils/trace.py) on for the "
+                             "run: spans.json at the end holds its spans, "
+                             "counters and the graph replays' phase times")
 
 
 def add_parallel_flags(parser) -> None:
@@ -422,7 +429,13 @@ def run_training_loop(state: TrainState, step_fn: Callable, source_iter,
     metrics, as at K = 1. ``profile_dir``: a ``torch.profiler`` trace of
     steps 10-15, counted from where the loop starts (none for a run of
     fewer than 2 steps), written there; until it is written every step
-    runs alone.
+    runs alone. The tracer is on for the whole loop (if the caller has not
+    turned it on, from a clean record, and off again at the end), so the
+    captured step holds its phase markers, and ``spans.json`` beside the
+    trace holds its spans, counters and phase times (``trace.write``).
+    While tracing is on each step is the span ``step``, and the metric
+    readbacks and evaluations ``loop.readback`` and ``loop.eval`` (a
+    snapshot's stop is ``AsyncSaver``'s ``snapshot.fetch``).
 
     ``state_path``: the run dir (its directory) is locked for the loop's
     lifetime, and the state is snapshotted there before every evaluation
@@ -457,12 +470,14 @@ def _run_training_loop(state, step_fn, source_iter, target_iter, stop_steps,
     # snapshot copy and evaluation on it, ordered after the steps
     stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
 
-    def deadline(fn, what):
+    def deadline(fn, what, span=None):
+        # the span opens on the thread that runs fn, over the spans fn opens
         def on_stream():
-            if stream is None:
-                return fn()
-            with torch.cuda.stream(stream):
-                return fn()
+            with trace.span(span) if span else contextlib.nullcontext():
+                if stream is None:
+                    return fn()
+                with torch.cuda.stream(stream):
+                    return fn()
         return _deadline(on_stream, timeout, what)
 
     # under data parallelism process 0 alone reads back, logs, evaluates
@@ -497,6 +512,14 @@ def _run_training_loop(state, step_fn, source_iter, target_iter, stop_steps,
         profile_dir = None
     trace_start = start + min(10, max(stop_steps - start - 2, 0))
     trace_stop = start + min(15, max(stop_steps - start - 1, 1))
+    # the tracer is on for the whole run, its graph captured with the phase
+    # markers; its record goes beside the profiler's trace at the end
+    spans_path = os.path.join(profile_dir, "spans.json") \
+        if profile_dir is not None and main else None
+    owns_tracer = profile_dir is not None and not trace.enabled()
+    if owns_tracer:
+        trace.reset()
+        trace.enable()
     prof = saver = snapped = None
     hung = False
     t0 = time.time()
@@ -522,7 +545,9 @@ def _run_training_loop(state, step_fn, source_iter, target_iter, stop_steps,
                 logger.debug(f"steps {i + 1}-{i + k} in one call")
                 chunk = runner(state, pairs)
             else:
-                chunk = [step_fn(state, *next(pairs), seed)]
+                pair = next(pairs)
+                with trace.span("step"):
+                    chunk = [step_fn(state, *pair, seed)]
             if on_step is not None:
                 for j, m in enumerate(chunk):
                     on_step(state.step - len(chunk) + j + 1, m)
@@ -530,7 +555,7 @@ def _run_training_loop(state, step_fn, source_iter, target_iter, stop_steps,
             i = state.step - step_offset
             if main and (i == 1 or i % log_every == 0):
                 m = deadline(lambda: {k: float(v) for k, v in metrics.items()},
-                             f"metric readback @ iter {i}")
+                             f"metric readback @ iter {i}", "loop.readback")
                 msg = ", ".join(f"{k}={v:.4g}" for k, v in m.items())
                 logger.info(f"iter={i}/{stop_steps}, {msg}")
                 log_jsonl({"step": i, **m})
@@ -544,7 +569,8 @@ def _run_training_loop(state, step_fn, source_iter, target_iter, stop_steps,
                                                 state.state_dict(), stream),
                              f"state snapshot @ iter {i}")
                     snapped = state.step
-                miou = deadline(lambda: eval_fn(state), f"eval @ iter {i}")
+                miou = deadline(lambda: eval_fn(state), f"eval @ iter {i}",
+                                "loop.eval")
                 if miou >= miou_max:
                     miou_max, iter_max = miou, i
                     if on_best is not None:
@@ -564,6 +590,10 @@ def _run_training_loop(state, step_fn, source_iter, target_iter, stop_steps,
                     saver.save(state_path, state.state_dict(), stream)
                 saver.wait()
             deadline(final_save, "final state snapshot")
+        if spans_path is not None:
+            trace.write(spans_path)
+            logger.info(f"spans, counters and phase times written to "
+                        f"{spans_path}")
     except TimeoutError:
         hung = True
         raise
@@ -573,6 +603,8 @@ def _run_training_loop(state, step_fn, source_iter, target_iter, stop_steps,
         src.close()
         if tgt is not None:
             tgt.close()
+        if owns_tracer:
+            trace.disable()
         stats = runner.close() if runner is not None else None
         saved = None
         if saver is not None:
@@ -639,36 +671,50 @@ def run_regen_chunks(state, step_fn, stop_steps: int, gene_every: int,
     step it starts from, so that a resumed run gets the same batches as
     one never stopped (an upload stage reads ahead). ``loop_kw`` goes to
     ``run_loop`` (:func:`run_training_loop` unless given; its
-    ``profile_dir`` to the first chunk only). Returns the last chunk's
-    result."""
+    ``profile_dir`` to the first chunk only). With ``profile_dir`` the
+    tracer is on for the whole run, sweeps included (``serve.batch``,
+    ``readback.wait``, ``readback.ring_waits``), and the run's
+    ``spans.json`` is written there at the end, over the first chunk's.
+    Returns the last chunk's result."""
     run_loop = run_loop or run_training_loop
     first_chunk = min(gene_every, stop_steps)
-    origin = None   # the step of the last sweep: its stream starts there
-    if not (gen and start >= first_chunk):
-        regen()
-        origin = 0
     profile_dir = loop_kw.pop("profile_dir", None)
-    out, done = None, 0
-    while done < stop_steps:
-        chunk = min(gene_every, stop_steps - done)
-        live = state.step < done + chunk
-        src_iter = source_stream(state.step) if live else iter(())
-        tgt_iter = target_stream(state.step - origin) if live else None
-        try:
-            out = run_loop(
-                state, step_fn, src_iter, tgt_iter, chunk, logger,
-                seed=seed + done, step_offset=done,
-                profile_dir=profile_dir if done == 0 else None, **loop_kw)
-        finally:
-            for it in (src_iter, tgt_iter):
-                if hasattr(it, "close"):
-                    it.close()  # stops its decode thread
-        done += chunk
-        if done < stop_steps and gen:
-            nxt = min(gene_every, stop_steps - done)
-            if done + nxt > start:
-                logger.info(f"###### regenerating pseudo labels @ step "
-                            f"{done} ######")
-                regen()
-                origin = done
+    owns_tracer = profile_dir is not None and not trace.enabled()
+    if owns_tracer:
+        trace.reset()
+        trace.enable()
+    try:
+        origin = None   # the step of the last sweep: its stream starts there
+        if not (gen and start >= first_chunk):
+            regen()
+            origin = 0
+        out, done = None, 0
+        while done < stop_steps:
+            chunk = min(gene_every, stop_steps - done)
+            live = state.step < done + chunk
+            src_iter = source_stream(state.step) if live else iter(())
+            tgt_iter = target_stream(state.step - origin) if live else None
+            try:
+                out = run_loop(
+                    state, step_fn, src_iter, tgt_iter, chunk, logger,
+                    seed=seed + done, step_offset=done,
+                    profile_dir=profile_dir if done == 0 else None,
+                    **loop_kw)
+            finally:
+                for it in (src_iter, tgt_iter):
+                    if hasattr(it, "close"):
+                        it.close()  # stops its decode thread
+            done += chunk
+            if done < stop_steps and gen:
+                nxt = min(gene_every, stop_steps - done)
+                if done + nxt > start:
+                    logger.info(f"###### regenerating pseudo labels @ step "
+                                f"{done} ######")
+                    regen()
+                    origin = done
+    finally:
+        if owns_tracer:
+            trace.disable()
+    if profile_dir is not None and is_main_process():
+        trace.write(os.path.join(profile_dir, "spans.json"))
     return out

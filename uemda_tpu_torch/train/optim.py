@@ -38,6 +38,7 @@ from typing import Callable, Dict, List, Sequence
 import torch
 
 from uemda_tpu_torch.parallel import mesh
+from uemda_tpu_torch.utils import trace
 
 FREEZE_SUBTREES = {
     # freeze_at levels -> trunk children (resnet.py:119-130)
@@ -128,9 +129,14 @@ class SGD:
         """The update from the parameters' ``.grad`` at the rate in
         :attr:`lr`, all on the device and in place (masters and momentum
         keep their addresses); returns the global gradient norm (before
-        clipping) as a device scalar. Does not advance :attr:`count`."""
+        clipping) as a device scalar. Does not advance :attr:`count`.
+        Inside a traced step (``utils/trace.py``) the gradients' sum over
+        the ranks is the phase ``allreduce`` and the rest ``update``."""
         grads = [p.grad for p in self.params]
-        mesh.all_reduce_grads(grads)   # data parallelism: sum over ranks
+        if mesh.world_size() > 1:   # data parallelism: sum over ranks
+            trace.phase("allreduce")
+            mesh.all_reduce_grads(grads)
+        trace.phase("update")
         if any(g is None for g in grads):
             missing = [n for n, g in zip(self.names, grads) if g is None]
             raise RuntimeError(f"no gradient for {missing[:3]} ...")

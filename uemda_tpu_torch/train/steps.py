@@ -85,6 +85,7 @@ from uemda_tpu_torch.ops.pseudo import pseudo_selection
 from uemda_tpu_torch.ops.resize import upsample_logits
 from uemda_tpu_torch.parallel import mesh
 from uemda_tpu_torch.train.state import TrainState
+from uemda_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -347,17 +348,26 @@ class _Step:
         and the update, with no host synchronisation, every tensor of the
         state written in place. The masters' ``.grad`` keep this step's
         gradients afterwards. Returns the metrics as f32 device scalars.
-        This is what ``train/graph.py`` captures."""
+        This is what ``train/graph.py`` captures. While tracing is on it
+        marks its phases (``utils/trace.py``): ``augment``, ``forward``,
+        and in :meth:`losses` ``refine``, ``mine``, ``loss`` (and
+        ``forward`` again where a forward follows), then ``backward``, and
+        in the optimizer ``allreduce`` (world size above 1) and
+        ``update``."""
         model = self.model
         kept = {k: getattr(state, k) for k in _SWAPPED}
         model.train()
         model.zero_grad(set_to_none=True)
-        bs, bt = self._augment(batch_s, batch_t, draws)
-        params = cast_params(model, self.dtype)
-        metrics = self.losses(state, bs, bt, params, draws)
-        mesh.backward(metrics["loss"])
-        state.opt.update()
-        _write_back(state, kept)
+        with trace.phases(batch_s["image"].device):
+            trace.phase("augment")
+            bs, bt = self._augment(batch_s, batch_t, draws)
+            trace.phase("forward")
+            params = cast_params(model, self.dtype)
+            metrics = self.losses(state, bs, bt, params, draws)
+            trace.phase("backward")
+            mesh.backward(metrics["loss"])
+            state.opt.update()
+            _write_back(state, kept)
         return {k: v.detach() for k, v in metrics.items()}
 
     def _augment(self, batch_s, batch_t, draws: StepDraws):
@@ -430,6 +440,7 @@ class SrcStep(_Step):
         feat_t = None
         if self.hp.align_domain:
             _, _, feat_t = forward_train(model, params, bt["image"], draws.drop_t)
+        trace.phase("loss")
         loss_seg, loss_dom = self._seg_and_domain(state, p1, p2, bs["label"],
                                                   feat_s, feat_t)
         return {"loss": loss_seg + loss_dom, "loss_seg": loss_seg,
@@ -457,17 +468,21 @@ class AlignStep(_Step):
     def losses(self, state, bs, bt, params, draws):
         hp, model = self.hp, self.model
         p1, p2, feat_s = forward_train(model, params, bs["image"], draws.drop_s)
+        trace.phase("loss")
         aligner, label_s_down = update_prototype(
             state.aligner, feat_s, bs["label"], hp.class_num, hp.scale_factor)
+        trace.phase("forward")
         t1, t2, feat_t = forward_train(model, params, bt["image"], draws.drop_t)
         with torch.no_grad():
             soft = (torch.softmax(upsample_logits(t1, hp.crop), dim=1)
                     + torch.softmax(upsample_logits(t2, hp.crop), dim=1)) * 0.5
             if hp.refine:
+                trace.phase("refine")
                 soft = label_refine(aligner, soft, feat_t, [t1, t2],
                                     sup=bt.get("sup"), mode=hp.refine_mode,
                                     temp=hp.refine_temp,
                                     max_segments=hp.max_segments)
+            trace.phase("loss")
             label_t_hard = pseudo_selection(soft, hp.cutoff_top, hp.cutoff_low,
                                             hp.ignore_label)
             label_t_down = downscale_label(label_t_hard, hp.scale_factor,
@@ -572,13 +587,16 @@ class SslStep(_Step):
         with torch.no_grad():
             soft = bt["prob"].permute(0, 3, 1, 2).float()
             if hp.refine:
+                trace.phase("refine")
                 soft = label_refine(state.aligner, soft, feat_t, [t1, t2],
                                     sup=bt.get("sup"), mode=hp.refine_mode,
                                     temp=hp.refine_temp,
                                     max_segments=hp.max_segments)
+            trace.phase("mine")
             label_t, w, u = uvem_mine(soft, hp.cutoff_top, hp.cutoff_low,
                                       hp.uvem_m, hp.uvem_t, hp.uvem_g,
                                       hp.ignore_label)
+        trace.phase("loss")
         state.aligner, _ = update_prototype(state.aligner, feat_s, bs["label"],
                                             hp.class_num, hp.scale_factor)
         loss_src = self._source_loss(state, [p1, p2], bs["label"])
@@ -659,13 +677,16 @@ class MixStep(SslStep):
             if self.mining_forward:
                 m1, m2, feat_m = forward_scratch(model, params, bt["image"],
                                                  draws.drop_m)
+                trace.phase("refine")
                 soft = label_refine(state.aligner, soft, feat_m, [m1, m2],
                                     sup=bt.get("sup"), mode=hp.refine_mode,
                                     temp=hp.refine_temp,
                                     max_segments=hp.max_segments)
+            trace.phase("mine")
             label_t, w, u = uvem_mine(soft, hp.cutoff_top, hp.cutoff_low,
                                       hp.uvem_m, hp.uvem_t, hp.uvem_g,
                                       hp.ignore_label)
+            trace.phase("augment")
             lab_s = bs["label"]
             if self.mix == "cutmix":
                 mask = box_mask(hp.crop, draws.mix.lam, draws.mix.cx,
@@ -676,8 +697,10 @@ class MixStep(SslStep):
             _, _, img_t, lab_t = paste(mask, bs["image"], lab_s, bt["image"],
                                        label_t)
         balance_s = state.balance_s
+        trace.phase("forward")
         p1, p2, feat_s = forward_train(model, params, bs["image"], draws.drop_s)
         t1, t2, _ = forward_train(model, params, img_t, draws.drop_t)
+        trace.phase("loss")
         loss_s = self._source_loss(state, [p1, p2], lab_s)
         if self.combo:
             loss_t = self._target_loss(state, [t1, t2], lab_t, w, u,
@@ -714,9 +737,12 @@ class AlignSimpleStep(_Step):
     def losses(self, state, bs, bt, params, draws):
         hp, model = self.hp, self.model
         p1, p2, feat_s = forward_train(model, params, bs["image"], draws.drop_s)
+        trace.phase("loss")
         aligner, label_s_down = update_prototype(
             state.aligner, feat_s, bs["label"], hp.class_num, hp.scale_factor)
+        trace.phase("forward")
         t1, t2, feat_t = forward_train(model, params, bt["image"], draws.drop_t)
+        trace.phase("loss")
         with torch.no_grad():
             soft = (torch.softmax(t1, dim=1) + torch.softmax(t2, dim=1)) * 0.5
             label_t = torch.where(
@@ -757,12 +783,15 @@ class DcaStep(_Step):
     def losses(self, state, bs, bt, params, draws):
         hp, model = self.hp, self.model
         with torch.no_grad():
+            trace.phase("mine")
             label_t = pseudo_selection(bt["prob"].permute(0, 3, 1, 2).float(),
                                        hp.cutoff_top, hp.cutoff_low,
                                        hp.ignore_label)
         balance_s = state.balance_s
+        trace.phase("forward")
         p1, p2, feat_s = forward_train(model, params, bs["image"], draws.drop_s)
         t1, t2, feat_t = forward_train(model, params, bt["image"], draws.drop_t)
+        trace.phase("loss")
         loss_s = self._source_loss(state, [p1, p2], bs["label"])
         pixel_weight = None
         if hp.balance_source:
