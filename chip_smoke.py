@@ -76,7 +76,10 @@ weights from a seed):
   (each stream's busy time against its union counted apart, the events
   that overlap on a stream), ``real_data_gate`` on the model's ``.pth``
   (pins, the strict load, ``--kind imagenet --out``, the eval stage) and
-  ``slide_predict`` against an eager predictor.
+  ``slide_predict`` against an eager predictor;
+* ``[bnact]`` the eval BatchNorm epilogue at the sweep's shapes against its
+  plain version and the library chain it replaces (alone:
+  ``python3 -c "import chip_smoke; chip_smoke.bnact_phase()"``).
 
 ``[serve-graph]`` takes every bf16 serving mode through the captured
 slide predictor (``infer/graph.py``) at batch 1, 8 and 32 on 512^2 tiles,
@@ -3034,6 +3037,107 @@ def _stream_overlaps(evs):
     return union, int((a[:, 1] - a[:, 0]).sum()), lap
 
 
+def bnact_phase():
+    """``[bnact]`` the eval BatchNorm epilogue (``ops/bnact.py``) at the
+    sweep's shapes (batch 4 x 9 windows x 8 views = 288 tiles of 512^2, bf16
+    as the serving copy of the model holds it): layer1's block end with the
+    identity and with the downsample branch's BatchNorm, layer4's block end,
+    and the PPM's pooled maps at scales 1 and 6. Each is held to its plain
+    version (one bf16 unit in the last place) and timed behind a spinner:
+    the kernel, its plain version, the library chain the standard forward
+    ran before it (``BatchNorm.forward``'s f32 cast, cuDNN's f32 BatchNorm
+    and cast back, the add, the ReLU) and the library's one-call design
+    (``F.batch_norm`` on the bf16 tensor with f32 statistics, then
+    ``add_`` and ``relu_`` in place), against its bytes at the memory
+    bandwidth. Returns the records; ``main`` adds each path's launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from uemda_tpu_torch.models.resnet import BatchNorm
+    from uemda_tpu_torch.models.resnet import bn_norm
+    from uemda_tpu_torch.ops.bnact import bnact, bnact_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(21)
+    cases = [((288, 256, 128, 128), "identity"),
+             ((288, 256, 128, 128), "downsample"),
+             ((288, 2048, 32, 32), "identity"),
+             ((288, 512, 1, 1), "none"),
+             ((288, 512, 6, 6), "none")]
+    out = []
+    for shape, res in cases:
+        c = shape[1]
+
+        def draw(scale=1.0):
+            return (torch.randn(shape, device=dev, generator=g) * scale).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+        bns = []
+        for _ in range(2):
+            bn = BatchNorm(c).to(dev)
+            with torch.no_grad():
+                bn.running_mean.normal_(generator=g)
+                bn.running_var.uniform_(0.1, 2.0, generator=g)
+                bn.weight.normal_(generator=g)
+                bn.bias.normal_(generator=g)
+            bns.append(bn.eval().to(torch.bfloat16).requires_grad_(False))
+        x = draw(3.0)
+        r = None if res == "none" else draw()
+        rbn = bns[1] if res == "downsample" else None
+        args = (x, bn_norm(bns[0]), True, r,
+                None if rbn is None else bn_norm(rbn))
+        got = bnact(*args).float()
+        want = bnact_plain(*args).float()
+        # in bf16 units in the last place of the larger result; 1e-4 of
+        # slack where a sum near 0 cancels (f32 terms of up to ~100)
+        ulps = float(((got - want).abs() - 1e-4).clamp_min(0).div(
+            2.0 ** -7 * torch.maximum(got.abs(), want.abs()) + 1e-30).max())
+        del got, want
+        if ulps > 1.0:
+            fail(f"bnact {shape} {res}: {ulps:.3f} bf16 ulps from the plain "
+                 "version")
+
+        def library():
+            y = bns[0](x)
+            if r is not None:
+                y = y + (r if rbn is None else rbn(r))
+            return F.relu(y)
+
+        def one_call(t, m):
+            return F.batch_norm(t, m.running_mean.float(),
+                                m.running_var.float(), m.weight.float(),
+                                m.bias.float(), False, 0.0, m.eps)
+
+        def library_mixed():
+            y = one_call(x, bns[0])
+            if r is not None:
+                y.add_(r if rbn is None else one_call(r, rbn))
+            return y.relu_()
+
+        with torch.no_grad():
+            ms = kernel_ms(lambda: bnact(*args))
+            plain_ms = kernel_ms(lambda: bnact_plain(*args))
+            lib_ms = kernel_ms(library)
+            mixed_ms = kernel_ms(library_mixed)
+        n = x.numel()
+        nbytes = n * 2 * (2 if r is None else 3) + 4 * c * 2 * (
+            2 if rbn is not None else 1)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        out.append({"name": "bnact", "shape": list(shape), "residual": res,
+                    "ms": ms, "bound_ms": bound, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "library_one_call_ms": mixed_ms,
+                    "max_ulps": ulps, "bytes": nbytes})
+        phase("bnact", f"{tuple(shape)} bf16, residual {res}: kernel "
+              f"{ms:.4f} ms, bound {bound:.4f} ms ({nbytes} B; "
+              f"{100 * bound / ms:.1f}% of the bandwidth), plain "
+              f"{plain_ms:.4f} ms, library chain {lib_ms:.4f} ms, library "
+              f"one call (bf16 F.batch_norm + add_ + relu_) {mixed_ms:.4f} "
+              f"ms, {ulps:.3f} ulps from the plain version")
+        del x, r, args
+        torch.cuda.empty_cache()
+    return out
+
+
 def tools_phase(dev, ctx):
     """``[tools]``: the analysis and gate tools on the chain's model
     (ResNet-50 OS16, twin PPM heads, instance norm, 2urban), every launch
@@ -3355,9 +3459,12 @@ def main():
         tail_upsample_softmax_mean_plain,
     )
 
+    from uemda_tpu_torch.ops.bnact import bnact
+
     WRAPPERS[:] = [instance_norm, instance_norm_backward, crop_normalize,
                    stem_pool, tail_upsample_softmax_mean, segment_max,
-                   segment_sum, segment_gather, uvem_mine, bottleneck_identity]
+                   segment_sum, segment_gather, uvem_mine, bottleneck_identity,
+                   bnact]
     t_start = time.time()
     sections = []  # (name, start) of each part of the run, for the summary
 
@@ -3964,19 +4071,21 @@ def main():
     data = synthetic_split(IsprsDA, n=3, hw=2 * TILE, seed=0)
     st = NORM_STATS["Vaihingen"]
     wrappers = (instance_norm, stem_pool, tail_upsample_softmax_mean)
-    for fn in wrappers:
+    for fn in wrappers + (bnact,):
         fn.launches = 0
     with torch.no_grad():
         p_fast = fast_bf16(x_flag)
         per_forward = {fn.__name__: fn.launches for fn in wrappers}
+        bnact_fast = bnact.launches
         p_std = model_bf16(x_flag)
+        bnact_std = bnact.launches - bnact_fast
     t0 = time.time()
     summary, miou = evaluate_dataset(
         fast_bf16, data, st["mean"], st["std"], tile=(TILE, TILE), tta=True,
         batch_size=2, compute_dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
     t_eval = time.time() - t0
-    launches = {fn.__name__: fn.launches for fn in wrappers}
+    launches = {fn.__name__: fn.launches for fn in wrappers + (bnact,)}
     # comparisons, made after the main path's counts were read: the same
     # evaluation with eager predictor calls, and the f32 fast path on the
     # flagship batch (TF32 off)
@@ -4017,6 +4126,14 @@ def main():
     for name, n in per_forward.items():
         if n != 1:
             fail(f"{name} launched {n} times in one fast-path forward")
+    # the eval BatchNorm epilogue: none in the fast path (folded), one a
+    # BatchNorm of the standard forward (stem 1, 16 blocks x 3, two heads
+    # x 5)
+    if bnact_fast != 0 or bnact_std != 59:
+        fail(f"bnact launched {bnact_fast} times in one fast-path forward "
+             f"(want 0) and {bnact_std} in one standard forward (want 59)")
+    phase("launches", f"bnact: {bnact_fast} in one fast-path forward, "
+          f"{bnact_std} in one standard forward")
     for name, n in launches.items():
         if n <= 0:
             fail(f"{name} was not launched on the main path")
@@ -4049,7 +4166,7 @@ def main():
              for stages in ((1, 2), (1, 2, 3, 4))}
     fwrappers = (instance_norm, stem_pool, tail_upsample_softmax_mean,
                  bottleneck_identity)
-    for fn in fwrappers:
+    for fn in fwrappers + (bnact,):
         fn.launches = 0
     k4_per_forward, p_fused = {}, {}
     with torch.no_grad():
@@ -4063,7 +4180,8 @@ def main():
         tta=True, batch_size=2, compute_dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
     t_eval_f = time.time() - t0
-    fused_launches = {fn.__name__: fn.launches for fn in fwrappers}
+    fused_launches = {fn.__name__: fn.launches
+                      for fn in fwrappers + (bnact,)}
     t_eval_fe = eval_against_eager("fused", "fused_stages (1, 2, 3, 4)",
                                    fused[(1, 2, 3, 4)], data, st, summary_f,
                                    miou_f)
@@ -4088,9 +4206,9 @@ def main():
           f"{t_eval_f:.2f} s (eager calls {t_eval_fe:.2f} s)")
     phase("launches", f"fused path (two forwards + evaluation): "
           f"{json.dumps(fused_launches)}")
-    for name, n in fused_launches.items():
-        if n <= 0:
-            fail(f"{name} was not launched on the fused path")
+    for fn in fwrappers:
+        if fused_launches[fn.__name__] <= 0:
+            fail(f"{fn.__name__} was not launched on the fused path")
     del p_fused
 
     mark("int8 serving")
@@ -4196,6 +4314,9 @@ def main():
     #    sample_features, the host-crop A/B, the profile reader, the gate,
     #    slide_predict, with their own counts
     tools_launches = tools_phase(dev, ctx)
+    mark("bnact")
+    # 11d. the eval BatchNorm epilogue at the sweep's shapes, timed
+    bnact_record = bnact_phase()
 
     mark("timing")
     # 12. timing (bf16, the serving and training dtype; K9 on uint8 tiles,
@@ -4363,6 +4484,20 @@ def main():
             "uemda_tpu/ops/pallas_resblock.py:165", "bottleneck_identity")
     record = []
     rec_fn = {name: m[2] for name, m in meta.items()}
+    rec_fn["bnact"] = "bnact"
+    paths = {"serve": launches, "fused": fused_launches,
+             "int8": int8_launches, "train": train_launches,
+             "align": align_launches, "prep": prep_launches,
+             "ssl": ssl_launches, "mix": mix_launches, "zoo": zoo_launches,
+             "adv": adv_launches, "dca": dca_launches, "abl": abl_launches,
+             "dp": dp_launches, "tools": tools_launches}
+
+    def path_launches(fn_name):
+        """A kernel's launches on each path, each counted from 0 by that
+        path's own run, and their sum."""
+        per = {f"launches_{p}": n.get(fn_name, 0) for p, n in paths.items()}
+        return {"launches": sum(per.values()), **per}
+
     for name, (k_fn, plain_fn, lib_fn) in timed.items():
         with torch.no_grad():
             ms = kernel_ms(k_fn)
@@ -4377,32 +4512,9 @@ def main():
         dn = ("uint8" if name == "crop_normalize" else "float32"
               if name.startswith("segment") or name == "uvem_mine"
               else "bfloat16")
-        n_serve = launches.get(fn_name, 0)
-        n_fused = fused_launches.get(fn_name, 0)
-        n_int8 = int8_launches[fn_name]
-        n_train = train_launches[fn_name]
-        n_align = align_launches[fn_name]
-        n_ssl = ssl_launches[fn_name]
-        n_mix = mix_launches[fn_name]
-        n_zoo = zoo_launches[fn_name]
-        n_da = [c[fn_name] for c in (adv_launches, dca_launches,
-                                     abl_launches)]
-        n_prep = prep_launches[fn_name]
-        n_dp = dp_launches[fn_name]
-        n_tools = tools_launches[fn_name]
         record.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": (n_serve + n_fused + n_int8 + n_train + n_align
-                         + n_prep + n_ssl + n_mix + n_zoo + sum(n_da)
-                         + n_dp + n_tools),
-            "launches_serve": n_serve, "launches_fused": n_fused,
-            "launches_int8": n_int8, "launches_train": n_train,
-            "launches_align": n_align, "launches_prep": n_prep,
-            "launches_ssl": n_ssl,
-            "launches_mix": n_mix, "launches_zoo": n_zoo,
-            "launches_adv": n_da[0], "launches_dca": n_da[1],
-            "launches_abl": n_da[2], "launches_dp": n_dp,
-            "launches_tools": n_tools,
+            **path_launches(fn_name),
             "max_abs_err": errs[(name, dn)], "ms": ms,
             "ms_with_host": host_ms,
             "plain_ms": plain_ms, "bound_ms": bound,
@@ -4585,7 +4697,13 @@ def main():
                    "fused (1, 2, 3, 4)": fused[(1, 2, 3, 4)],
                    **int8_modes, "standard": model_bf16}
     replay_launches = serve_graph_phase(serve_modes)
-    for rec in record:
+    for rec in bnact_record:
+        rec.update(path_launches("bnact"),
+                   launches_per_standard_forward=bnact_std)
+    phase("launches", f"bnact on each path: "
+          f"{json.dumps(path_launches('bnact'))}; "
+          f"{bnact_std} a standard forward")
+    for rec in record + bnact_record:
         per_mode = {m: n[rec_fn[rec["name"]]]
                     for m, n in replay_launches.items()
                     if n.get(rec_fn[rec["name"]], 0) > 0}
@@ -4596,7 +4714,7 @@ def main():
              for i, (n, t) in enumerate(sections)]
     phase("done", f"{t_end - t_start:.1f} s: " + ", ".join(
         f"{n} {d:.1f} s" for n, d in spans))
-    print(json.dumps({"kernels": record}), flush=True)
+    print(json.dumps({"kernels": record + bnact_record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -8,7 +8,9 @@ bottleneck kernel in both dtypes at odd shapes and dilations, the int8 conv
 on the card against the CPU, the fused and int8 fast paths, training
 steps that go through the kernels (the adversarial and DCA steps eager
 against their CUDA-graph replays), TransNorm and the discriminator in
-bf16 against f32, the captured serving predictor against eager calls (and
+bf16 against f32, the eval BatchNorm epilogue (``bnact``) against its plain
+version and the standard forward on it against the library's calls, the
+captured serving predictor against eager calls (and
 its pool, and a capture that fails), ``sample_features`` on the card
 against the CPU, ``slide_predict`` against an eager predictor, the trace
 reader on a CUDA trace, and the card as the entry points' default.
@@ -1056,6 +1058,7 @@ def test_captured_step_equals_the_eager_step(dev, stage):
             <= 1e-4 * top
     assert stats["replays"] == 3 and stats["launches"]["crop_normalize"] == 2
     assert stats["launches"]["instance_norm_backward"] >= 1
+    assert stats["launches"]["bnact"] == 0   # train-mode BatchNorm
 
 
 @pytest.mark.parametrize("stage", ["src-accum", "proca", "ssl-ups",
@@ -2132,3 +2135,145 @@ def test_profile_dir_spans_the_sweeps_readback(dev, tmp_path):
         call = under + "serve.batch/predict.call"
         assert spans[call]["n"] == 2 * 2
         assert spans[call + "/predict.launch"]["n"] == 2 * 1
+
+
+def _bn_norm(c, seed, dev, dtype):
+    """(mean, var, weight, bias, eps) of a BatchNorm with drawn values, in
+    ``dtype`` as a serving copy of the model holds them."""
+    r = np.random.default_rng(seed)
+    vals = [r.normal(size=c), r.uniform(0.1, 2.0, size=c), r.normal(size=c),
+            r.normal(size=c)]
+    return tuple(torch.from_numpy(v.astype(np.float32)).to(dev, dtype)
+                 for v in vals) + (1e-5,)
+
+
+def _cl_at(x, misalign):
+    """x as channels_last; with ``misalign``, at one element past a 16-byte
+    boundary (the kernel's element route)."""
+    x = x.contiguous(memory_format=CL)
+    if not misalign:
+        return x
+    n, c, h, w = x.shape
+    base = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    out = base.as_strided(x.shape, (h * w * c, 1, w * c, c))
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,res,relu,misalign", [
+    ((8, 64, 256, 256), "none", True, False),          # the sweep's stem
+    ((8, 256, 128, 128), "identity", True, False),     # layer1's block end
+    ((8, 256, 128, 128), "downsample", True, False),   # layer1's first block
+    ((8, 2048, 32, 32), "downsample", True, False),    # layer4's first block
+    ((288, 1024, 32, 32), "identity", True, False),    # a sweep batch, layer3
+    ((288, 512, 1, 1), "none", True, False),           # the PPM's pooled maps
+    ((288, 512, 2, 2), "none", True, False),
+    ((288, 512, 3, 3), "none", True, False),
+    ((288, 512, 6, 6), "none", True, False),
+    ((3, 7, 9, 11), "downsample", False, False),       # odd C: element route
+    ((2, 36, 5, 5), "identity", True, False),          # C % 8 = 4
+    ((2, 64, 5, 5), "identity", False, True),          # misaligned pointers
+])
+def test_bnact_kernel(dev, dtype, shape, res, relu, misalign):
+    """The eval BatchNorm epilogue against its plain version on the card:
+    bf16 within one bf16 unit in the last place of the larger result (both
+    round the f32 result once; the f32 arithmetic differs in the fused
+    multiply-adds), f32 to 1e-5 relative and 1e-4 absolute; channels_last
+    out, one launch."""
+    from uemda_tpu_torch.ops.bnact import bnact, bnact_plain
+
+    c = shape[1]
+    x = _cl_at(_randn(shape, 1, dev, dtype, scale=3.0), misalign)
+    norm = _bn_norm(c, 2, dev, dtype)
+    r = None if res == "none" else _cl_at(_randn(shape, 3, dev, dtype),
+                                          misalign)
+    rnorm = _bn_norm(c, 4, dev, torch.float32) if res == "downsample" \
+        else None
+    n = bnact.launches
+    got = bnact(x, norm, relu, r, rnorm)
+    assert bnact.launches == n + 1
+    assert got.is_contiguous(memory_format=CL) and got.dtype == dtype
+    want = bnact_plain(x, norm, relu, r, rnorm)
+    g, w = got.float(), want.float()
+    if dtype == torch.bfloat16:
+        tol = 2.0 ** -7 * torch.maximum(g.abs(), w.abs()) + 1e-4
+    else:
+        tol = 1e-5 * w.abs() + 1e-4   # terms up to ~150: an f32 ulp 1.5e-5
+    bad = int(((g - w).abs() > tol).sum())
+    assert bad == 0, (bad, float((g - w).abs().max()))
+
+
+def test_bnact_refuses_what_it_does_not_take(dev):
+    from uemda_tpu_torch.ops.bnact import bnact
+
+    x = _randn((2, 32, 4, 4), 1, dev, torch.bfloat16).contiguous(
+        memory_format=CL)
+    norm = _bn_norm(32, 2, dev, torch.bfloat16)
+    n = bnact.launches
+    with pytest.raises(ValueError, match="channels_last"):
+        bnact(x.contiguous(), norm)
+    with pytest.raises(ValueError, match="does not match"):
+        bnact(x, norm, residual=x.float().contiguous(memory_format=CL))
+    with pytest.raises(ValueError, match="contiguous f32 or bf16"):
+        bnact(x, _bn_norm(16, 2, dev, torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous f32 or bf16"):
+        bnact(x, tuple(t.cpu() for t in norm[:4]) + (1e-5,))
+    assert bnact.launches == n
+
+
+def test_standard_eval_forward_with_bnact_equals_the_library_path(dev):
+    """The flagship (ResNet-50 OS16, dual PPM) eval forward: under
+    ``no_grad`` every BatchNorm epilogue is one ``bnact`` launch (59 a
+    forward); with gradients on, the library's calls and no launch. In f32
+    the two equal at the eval gate, rtol 1e-3 and atol 2e-4; in bf16 the
+    epilogue's probabilities, rounded once where the library rounds twice,
+    lie no farther from the f32 forward's on average than the library's
+    (5% of room)."""
+    from uemda_tpu_torch.ops.bnact import bnact
+
+    model = DeeplabV2(DeeplabV2Config.uemda_default(6),
+                      generator=torch.Generator().manual_seed(0)).eval()
+    x = _randn((2, 3, 128, 128), 5, dev, torch.float32).contiguous(
+        memory_format=CL)
+    probs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model.to(dtype)
+        n = bnact.launches
+        with torch.no_grad():
+            probs[dtype, "bnact"] = model(x.to(dtype)).float()
+        assert bnact.launches == n + 59
+        probs[dtype, "library"] = model(x.to(dtype)).detach().float()
+        assert bnact.launches == n + 59
+    torch.cuda.synchronize()
+    f32 = probs[torch.float32, "bnact"]
+    np.testing.assert_allclose(
+        f32.cpu().numpy(), probs[torch.float32, "library"].cpu().numpy(),
+        rtol=1e-3, atol=2e-4)
+    err = {k: float((probs[torch.bfloat16, k] - f32).abs().mean())
+           for k in ("bnact", "library")}
+    assert err["bnact"] <= 1.05 * err["library"], err
+
+
+def test_captured_standard_predictor_holds_59_bnact_launches(dev):
+    """The standard bf16 forward (ResNet-50 OS16, dual PPM) through the
+    captured slide + TTA predictor: a replay holds 59 ``bnact`` launches
+    (stem 1, 16 blocks x 3, two heads x 5) and equals eager calls within
+    2e-4."""
+    from uemda_tpu_torch.infer.slide import make_predictor
+
+    net = DeeplabV2(DeeplabV2Config.uemda_default(6),
+                    generator=torch.Generator().manual_seed(0)).eval() \
+        .to(torch.bfloat16)
+    kw = dict(tile=(64, 64), image_hw=(96, 96), tta=True,
+              compute_dtype=torch.bfloat16)
+    eager = make_predictor(net, capture=False, **kw)
+    graph = make_predictor(net, **kw)
+    for seed in (1, 2):
+        x = _randn((2, 3, 96, 96), seed, dev, torch.float32)
+        ref = eager(x)
+        got = graph(x)
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max()) <= 2e-4, seed
+    st = graph.close()
+    assert st["replays"] == 1 and st["launches"]["bnact"] == 59, st

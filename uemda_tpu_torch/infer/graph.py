@@ -36,6 +36,7 @@ from uemda_tpu_torch.utils import trace
 def kernel_wrappers():
     """The port's kernel wrappers (each counts its launches): what a
     capture reports as the launches a replay holds."""
+    from uemda_tpu_torch.ops.bnact import bnact
     from uemda_tpu_torch.ops.crop import crop_normalize
     from uemda_tpu_torch.ops.insnorm import (
         instance_norm,
@@ -53,7 +54,7 @@ def kernel_wrappers():
 
     return (crop_normalize, instance_norm, instance_norm_backward, segment_max,
             segment_sum, segment_gather, tail_upsample_softmax_mean, uvem_mine,
-            stem_pool, bottleneck_identity)
+            stem_pool, bottleneck_identity, bnact)
 
 
 def capture(fn: Callable, stream: torch.cuda.Stream,

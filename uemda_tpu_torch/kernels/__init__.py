@@ -30,7 +30,7 @@ import torch
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 SOURCES = ("insnorm", "stem", "tail", "crop", "segment", "mine", "resblock",
-           "trace")
+           "trace", "bnact")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -22,7 +22,7 @@ import torch
 import torch.nn as nn
 
 from uemda_tpu_torch.models.config import PPMConfig
-from uemda_tpu_torch.models.resnet import BatchNorm, conv
+from uemda_tpu_torch.models.resnet import BatchNorm, bn_act, conv
 from uemda_tpu_torch.ops.resize import adaptive_avg_pool, resize_bilinear
 
 
@@ -84,11 +84,13 @@ class PPMBilinear(nn.Module):
                 dropout_mask: Optional[torch.Tensor] = None):
         """``generator``/``dropout_mask`` feed the train-mode dropout."""
         h, w = feat.shape[2], feat.shape[3]
-        outs = [feat] + [resize_bilinear(m(feat), (h, w), align_corners=False)
+        # each branch: pool, 1x1 conv, BatchNorm + ReLU (bn_act)
+        outs = [feat] + [resize_bilinear(bn_act(m[2], m[1](m[0](feat))), (h, w),
+                                         align_corners=False)
                          for m in self.ppm]
         x = torch.cat(outs, dim=1).contiguous(memory_format=torch.channels_last)
         last = self.conv_last
-        x = last[2](last[1](last[0](x)))
+        x = bn_act(last[1], last[0](x))
         return last[4](last[3](x, generator, dropout_mask))
 
 

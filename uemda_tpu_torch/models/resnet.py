@@ -24,10 +24,17 @@ v1c deep stem (three 3x3 convs, ``stem``). Module names follow torchvision
   the BatchNorm running statistics a second time (flax throws the
   recompute's mutations away), so it runs under :func:`_recomputing`,
   which :class:`BatchNorm` reads.
+* The BatchNorm epilogues (BatchNorm, the block's residual, ReLU) go
+  through :func:`bn_act`: where each BatchNorm uses its running statistics
+  and no gradient is wanted (:func:`epilogue_applies`), one pass of the
+  ``bnact`` op (the last BatchNorm of a block takes the downsample branch's
+  BatchNorm and the add with it); otherwise the library's calls, as the
+  modules make them. A block's downsample branch runs at its end, in the
+  epilogue's call.
 """
 
 import contextlib
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -35,6 +42,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from uemda_tpu_torch.models.config import BackboneConfig
+from uemda_tpu_torch.ops import bnact as _bnact
 from uemda_tpu_torch.parallel import mesh
 
 
@@ -122,6 +130,58 @@ class BatchNorm(nn.BatchNorm2d):
         return y.to(x.dtype)
 
 
+def bn_norm(bn: nn.Module) -> _bnact.Norm:
+    """A BatchNorm module as ``ops/bnact`` takes it: its running
+    statistics, affine parameters and eps."""
+    return bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps
+
+
+def epilogue_applies(modules: Sequence[nn.Module],
+                     tensors: Sequence[torch.Tensor]) -> bool:
+    """Whether one ``bnact`` pass computes what ``modules`` (an epilogue's
+    BatchNorm, and a block's downsample branch) would on ``tensors``, with
+    nothing lost: each BatchNorm among them uses its running statistics
+    (eval mode, or ``frozen``), no gradient is wanted (grad mode off, or
+    neither the tensors nor the modules' parameters need one), and on the
+    card every tensor is bf16 or f32 and channels_last."""
+    if any(m.training and not getattr(m, "frozen", False)
+           for mod in modules for m in mod.modules()
+           if isinstance(m, nn.BatchNorm2d)):
+        return False
+    if torch.is_grad_enabled() and (
+            any(t.requires_grad for t in tensors)
+            or any(p.requires_grad for m in modules for p in m.parameters())):
+        return False
+    x = tensors[0]
+    if x.device.type == "cpu":
+        return True
+    return all(t.dtype == x.dtype and t.dtype in (torch.bfloat16,
+                                                  torch.float32)
+               and t.is_contiguous(memory_format=torch.channels_last)
+               for t in tensors)
+
+
+def bn_act(bn: nn.Module, x: torch.Tensor, relu: bool = True,
+           identity: Optional[torch.Tensor] = None,
+           downsample: Optional[nn.Sequential] = None) -> torch.Tensor:
+    """``bn(x)``, plus a block's residual -- ``identity`` as it is, or
+    ``downsample(identity)`` -- then ReLU if ``relu``. Where
+    :func:`epilogue_applies`, one ``bnact`` pass (after the downsample
+    conv, whose BatchNorm the pass folds in); else the modules' own
+    calls."""
+    modules = (bn,) if downsample is None else (bn, downsample)
+    tensors = (x,) if identity is None else (x, identity)
+    if not epilogue_applies(modules, tensors):
+        y = bn(x)
+        if identity is not None:
+            y = y + (identity if downsample is None else downsample(identity))
+        return F.relu(y) if relu else y
+    if downsample is None:
+        return _bnact.bnact(x, bn_norm(bn), relu, identity)
+    return _bnact.bnact(x, bn_norm(bn), relu, downsample[0](identity),
+                        bn_norm(downsample[1]))
+
+
 class BasicBlock(nn.Module):
     expansion = 1
 
@@ -141,10 +201,9 @@ class BasicBlock(nn.Module):
         ) if downsample else None
 
     def forward(self, x):
-        identity = x if self.downsample is None else self.downsample(x)
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        return F.relu(out + identity)
+        out = bn_act(self.bn1, self.conv1(x))
+        return bn_act(self.bn2, self.conv2(out), identity=x,
+                      downsample=self.downsample)
 
 
 class Bottleneck(nn.Module):
@@ -169,11 +228,10 @@ class Bottleneck(nn.Module):
         ) if downsample else None
 
     def forward(self, x):
-        identity = x if self.downsample is None else self.downsample(x)
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        return F.relu(out + identity)
+        out = bn_act(self.bn1, self.conv1(x))
+        out = bn_act(self.bn2, self.conv2(out))
+        return bn_act(self.bn3, self.conv3(out), identity=x,
+                      downsample=self.downsample)
 
 
 RESNET_SPECS = {
@@ -256,7 +314,11 @@ class ResNet(nn.Module):
             self.add_module(f"layer{si + 1}", nn.Sequential(*blocks))
 
     def forward(self, x) -> List[torch.Tensor]:
-        x = self.stem(x) if self.deep_stem else F.relu(self.bn1(self.conv1(x)))
+        if self.deep_stem:
+            for i in range(0, len(self.stem), 3):   # conv, BatchNorm, ReLU
+                x = bn_act(self.stem[i + 1], self.stem[i](x))
+        else:
+            x = bn_act(self.bn1, self.conv1(x))
         x = _max_pool_3x3_s2(x)
         outs = []
         for si in range(self.num_stages):
